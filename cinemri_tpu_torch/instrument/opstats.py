@@ -1,0 +1,78 @@
+"""Where a forward's device time goes, from a ``torch.profiler`` trace.
+
+Counterpart of ``cinemri_tpu/instrument/opstats.py``: parses the kernel
+events of an exported chrome trace and folds their durations by kind
+(the port's CUDA kernels, convolutions, normalization, elementwise, ...),
+and reports the device's busy and idle share over the traced window.
+``chip_smoke.py`` folds its profiled flagship forward with these.
+"""
+
+from __future__ import annotations
+
+import json
+from collections import defaultdict
+from pathlib import Path
+from typing import Dict, List, Tuple
+
+__all__ = ["kernel_events", "fold_by_kind", "busy_share", "KINDS"]
+
+# (kind, substrings of the lower-cased kernel name), first match wins
+KINDS: Tuple[Tuple[str, Tuple[str, ...]], ...] = (
+    ("dft_matmul (port kernel)", ("dft_matmul_kernel",)),
+    ("normal_apply (port kernel)", ("normal_apply_kernel",)),
+    ("instance norm", ("batch_norm", "instance_norm", "welford")),
+    # cuDNN's FFT convolutions run fft2d_* and pointwise_mult_and_sum_complex
+    ("conv / gemm (cuDNN, cuBLAS)", ("conv", "implicit", "xmma", "cudnn", "sm90", "sm80",
+                                     "gemm", "winograd", "cutlass", "dgrad", "wgrad",
+                                     "fft2d", "pointwise_mult_and_sum")),
+    ("pooling", ("pool",)),
+    ("copy / cat / pad", ("memcpy", "memset", "copy", "cat", "pad", "flip")),
+    ("reduction", ("reduce",)),
+    ("elementwise", ("elementwise", "vectorized", "unrolled", "leaky")),
+)
+
+_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def kernel_events(trace_path) -> List[Tuple[str, float, float]]:
+    """``(name, start_us, duration_us)`` of every device event in a chrome trace."""
+    trace = json.loads(Path(trace_path).read_text())
+    events = trace["traceEvents"] if isinstance(trace, dict) else trace
+    return [(e["name"], float(e["ts"]), float(e["dur"]))
+            for e in events if e.get("cat") in _CATS and "dur" in e]
+
+
+def _kind(name: str) -> str:
+    low = name.lower()
+    for kind, keys in KINDS:
+        if any(k in low for k in keys):
+            return kind
+    return "other"
+
+
+def fold_by_kind(events) -> Dict[str, dict]:
+    """Device milliseconds and event counts per kind, largest first."""
+    acc = defaultdict(lambda: [0.0, 0])
+    for name, _, dur in events:
+        a = acc[_kind(name)]
+        a[0] += dur / 1e3
+        a[1] += 1
+    return {k: {"ms": v[0], "count": v[1]}
+            for k, v in sorted(acc.items(), key=lambda kv: -kv[1][0])}
+
+
+def busy_share(events) -> Tuple[float, float]:
+    """(busy ms, window ms): the union of event intervals over first start to last end."""
+    spans = sorted((ts, ts + dur) for _, ts, dur in events)
+    busy, cur_s, cur_e = 0.0, None, None
+    for s, e in spans:
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        busy += cur_e - cur_s
+    window = spans[-1][1] - spans[0][0] if spans else 0.0
+    return busy / 1e3, window / 1e3

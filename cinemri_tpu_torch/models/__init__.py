@@ -1,0 +1,68 @@
+"""Model layer of the port (counterpart of ``cinemri_tpu/models``).
+
+Only the VarNet family, XF and XT, is ported so far; the other families and
+dynamic types raise ``NotImplementedError`` naming their ROADMAP item.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from cinemri_tpu_torch import resolve_device
+from cinemri_tpu_torch.models import denoisers
+from cinemri_tpu_torch.models.init import torch_style_init
+from cinemri_tpu_torch.models.varnet import SensitivityModel, VarNet, VarNetCascade
+
+__all__ = [
+    "VarNet",
+    "VarNetCascade",
+    "SensitivityModel",
+    "denoisers",
+    "build_model",
+    "torch_style_init",
+]
+
+_NOT_PORTED = {
+    "cinenet": "ROADMAP Queue 1, item 10: CineNet",
+    "xpdnet": "ROADMAP Queue 1, item 11: XPDNet",
+}
+
+
+def build_model(
+    family: str,
+    dynamic_type: str = "XF",
+    device=None,
+    generator: Optional[torch.Generator] = None,
+    **kwargs,
+):
+    """Build a model by family and dynamic type, torch-style initialized.
+
+    ``device`` defaults to CUDA and raises without a CUDA device; pass
+    ``device="cpu"`` to build on the CPU. ``generator`` draws the initial
+    weights (a CPU ``torch.Generator`` seeded 0 when omitted). Keyword
+    arguments go to the model class; unknown keys raise.
+    """
+    dev = resolve_device(device)
+    family = family.lower()
+    allowed = {
+        "varnet": ("2D", "3D", "XT", "XF", "CRNN"),
+        "cinenet": ("2D", "3D", "XT", "XF", "CRNN"),
+        "xpdnet": ("2D", "XT", "XF", "CRNN"),
+    }
+    if family not in allowed:
+        raise ValueError(f"unknown model family {family!r}")
+    if dynamic_type not in allowed[family]:
+        raise ValueError(
+            f"dynamic_type {dynamic_type!r} not supported for {family}: {allowed[family]}"
+        )
+    if family in _NOT_PORTED:
+        raise NotImplementedError(f"{family} is not ported yet ({_NOT_PORTED[family]})")
+    if dynamic_type == "CRNN":
+        raise NotImplementedError("VarNet CRNN is not ported yet (ROADMAP Queue 1, item 12: CRNN)")
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+    model = VarNet(dynamic_type=dynamic_type, **kwargs)
+    torch_style_init(model, generator)
+    return model.to(dev)

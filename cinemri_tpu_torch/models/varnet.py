@@ -1,0 +1,163 @@
+"""Dynamic End-to-End Variational Network (VarNet), forward pass.
+
+Counterpart of ``cinemri_tpu/models/varnet.py`` for the XF and XT dynamic
+types: unrolled cascades with a learned-λ soft data-consistency step, a
+learned sensitivity-map U-Net, and a regularizer shared by every cascade
+(one :class:`VarNetCascade` module called ``num_cascades`` times, as the
+flax ``nn.scan`` broadcasts its params). The cascade loop is a Python loop.
+
+With ``kernel_dc`` and a line mask, cascades run in image space through the
+precomputed h-axis normal kernel (``physics.soft_dc_image_kernel``);
+otherwise they run the direct k-space form through ``sens_expand`` /
+``soft_dc``.
+
+I/O: ``masked_kspace (b, t, c, h, w)`` Complex, ``mask (b, t|1, 1, h, 1)``
+float32 -> magnitude image ``(b, t, h, w)`` float32.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from cinemri_tpu_torch.models.denoisers.norm_unet import NormUnet
+from cinemri_tpu_torch.ops.coil import rss_complex
+from cinemri_tpu_torch.ops.cplx import Complex, cmean
+from cinemri_tpu_torch.ops.fft import fft1c, ifft1c, ifft2c
+from cinemri_tpu_torch.physics.lowfreq import center_band_rows, mask_center_band
+from cinemri_tpu_torch.physics.operators import (
+    coil_weight,
+    is_line_mask,
+    masked_normal_kernel,
+    sens_expand,
+    sens_reduce,
+    soft_dc,
+    soft_dc_image_kernel,
+)
+
+__all__ = ["VarNet", "VarNetCascade", "SensitivityModel", "LAMBDA_INIT", "DYNAMIC_TYPES"]
+
+# softplus(LAMBDA_INIT) == 1
+LAMBDA_INIT = math.log(math.e - 1.0)
+
+DYNAMIC_TYPES = ("2D", "3D", "XT", "XF")
+PORTED_TYPES = ("XT", "XF")
+
+
+class SensitivityModel(nn.Module):
+    """Learned coil sensitivities: IFFT of the center-band-masked,
+    time-averaged k-space, a per-coil NormUnet (coils folded into the
+    batch), then RSS normalization. Output ``(b, 1, c, h, w)``."""
+
+    def __init__(self, chans: int, num_pools: int, packed: bool = False):
+        super().__init__()
+        self.norm_unet = NormUnet(chans, num_pools, packed=packed)
+
+    def forward(self, masked_kspace: Complex, mask: torch.Tensor) -> Complex:
+        # one band per sample, from that sample's frame 0
+        pad, num_low = center_band_rows(mask[:, 0, 0, :, 0])
+        x = mask_center_band(cmean(masked_kspace, axis=1), pad, num_low, axis=-2)
+        x = ifft2c(x)  # (b, c, h, w)
+        b, c, h, w = x.shape
+        x = self.norm_unet(x.reshape(b * c, h, w)).reshape(b, c, h, w)
+        x = x / rss_complex(x, axis=1)[:, None]
+        return x[:, None]
+
+
+class VarNetCascade(nn.Module):
+    """One unrolled block; a single instance serves every cascade."""
+
+    def __init__(self, chans: int, pools: int, dynamic_type: str = "XF",
+                 weight_sharing: bool = False, packed: bool = False):
+        super().__init__()
+        if dynamic_type not in PORTED_TYPES:
+            raise NotImplementedError(
+                f"VarNet dynamic_type {dynamic_type!r} is not ported yet "
+                "(ROADMAP Queue 1, item 6: 2D/3D cascades)"
+            )
+        self.dynamic_type = dynamic_type
+        self.weight_sharing = weight_sharing
+        if weight_sharing:
+            self.plane_net = NormUnet(chans, pools, packed=packed)
+        else:
+            self.net_xf = NormUnet(chans, pools, packed=packed)
+            self.net_yf = NormUnet(chans, pools, packed=packed)
+
+    def _xfyf(self, x: Complex) -> Complex:
+        """Rotated-plane regularization: temporal-mean subtraction, temporal
+        FFT (XF only), NormUnets over the (w, t) and (h, t) plane batches,
+        average, inverse FFT, mean restored."""
+        b, t, h, w = x.shape
+        mean = cmean(x, axis=1, keepdims=True)
+        x = x - mean
+        if self.dynamic_type == "XF":
+            x = fft1c(x, axis=1)
+        xf = x.transpose(0, 2, 3, 1).reshape(b * h, w, t)
+        yf = x.transpose(0, 3, 2, 1).reshape(b * w, h, t)
+        net_xf = self.plane_net if self.weight_sharing else self.net_xf
+        net_yf = self.plane_net if self.weight_sharing else self.net_yf
+        xf = net_xf(xf).reshape(b, h, w, t).transpose(0, 3, 1, 2)
+        yf = net_yf(yf).reshape(b, w, h, t).transpose(0, 3, 2, 1)
+        out = 0.5 * (xf + yf)
+        if self.dynamic_type == "XF":
+            out = ifft1c(out, axis=1)
+        return out + mean
+
+    def forward(self, carry: Complex, lam: torch.Tensor, ref: Complex,
+                mask: torch.Tensor, sens_maps: Complex, dc_kernel, rss0=None) -> Complex:
+        # direct form: carry/ref are k-space; kernel form: the combined image
+        if dc_kernel is None:
+            image = sens_reduce(carry, sens_maps)[:, :, 0]  # (b, t, h, w)
+        else:
+            image = carry[:, :, 0]
+        model_out = self._xfyf(image)[:, :, None]
+        v = F.softplus(lam)
+        if dc_kernel is None:
+            return soft_dc(sens_expand(model_out, sens_maps), ref, mask, v)
+        return soft_dc_image_kernel(model_out, ref, dc_kernel, sens_maps, v, rss_sq=rss0)
+
+
+class VarNet(nn.Module):
+    """Full dynamic VarNet (XF / XT)."""
+
+    def __init__(
+        self,
+        num_cascades: int = 12,
+        sens_chans: int = 8,
+        sens_pools: int = 4,
+        chans: int = 18,
+        pools: int = 4,
+        dynamic_type: str = "XF",
+        weight_sharing: bool = False,
+        packed: bool = False,
+        kernel_dc: bool = True,
+    ):
+        super().__init__()
+        if dynamic_type not in DYNAMIC_TYPES:
+            raise ValueError(
+                f"dynamic_type must be one of {DYNAMIC_TYPES} (CRNN is a separate model)"
+            )
+        self.num_cascades = num_cascades
+        self.kernel_dc = kernel_dc
+        self.sens_net = SensitivityModel(sens_chans, sens_pools, packed=packed)
+        self.cascades = VarNetCascade(chans, pools, dynamic_type, weight_sharing, packed)
+        self.lambda_reg = nn.Parameter(torch.full((num_cascades,), LAMBDA_INIT))
+
+    def forward(self, masked_kspace: Complex, mask: torch.Tensor) -> torch.Tensor:
+        sens_maps = self.sens_net(masked_kspace, mask)
+        if self.kernel_dc and is_line_mask(mask):
+            dc_kernel = masked_normal_kernel(mask)
+            rss0 = coil_weight(sens_maps)
+            x_ref = sens_reduce(masked_kspace, sens_maps)  # (b, t, 1, h, w)
+            carry, ref = x_ref, x_ref
+        else:
+            dc_kernel, rss0, carry, ref = None, None, masked_kspace, masked_kspace
+        for i in range(self.num_cascades):
+            carry = self.cascades(carry, self.lambda_reg[i], ref, mask, sens_maps,
+                                  dc_kernel, rss0)
+        if dc_kernel is not None:
+            return carry[:, :, 0].abs()  # carry is sens_reduce(k_pred)
+        return sens_reduce(carry, sens_maps, keepdims=False).abs()

@@ -1,0 +1,135 @@
+"""Centered Fourier transforms.
+
+Counterpart of ``cinemri_tpu/ops/fft.py``. Two dispatch paths behind one API:
+
+  * :class:`~cinemri_tpu_torch.ops.cplx.Complex` inputs (the compute path)
+    run the centered transform along one axis as a dense DFT matrix product
+    ``y = W_c x`` with ``W_c = shift ∘ F ∘ shift⁻¹`` folded into one N x N
+    complex matrix, built once per (length, direction, convention, norm,
+    device). The product goes through
+    :func:`~cinemri_tpu_torch.ops.kernels.dft_cuda.complex_dft_matmul`: the
+    hand-written CUDA kernel for a CUDA tensor, its plain PyTorch version for
+    a CPU tensor. The arithmetic is full f32 (the JAX package's
+    ``Precision.HIGHEST``); there is no reduced-precision mode yet.
+  * ``complex64`` tensors or numpy arrays use ``torch.fft`` (host-side
+    preprocessing and test oracles only).
+
+Conventions: ``fft2c``/``ifft2c`` shift over the last two axes with ortho
+norm; ``fft1c``/``ifft1c`` are the centered 1-D transforms along ``axis``.
+"""
+
+from __future__ import annotations
+
+from functools import lru_cache
+
+import numpy as np
+import torch
+
+from cinemri_tpu_torch.ops.cplx import Complex
+from cinemri_tpu_torch.ops.kernels import dft_cuda
+
+__all__ = [
+    "set_dft_backend",
+    "fft1c",
+    "ifft1c",
+    "fft2c",
+    "ifft2c",
+]
+
+# Backend of the Complex-pair DFT product: "kernel" sends CUDA tensors to
+# the hand-written CUDA kernel (CPU tensors to its plain version); "torch"
+# sends every tensor to the plain PyTorch version. "torch" on the card is
+# an explicit choice, made to compare the two.
+_DFT_BACKEND = "kernel"
+
+
+def set_dft_backend(backend: str) -> None:
+    global _DFT_BACKEND
+    if backend not in ("kernel", "torch"):
+        raise ValueError(f"unknown DFT backend {backend!r}")
+    _DFT_BACKEND = backend
+
+
+@lru_cache(maxsize=None)
+def _dft_matrix(n: int, inverse: bool, alt: bool, norm: str):
+    """Centered DFT matrix columns: transform of the unit basis vectors."""
+    eye = np.eye(n, dtype=np.complex128)
+    f = np.fft.ifft if inverse else np.fft.fft
+    if not alt:
+        # standard centered: fftshift ∘ F ∘ ifftshift
+        m = np.fft.fftshift(f(np.fft.ifftshift(eye, axes=0), axis=0, norm=norm), axes=0)
+    elif not inverse:
+        # alt forward (XPDNet's opposite shift order): ifftshift ∘ F ∘ fftshift
+        m = np.fft.ifftshift(f(np.fft.fftshift(eye, axes=0), axis=0, norm=norm), axes=0)
+    else:
+        # true inverse of the alt forward transform
+        fwd = np.fft.ifftshift(
+            np.fft.fft(np.fft.fftshift(eye, axes=0), axis=0, norm=norm), axes=0
+        )
+        m = np.linalg.inv(fwd)
+    return (
+        np.ascontiguousarray(m.real, dtype=np.float32),
+        np.ascontiguousarray(m.imag, dtype=np.float32),
+    )
+
+
+@lru_cache(maxsize=64)
+def _dft_tensors(n: int, inverse: bool, alt: bool, norm: str, device: torch.device):
+    """:func:`_dft_matrix` as f32 tensors on ``device`` (one copy per device)."""
+    wr, wi = _dft_matrix(n, inverse, alt, norm)
+    return torch.from_numpy(wr).to(device), torch.from_numpy(wi).to(device)
+
+
+def _apply_dft(x: Complex, axis: int, inverse: bool, alt: bool, norm: str) -> Complex:
+    """Centered DFT along ``axis``: move the axis last, run the (B, N) x (N, N)
+    complex product, move it back. The move costs one copy of ``x`` unless
+    the axis is already last and ``x`` is contiguous."""
+    axis = axis % x.ndim
+    n = x.shape[axis]
+    wr, wi = _dft_tensors(n, inverse, alt, norm, x.re.device)
+    xr = torch.movedim(x.re, axis, -1).contiguous().reshape(-1, n)
+    xi = torch.movedim(x.im, axis, -1).contiguous().reshape(-1, n)
+    if _DFT_BACKEND == "kernel":
+        yr, yi = dft_cuda.complex_dft_matmul(xr, xi, wr, wi)
+    else:
+        yr, yi = dft_cuda.complex_dft_matmul_torch(xr, xi, wr, wi)
+    moved = tuple(s for a, s in enumerate(x.shape) if a != axis) + (n,)
+    return Complex(
+        torch.movedim(yr.reshape(moved), -1, axis),
+        torch.movedim(yi.reshape(moved), -1, axis),
+    )
+
+
+def _native(x, axis: int, inverse: bool, norm: str):
+    """Centered 1-D transform of a complex tensor / numpy array with torch.fft."""
+    as_numpy = isinstance(x, np.ndarray)
+    t = torch.from_numpy(x) if as_numpy else x
+    f = torch.fft.ifft if inverse else torch.fft.fft
+    y = torch.fft.fftshift(f(torch.fft.ifftshift(t, dim=axis), dim=axis, norm=norm), dim=axis)
+    return y.numpy() if as_numpy else y
+
+
+def _centered(x, axis: int, inverse: bool, norm: str):
+    if isinstance(x, Complex):
+        return _apply_dft(x, axis, inverse, alt=False, norm=norm)
+    return _native(x, axis, inverse, norm)
+
+
+def fft1c(x, axis: int = -1, norm: str = "ortho"):
+    """Centered 1-D FFT along ``axis``."""
+    return _centered(x, axis, inverse=False, norm=norm)
+
+
+def ifft1c(x, axis: int = -1, norm: str = "ortho"):
+    """Centered 1-D inverse FFT along ``axis``."""
+    return _centered(x, axis, inverse=True, norm=norm)
+
+
+def fft2c(x, norm: str = "ortho"):
+    """Centered 2-D FFT over the last two axes."""
+    return fft1c(fft1c(x, axis=-2, norm=norm), axis=-1, norm=norm)
+
+
+def ifft2c(x, norm: str = "ortho"):
+    """Centered 2-D inverse FFT over the last two axes."""
+    return ifft1c(ifft1c(x, axis=-2, norm=norm), axis=-1, norm=norm)

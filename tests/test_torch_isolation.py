@@ -1,0 +1,68 @@
+"""The port imports nothing of JAX or of the JAX package, and builds or loads
+no kernel on import."""
+
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+
+_PROBE = r"""
+import importlib, json, pkgutil, subprocess, sys
+spawned = []
+class _Spy(subprocess.Popen):
+    def __init__(self, args, *a, **k):
+        spawned.append(str(args))
+        super().__init__(args, *a, **k)
+subprocess.Popen = _Spy
+import cinemri_tpu_torch
+from cinemri_tpu_torch.ops.kernels import _build
+mods = []
+for info in pkgutil.walk_packages(cinemri_tpu_torch.__path__, "cinemri_tpu_torch."):
+    importlib.import_module(info.name)
+    mods.append(info.name)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "cinemri_tpu"))
+print(json.dumps({"modules": mods, "bad": bad, "loaded": sorted(_build._LIBS),
+                  "triton": "triton" in sys.modules, "spawned": spawned}))
+"""
+
+
+def test_port_imports_no_jax_and_builds_nothing():
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", _PROBE], capture_output=True, text=True,
+                          env=env, cwd=str(ROOT), timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    for name in ("cinemri_tpu_torch.ops.kernels.dft_cuda",
+                 "cinemri_tpu_torch.ops.kernels.normal_cuda",
+                 "cinemri_tpu_torch.serve",
+                 "cinemri_tpu_torch.interop.flax_params",
+                 "cinemri_tpu_torch.models.varnet",
+                 "cinemri_tpu_torch.data.masks"):
+        assert name in out["modules"]
+    assert out["bad"] == []
+    assert out["loaded"] == []  # no kernel library loaded
+    assert out["spawned"] == []  # no compiler started
+    assert not out["triton"]
+
+
+def test_chip_smoke_imports_no_jax():
+    """chip_smoke.py exits before any result without a CUDA device, and its
+    imports hold no JAX."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    code = ("import runpy, sys, json\n"
+            "try:\n"
+            "    runpy.run_path('chip_smoke.py', run_name='__main__')\n"
+            "except SystemExit as e:\n"
+            "    code = e.code\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'cinemri_tpu'))\n"
+            "print(json.dumps({'code': code, 'bad': bad}))\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          env=env, cwd=str(ROOT), timeout=300)
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["code"] not in (0, None)
+    assert out["bad"] == []
+    assert '"ok": true' not in proc.stdout

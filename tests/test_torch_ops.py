@@ -1,0 +1,192 @@
+"""Port ops (cinemri_tpu_torch.ops) against the JAX package on the CPU.
+
+Inputs are made with numpy from a seed and handed to both sides. Tolerance
+1e-5 rel/abs for f32 ops (as tests/test_kernels.py holds the normal apply):
+both sides compute in f32, in a different summation order.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+import cinemri_tpu.ops.fft as JF
+from cinemri_tpu.ops.cplx import Complex as JComplex
+from cinemri_tpu.ops.cplx import to_numpy as j_to_numpy
+from cinemri_tpu.ops.kernels.dft_pallas import complex_dft_matmul_pallas
+
+from cinemri_tpu_torch.ops import fft as TF
+from cinemri_tpu_torch.ops.cplx import cmean, csum, from_channels, from_complex, to_channels, to_numpy
+from cinemri_tpu_torch.ops.coil import rss, rss_complex
+from cinemri_tpu_torch.ops.kernels import dft_cuda
+from cinemri_tpu_torch.ops.pad import pad_to_multiple, unpad
+from cinemri_tpu_torch.physics.lowfreq import center_band, mask_center_band
+from cinemri_tpu.physics import lowfreq as JL
+from cinemri_tpu.ops import pad as JP
+
+torch.set_num_threads(2)
+
+TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+def c64(rng, *shape):
+    return (rng.standard_normal(shape) + 1j * rng.standard_normal(shape)).astype(np.complex64)
+
+
+def jc(x):
+    return JComplex(jnp.asarray(x.real), jnp.asarray(x.imag))
+
+
+class TestComplex:
+    def test_arithmetic_matches_numpy(self, rng):
+        a, b = c64(rng, 3, 5), c64(rng, 3, 5)
+        ta, tb = from_complex(a), from_complex(b)
+        np.testing.assert_allclose(to_numpy(ta * tb), a * b, rtol=1e-6, atol=1e-6)
+        np.testing.assert_allclose(to_numpy(ta / tb), a / b, rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(to_numpy(ta - tb + 2.0), a - b + 2.0, rtol=1e-6)
+        np.testing.assert_allclose(to_numpy(ta.conj()), a.conj())
+        np.testing.assert_allclose(ta.abs().numpy(), np.abs(a), rtol=1e-6)
+        np.testing.assert_allclose(to_numpy(ta.transpose(1, 0)), a.T)
+        np.testing.assert_allclose(to_numpy(ta[1:]), a[1:])
+
+    def test_reductions_and_channels(self, rng):
+        a = c64(rng, 2, 3, 4)
+        ta = from_complex(a)
+        np.testing.assert_allclose(to_numpy(csum(ta, axis=1)), a.sum(1), rtol=1e-5)
+        np.testing.assert_allclose(to_numpy(cmean(ta, axis=1, keepdims=True)),
+                                   a.mean(1, keepdims=True), rtol=1e-5)
+        r = to_channels(ta, axis=1)
+        assert r.shape == (2, 2, 3, 4)
+        np.testing.assert_allclose(to_numpy(from_channels(r, axis=1)), a)
+        np.testing.assert_allclose(to_numpy(from_complex(torch.from_numpy(a))), a)
+
+
+class TestDFT:
+    @pytest.mark.parametrize("shape", [(2, 3, 32, 32), (2, 3, 24, 20)])
+    @pytest.mark.parametrize("fn", ["fft1c", "ifft1c", "fft2c", "ifft2c"])
+    def test_matches_jax_xla(self, rng, shape, fn):
+        x = c64(rng, *shape)
+        kw = {"axis": 1} if fn.endswith("1c") else {}
+        got = to_numpy(getattr(TF, fn)(from_complex(x), **kw))
+        want = j_to_numpy(getattr(JF, fn)(jc(x), **kw))
+        np.testing.assert_allclose(got, want, **TOL)
+
+    @pytest.mark.parametrize("n", [15, 24])
+    @pytest.mark.parametrize("inverse", [False, True])
+    @pytest.mark.parametrize("alt", [False, True])
+    def test_dft_matrix_equals_jax(self, n, inverse, alt):
+        for got, want in zip(TF._dft_matrix(n, inverse, alt, "ortho"),
+                             JF._dft_matrix(n, inverse, alt, "ortho")):
+            np.testing.assert_array_equal(got, want)
+
+    def test_native_path_matches_pair_path(self, rng):
+        x = c64(rng, 3, 16, 12)
+        pair = to_numpy(TF.fft2c(from_complex(x)))
+        np.testing.assert_allclose(TF.fft2c(x), pair, **TOL)
+        np.testing.assert_allclose(TF.ifft1c(torch.from_numpy(x), axis=1).numpy(),
+                                   to_numpy(TF.ifft1c(from_complex(x), axis=1)), **TOL)
+
+    def test_plain_matmul_matches_pallas_interpret(self, rng):
+        b, n = 37, 64  # non-multiple of the Pallas row tile, as tests/test_kernels.py
+        x, w = c64(rng, b, n), c64(rng, n, n)
+        yr, yi = complex_dft_matmul_pallas(
+            jnp.asarray(x.real), jnp.asarray(x.imag),
+            w.real.astype(np.float32), w.imag.astype(np.float32), interpret=True,
+        )
+        t = lambda a: torch.from_numpy(np.ascontiguousarray(a.astype(np.float32)))
+        gr, gi = dft_cuda.complex_dft_matmul(t(x.real), t(x.imag), t(w.real), t(w.imag))
+        # unnormalized random W: |y| ~ 11, so the 1e-5 budget is taken relative
+        np.testing.assert_allclose(gr.numpy() + 1j * gi.numpy(),
+                                   np.asarray(yr) + 1j * np.asarray(yi), rtol=1e-5, atol=1e-4)
+
+    def test_cpu_tensors_take_the_plain_version(self, rng):
+        before = dft_cuda.LAUNCHES
+        x = from_complex(c64(rng, 2, 8, 8))
+        back = TF.ifft2c(TF.fft2c(x))
+        assert dft_cuda.LAUNCHES == before
+        np.testing.assert_allclose(to_numpy(back), to_numpy(x), **TOL)
+
+    def test_backend_switch(self, rng):
+        x = from_complex(c64(rng, 2, 8, 8))
+        want = to_numpy(TF.fft2c(x))
+        try:
+            TF.set_dft_backend("torch")
+            assert TF._DFT_BACKEND == "torch"
+            np.testing.assert_array_equal(to_numpy(TF.fft2c(x)), want)
+        finally:
+            TF.set_dft_backend("kernel")
+        with pytest.raises(ValueError):
+            TF.set_dft_backend("pallas")
+
+    def test_wrapper_refuses_other_devices(self):
+        x = torch.zeros(2, 4, device="meta")
+        with pytest.raises(ValueError):
+            dft_cuda.complex_dft_matmul(x, x, torch.zeros(4, 4, device="meta"),
+                                        torch.zeros(4, 4, device="meta"))
+
+
+class TestCoilPad:
+    def test_rss(self, rng):
+        a = c64(rng, 4, 6, 5)
+        np.testing.assert_allclose(rss_complex(from_complex(a), axis=0).numpy(),
+                                   np.sqrt((np.abs(a) ** 2).sum(0)), rtol=1e-5)
+        np.testing.assert_allclose(rss_complex(torch.from_numpy(a), axis=1).numpy(),
+                                   np.sqrt((np.abs(a) ** 2).sum(1)), rtol=1e-5)
+        r = a.real.astype(np.float32)
+        np.testing.assert_allclose(rss(torch.from_numpy(r)).numpy(), np.sqrt((r * r).sum(0)), rtol=1e-5)
+
+    @pytest.mark.parametrize("shape", [(2, 2, 20, 24), (1, 2, 17, 33), (1, 2, 16, 32)])
+    def test_pad_matches_jax(self, rng, shape):
+        x = rng.standard_normal(shape).astype(np.float32)
+        got, spec = pad_to_multiple(torch.from_numpy(x), 16, axes=(2, 3))
+        want, jspec = JP.pad_to_multiple(jnp.asarray(x), 16, axes=(2, 3))
+        assert spec == jspec
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+        np.testing.assert_array_equal(unpad(got, spec, axes=(2, 3)).numpy(), x)
+
+
+class TestOpstats:
+    def test_trace_folding(self, tmp_path):
+        from cinemri_tpu_torch.instrument import opstats
+
+        trace = {"traceEvents": [
+            {"cat": "kernel", "name": "void (anonymous namespace)::dft_matmul_kernel<64>", "ts": 0, "dur": 10},
+            {"cat": "kernel", "name": "void fft2d_r2c_64x64<float>", "ts": 5, "dur": 10},
+            {"cat": "gpu_memcpy", "name": "Memcpy HtoD", "ts": 30, "dur": 5},
+            {"cat": "cpu_op", "name": "aten::conv2d", "ts": 0, "dur": 100},
+        ]}
+        path = tmp_path / "t.json"
+        path.write_text(__import__("json").dumps(trace))
+        events = opstats.kernel_events(path)
+        assert len(events) == 3
+        kinds = opstats.fold_by_kind(events)
+        assert kinds["dft_matmul (port kernel)"] == {"ms": 0.01, "count": 1}
+        assert kinds["conv / gemm (cuDNN, cuBLAS)"]["count"] == 1
+        assert kinds["copy / cat / pad"]["count"] == 1
+        busy, window = opstats.busy_share(events)
+        assert (busy, window) == (0.02, 0.035)
+
+
+class TestLowFreq:
+    def test_center_band_matches_jax(self):
+        from cinemri_tpu_torch.data.masks import RandomMask
+
+        for seed in range(4):
+            m = RandomMask([6], [4])(3, 32, seed=seed)[None]
+            pad, num_low = center_band(torch.from_numpy(m))
+            jpad, jnum = JL.center_band(jnp.asarray(m))
+            assert (int(pad), int(num_low)) == (int(jpad), int(jnum))
+
+    def test_mask_center_band_matches_jax(self, rng):
+        x = rng.standard_normal((2, 3, 24, 20)).astype(np.float32)
+        got = mask_center_band(torch.from_numpy(x), torch.tensor(7), torch.tensor(6), axis=-2)
+        want = JL.mask_center_band(jnp.asarray(x), 7, 6, axis=-2)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+    def test_per_sample_band(self, rng):
+        x = rng.standard_normal((2, 3, 24, 20)).astype(np.float32)
+        got = mask_center_band(torch.from_numpy(x), torch.tensor([2, 7]), torch.tensor([4, 6]))
+        for i, (p, n) in enumerate(((2, 4), (7, 6))):
+            want = mask_center_band(torch.from_numpy(x[i]), torch.tensor(p), torch.tensor(n))
+            np.testing.assert_array_equal(got[i].numpy(), want.numpy())

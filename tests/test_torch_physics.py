@@ -1,0 +1,153 @@
+"""Port physics (cinemri_tpu_torch.physics) and the normal-apply kernel's
+plain version against the JAX package on the CPU.
+
+Tolerance 1e-5 rel/abs, as tests/test_kernels.py holds the Pallas normal
+apply against the XLA path: f32 on both sides, different summation order.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+import cinemri_tpu.ops.kernels.normal_pallas as NP
+import cinemri_tpu.physics.operators as JO
+from cinemri_tpu.ops.cplx import Complex as JComplex
+from cinemri_tpu.ops.cplx import to_numpy as j_to_numpy
+
+import cinemri_tpu_torch.physics.operators as TO
+from cinemri_tpu_torch.ops.cplx import from_complex, to_numpy
+from cinemri_tpu_torch.ops.kernels import normal_cuda
+
+torch.set_num_threads(2)
+
+TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+def c64(rng, *shape):
+    return (rng.standard_normal(shape) + 1j * rng.standard_normal(shape)).astype(np.complex64)
+
+
+def jc(x):
+    return JComplex(jnp.asarray(x.real), jnp.asarray(x.imag))
+
+
+def line_mask(rng, b, kt, h):
+    return (rng.random((b, kt, 1, h, 1)) < 0.4).astype(np.float32)
+
+
+def with_pallas(fn):
+    """Run ``fn`` with the JAX normal backend on the Pallas kernel in
+    interpret mode (the toggle of tests/test_kernels.py)."""
+    old = NP._INTERPRET
+    try:
+        NP._INTERPRET = True
+        JO.set_normal_backend("pallas")
+        return fn()
+    finally:
+        NP._INTERPRET = old
+        JO.set_normal_backend("xla")
+
+
+@pytest.mark.parametrize("hw", [(32, 32), (24, 20)])
+class TestOperators:
+    def test_sens_expand_reduce(self, rng, hw):
+        h, w = hw
+        x, s, k = c64(rng, 2, 4, 1, h, w), c64(rng, 2, 1, 3, h, w), c64(rng, 2, 4, 3, h, w)
+        np.testing.assert_allclose(to_numpy(TO.sens_expand(from_complex(x), from_complex(s))),
+                                   j_to_numpy(JO.sens_expand(jc(x), jc(s))), **TOL)
+        for keep in (True, False):
+            np.testing.assert_allclose(
+                to_numpy(TO.sens_reduce(from_complex(k), from_complex(s), keepdims=keep)),
+                j_to_numpy(JO.sens_reduce(jc(k), jc(s), keepdims=keep)), **TOL)
+
+    def test_soft_dc_and_mask(self, rng, hw):
+        h, w = hw
+        a, r = c64(rng, 1, 4, 3, h, w), c64(rng, 1, 4, 3, h, w)
+        m = line_mask(rng, 1, 4, h)
+        v = 0.7
+        np.testing.assert_allclose(
+            to_numpy(TO.soft_dc(from_complex(a), from_complex(r), torch.from_numpy(m), torch.tensor(v))),
+            j_to_numpy(JO.soft_dc(jc(a), jc(r), jnp.asarray(m), v)), **TOL)
+        np.testing.assert_allclose(to_numpy(TO.apply_mask(from_complex(a), torch.from_numpy(m))),
+                                   a * m, **TOL)
+
+    @pytest.mark.parametrize("kt", [1, 4])
+    def test_masked_normal_kernel(self, rng, hw, kt):
+        h, _ = hw
+        m = line_mask(rng, 2, kt, h)
+        np.testing.assert_allclose(to_numpy(TO.masked_normal_kernel(torch.from_numpy(m))),
+                                   j_to_numpy(JO.masked_normal_kernel(jnp.asarray(m))), **TOL)
+
+    def test_soft_dc_image_kernel_matches_jax(self, rng, hw):
+        h, w = hw
+        z, xr, s = c64(rng, 1, 4, 1, h, w), c64(rng, 1, 4, 1, h, w), c64(rng, 1, 1, 3, h, w)
+        m = line_mask(rng, 1, 4, h)
+        kern_t = TO.masked_normal_kernel(torch.from_numpy(m))
+        kern_j = JO.masked_normal_kernel(jnp.asarray(m))
+        got = TO.soft_dc_image_kernel(from_complex(z), from_complex(xr), kern_t, from_complex(s),
+                                      torch.tensor(0.8))
+        want = JO.soft_dc_image_kernel(jc(z), jc(xr), kern_j, jc(s), 0.8)
+        np.testing.assert_allclose(to_numpy(got), j_to_numpy(want), **TOL)
+        np.testing.assert_allclose(TO.coil_weight(from_complex(s)).numpy(),
+                                   np.asarray(JO.coil_weight(jc(s))), **TOL)
+
+    def test_line_mask_predicate(self, rng, hw):
+        h, w = hw
+        assert TO.is_line_mask(torch.zeros(1, 4, 1, h, 1))
+        assert not TO.is_line_mask(torch.zeros(1, 4, 1, h, w))
+        with pytest.raises(ValueError):
+            TO.masked_normal_kernel(torch.zeros(1, 4, 1, h, w))
+
+
+class TestNormalApply:
+    """The port's normal apply (plain version on CPU tensors) against JAX
+    ``normal_plus_lambda_kernel``: the XLA path and the Pallas kernel in
+    interpret mode."""
+
+    def _setup(self, rng, b, t, c, h, w, per_frame):
+        x, s = c64(rng, b, t, 1, h, w), c64(rng, b, 1, c, h, w)
+        m = line_mask(rng, b, t if per_frame else 1, h)
+        return x, s, m
+
+    @pytest.mark.parametrize("per_frame", [True, False])
+    @pytest.mark.parametrize("lam", [0.0, 0.37])
+    @pytest.mark.parametrize("backend", ["xla", "pallas"])
+    def test_matches_jax(self, rng, per_frame, lam, backend):
+        x, s, m = self._setup(rng, 2, 3, 4, 24, 20, per_frame)
+        kern_j = JO.masked_normal_kernel(jnp.asarray(m))
+        run = lambda: j_to_numpy(JO.normal_plus_lambda_kernel(jc(x), kern_j, jc(s), lam))
+        want = with_pallas(run) if backend == "pallas" else run()
+        before = normal_cuda.LAUNCHES
+        got = TO.normal_plus_lambda_kernel(
+            from_complex(x), TO.masked_normal_kernel(torch.from_numpy(m)), from_complex(s), lam)
+        assert normal_cuda.LAUNCHES == before  # CPU tensors take the plain version
+        np.testing.assert_allclose(to_numpy(got), want, **TOL)
+
+    def test_plain_version_matches_dense_operator(self, rng):
+        """``N(x) + λx`` equals ``sens_reduce(M ⊙ sens_expand(x)) + λx``."""
+        x, s, m = self._setup(rng, 1, 3, 2, 16, 12, True)
+        xt, st, mt = from_complex(x), from_complex(s), torch.from_numpy(m)
+        want = TO.sens_reduce(TO.apply_mask(TO.sens_expand(xt, st), mt), st) + 0.2 * xt
+        got = TO.normal_plus_lambda_kernel(xt, TO.masked_normal_kernel(mt), st, 0.2)
+        np.testing.assert_allclose(to_numpy(got), to_numpy(want), **TOL)
+
+    def test_backend_switch(self, rng):
+        x, s, m = self._setup(rng, 1, 2, 2, 16, 12, False)
+        args = (from_complex(x), TO.masked_normal_kernel(torch.from_numpy(m)), from_complex(s), 0.1)
+        want = to_numpy(TO.normal_plus_lambda_kernel(*args))
+        try:
+            TO.set_normal_backend("torch")
+            assert TO.get_normal_backend() == "torch"
+            np.testing.assert_array_equal(to_numpy(TO.normal_plus_lambda_kernel(*args)), want)
+        finally:
+            TO.set_normal_backend("kernel")
+        with pytest.raises(ValueError):
+            TO.set_normal_backend("pallas")
+
+    def test_wrapper_refuses_other_devices(self):
+        z = torch.zeros(1, 2, 4, 4, device="meta")
+        k = torch.zeros(1, 1, 4, 4, device="meta")
+        with pytest.raises(ValueError):
+            normal_cuda.normal_apply(z, z, k, k, z, z, 0.0)
