@@ -1,10 +1,12 @@
-"""Where a forward's device time goes, from a ``torch.profiler`` trace.
+"""Where a forward's or a train step's device time goes, from a
+``torch.profiler`` trace.
 
 Counterpart of ``cinemri_tpu/instrument/opstats.py``: parses the kernel
 events of an exported chrome trace and folds their durations by kind
 (the port's CUDA kernels, convolutions, normalization, elementwise, ...),
 and reports the device's busy and idle share over the traced window.
-``chip_smoke.py`` folds its profiled flagship forward with these.
+``chip_smoke.py`` folds its profiled flagship forward and train step with
+these.
 """
 
 from __future__ import annotations
@@ -14,11 +16,12 @@ from collections import defaultdict
 from pathlib import Path
 from typing import Dict, List, Tuple
 
-__all__ = ["kernel_events", "fold_by_kind", "busy_share", "KINDS"]
+__all__ = ["kernel_events", "fold_by_kind", "top_names", "busy_share", "KINDS"]
 
 # (kind, substrings of the lower-cased kernel name), first match wins
 KINDS: Tuple[Tuple[str, Tuple[str, ...]], ...] = (
     ("dft_matmul (port kernel)", ("dft_matmul_kernel",)),
+    ("normal_apply_bwd (port kernels)", ("normal_apply_bwd",)),
     ("normal_apply (port kernel)", ("normal_apply_kernel",)),
     ("instance norm", ("batch_norm", "instance_norm", "welford")),
     # cuDNN's FFT convolutions run fft2d_* and pointwise_mult_and_sum_complex
@@ -59,6 +62,17 @@ def fold_by_kind(events) -> Dict[str, dict]:
         a[1] += 1
     return {k: {"ms": v[0], "count": v[1]}
             for k, v in sorted(acc.items(), key=lambda kv: -kv[1][0])}
+
+
+def top_names(events, kind: str, n: int = 5) -> List[Tuple[str, float, int]]:
+    """The ``n`` kernel names of ``kind`` with the most device time:
+    ``(name, ms, count)``, largest first."""
+    acc = defaultdict(lambda: [0.0, 0])
+    for name, _, dur in events:
+        if _kind(name) == kind:
+            acc[name][0] += dur / 1e3
+            acc[name][1] += 1
+    return sorted(((k, v[0], v[1]) for k, v in acc.items()), key=lambda x: -x[1])[:n]
 
 
 def busy_share(events) -> Tuple[float, float]:

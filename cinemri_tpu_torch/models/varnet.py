@@ -9,7 +9,8 @@ flax ``nn.scan`` broadcasts its params). The cascade loop is a Python loop.
 With ``kernel_dc`` and a line mask, cascades run in image space through the
 precomputed h-axis normal kernel (``physics.soft_dc_image_kernel``);
 otherwise they run the direct k-space form through ``sens_expand`` /
-``soft_dc``.
+``soft_dc``. With ``remat`` (the default, as in the JAX package) each
+cascade is checkpointed when autograd records (``models/remat.py``).
 
 I/O: ``masked_kspace (b, t, c, h, w)`` Complex, ``mask (b, t|1, 1, h, 1)``
 float32 -> magnitude image ``(b, t, h, w)`` float32.
@@ -24,6 +25,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from cinemri_tpu_torch.models.denoisers.norm_unet import NormUnet
+from cinemri_tpu_torch.models.remat import call_remat, check_remat_policy
 from cinemri_tpu_torch.ops.coil import rss_complex
 from cinemri_tpu_torch.ops.cplx import Complex, cmean
 from cinemri_tpu_torch.ops.fft import fft1c, ifft1c, ifft2c
@@ -134,14 +136,18 @@ class VarNet(nn.Module):
         weight_sharing: bool = False,
         packed: bool = False,
         kernel_dc: bool = True,
+        remat: bool = True,
+        remat_policy: str = "",
     ):
         super().__init__()
         if dynamic_type not in DYNAMIC_TYPES:
             raise ValueError(
                 f"dynamic_type must be one of {DYNAMIC_TYPES} (CRNN is a separate model)"
             )
+        check_remat_policy(remat_policy)
         self.num_cascades = num_cascades
         self.kernel_dc = kernel_dc
+        self.remat = remat
         self.sens_net = SensitivityModel(sens_chans, sens_pools, packed=packed)
         self.cascades = VarNetCascade(chans, pools, dynamic_type, weight_sharing, packed)
         self.lambda_reg = nn.Parameter(torch.full((num_cascades,), LAMBDA_INIT))
@@ -156,8 +162,8 @@ class VarNet(nn.Module):
         else:
             dc_kernel, rss0, carry, ref = None, None, masked_kspace, masked_kspace
         for i in range(self.num_cascades):
-            carry = self.cascades(carry, self.lambda_reg[i], ref, mask, sens_maps,
-                                  dc_kernel, rss0)
+            carry = call_remat(self.cascades, self.remat, carry, self.lambda_reg[i], ref,
+                               mask, sens_maps, dc_kernel, rss0)
         if dc_kernel is not None:
             return carry[:, :, 0].abs()  # carry is sens_reduce(k_pred)
         return sens_reduce(carry, sens_maps, keepdims=False).abs()

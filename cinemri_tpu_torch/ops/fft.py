@@ -7,9 +7,10 @@ Counterpart of ``cinemri_tpu/ops/fft.py``. Two dispatch paths behind one API:
     ``y = W_c x`` with ``W_c = shift ∘ F ∘ shift⁻¹`` folded into one N x N
     complex matrix, built once per (length, direction, convention, norm,
     device). The product goes through
-    :func:`~cinemri_tpu_torch.ops.kernels.dft_cuda.complex_dft_matmul`: the
-    hand-written CUDA kernel for a CUDA tensor, its plain PyTorch version for
-    a CPU tensor. The arithmetic is full f32 (the JAX package's
+    :class:`~cinemri_tpu_torch.ops.kernels.dft_cuda.ComplexDFTMatmul`, which
+    launches the hand-written CUDA kernel for a CUDA tensor and its plain
+    PyTorch version for a CPU tensor, in the forward and, on ``Wᴴ``, in the
+    backward. The arithmetic is full f32 (the JAX package's
     ``Precision.HIGHEST``); there is no reduced-precision mode yet.
   * ``complex64`` tensors or numpy arrays use ``torch.fft`` (host-side
     preprocessing and test oracles only).
@@ -36,10 +37,10 @@ __all__ = [
     "ifft2c",
 ]
 
-# Backend of the Complex-pair DFT product: "kernel" sends CUDA tensors to
-# the hand-written CUDA kernel (CPU tensors to its plain version); "torch"
-# sends every tensor to the plain PyTorch version. "torch" on the card is
-# an explicit choice, made to compare the two.
+# Backend of the Complex-pair DFT product, forward and backward: "kernel"
+# sends CUDA tensors to the hand-written CUDA kernel (CPU tensors to its
+# plain version); "torch" sends every tensor to the plain PyTorch version.
+# "torch" on the card is an explicit choice, made to compare the two.
 _DFT_BACKEND = "kernel"
 
 
@@ -75,9 +76,25 @@ def _dft_matrix(n: int, inverse: bool, alt: bool, norm: str):
 
 @lru_cache(maxsize=64)
 def _dft_tensors(n: int, inverse: bool, alt: bool, norm: str, device: torch.device):
-    """:func:`_dft_matrix` as f32 tensors on ``device`` (one copy per device)."""
+    """:func:`_dft_matrix` as f32 tensors on ``device`` (one copy per device).
+
+    Built outside inference mode whatever the caller's mode: a first call
+    from a served request would otherwise cache inference tensors, which a
+    later training step cannot save for backward."""
     wr, wi = _dft_matrix(n, inverse, alt, norm)
-    return torch.from_numpy(wr).to(device), torch.from_numpy(wi).to(device)
+    with torch.inference_mode(False):
+        return torch.from_numpy(wr).to(device), torch.from_numpy(wi).to(device)
+
+
+@lru_cache(maxsize=64)
+def _dft_adjoint_tensors(n: int, inverse: bool, alt: bool, norm: str, device: torch.device):
+    """``Wᴴ = conj(W)ᵀ`` of :func:`_dft_tensors`, from the same f32 matrix
+    (the exact adjoint of the forward product, not the inverse-direction
+    matrix), contiguous on ``device``."""
+    wr, wi = _dft_matrix(n, inverse, alt, norm)
+    with torch.inference_mode(False):
+        return (torch.from_numpy(np.ascontiguousarray(wr.T)).to(device),
+                torch.from_numpy(np.ascontiguousarray(-wi.T)).to(device))
 
 
 def _apply_dft(x: Complex, axis: int, inverse: bool, alt: bool, norm: str) -> Complex:
@@ -86,13 +103,12 @@ def _apply_dft(x: Complex, axis: int, inverse: bool, alt: bool, norm: str) -> Co
     the axis is already last and ``x`` is contiguous."""
     axis = axis % x.ndim
     n = x.shape[axis]
-    wr, wi = _dft_tensors(n, inverse, alt, norm, x.re.device)
+    dev = x.re.device
+    wr, wi = _dft_tensors(n, inverse, alt, norm, dev)
+    whr, whi = _dft_adjoint_tensors(n, inverse, alt, norm, dev)
     xr = torch.movedim(x.re, axis, -1).contiguous().reshape(-1, n)
     xi = torch.movedim(x.im, axis, -1).contiguous().reshape(-1, n)
-    if _DFT_BACKEND == "kernel":
-        yr, yi = dft_cuda.complex_dft_matmul(xr, xi, wr, wi)
-    else:
-        yr, yi = dft_cuda.complex_dft_matmul_torch(xr, xi, wr, wi)
+    yr, yi = dft_cuda.ComplexDFTMatmul.apply(xr, xi, wr, wi, whr, whi, _DFT_BACKEND == "torch")
     moved = tuple(s for a, s in enumerate(x.shape) if a != axis) + (n,)
     return Complex(
         torch.movedim(yr.reshape(moved), -1, axis),

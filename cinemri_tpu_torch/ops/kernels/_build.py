@@ -51,6 +51,13 @@ KERNELS: Dict[str, Dict[str, tuple]] = {
         "cinemri_normal_apply": (_P, _P, _P, _P, _P, _P, _F, _P, _P,
                                  _I, _I, _I, _I, _I, _I, _P),
     },
+    "normal_apply_bwd": {
+        # xr, xi, gr, gi, kr, ki, sr, si, lam, xbr, xbi, spr, spi, sbr, sbi, lb,
+        # b, t, c, h, w, kt, stream
+        "cinemri_normal_apply_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _F,
+                                     _P, _P, _P, _P, _P, _P, _P,
+                                     _I, _I, _I, _I, _I, _I, _P),
+    },
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

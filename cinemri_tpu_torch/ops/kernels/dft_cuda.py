@@ -19,6 +19,13 @@ last and copies (``ops/fft.py::_apply_dft``).
 
 Dispatch: a CPU tensor takes :func:`complex_dft_matmul_torch`; a CUDA tensor
 launches the kernel or raises. ``LAUNCHES`` counts kernel launches.
+
+Gradient: :class:`ComplexDFTMatmul` wraps the product for autograd. Its
+backward is ``x̄ = ȳ · conj(W)``, which is the same product with ``Wᴴ`` in
+``W``'s place, so it launches the same kernel (or, with ``plain``, the
+plain version); ``W`` gets no gradient. The JAX package has no Pallas
+backward for the DFT: its train step differentiates the XLA tensordot
+chain, whose transpose is this product with ``Wᴴ``.
 """
 
 from __future__ import annotations
@@ -29,7 +36,7 @@ import torch
 
 from cinemri_tpu_torch.ops.kernels import _build
 
-__all__ = ["complex_dft_matmul", "complex_dft_matmul_torch", "LAUNCHES"]
+__all__ = ["complex_dft_matmul", "complex_dft_matmul_torch", "ComplexDFTMatmul", "LAUNCHES"]
 
 LAUNCHES = 0
 
@@ -56,11 +63,6 @@ def _check(xr, xi, wr, wi) -> Tuple[int, int]:
             raise TypeError(f"{name} must be float32, got {a.dtype}")
         if not a.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-        if a.requires_grad and torch.is_grad_enabled():
-            raise NotImplementedError(
-                "the CUDA DFT kernel has no backward yet (ROADMAP Queue 2, "
-                "DFT backward); run the forward under torch.inference_mode()"
-            )
     if b >= 2**31 or n >= 2**31:
         raise ValueError(f"shape {(b, n)} exceeds the kernel's int32 sizes")
     return b, n
@@ -94,3 +96,28 @@ def complex_dft_matmul(
     global LAUNCHES
     LAUNCHES += 1
     return yr, yi
+
+
+class ComplexDFTMatmul(torch.autograd.Function):
+    """Differentiable ``(B, N) x (N, N)`` product: ``y = x Wᵀ`` forward,
+    ``x̄ = ȳ (Wᴴ)ᵀ = ȳ conj(W)`` backward.
+
+    ``apply(xr, xi, wr, wi, whr, whi, plain)``: ``(whr, whi)`` is ``Wᴴ``,
+    contiguous; ``plain`` picks :func:`complex_dft_matmul_torch` over
+    :func:`complex_dft_matmul` in both directions. Neither matrix gets a
+    gradient.
+    """
+
+    @staticmethod
+    def forward(ctx, xr, xi, wr, wi, whr, whi, plain: bool):
+        ctx.save_for_backward(whr, whi)
+        ctx.plain = plain
+        product = complex_dft_matmul_torch if plain else complex_dft_matmul
+        return product(xr, xi, wr, wi)
+
+    @staticmethod
+    def backward(ctx, gr, gi):
+        whr, whi = ctx.saved_tensors
+        product = complex_dft_matmul_torch if ctx.plain else complex_dft_matmul
+        xbr, xbi = product(gr.contiguous(), gi.contiguous(), whr, whi)
+        return xbr, xbi, None, None, None, None, None

@@ -1,27 +1,42 @@
-"""Masked normal operator apply: CUDA kernel and its plain PyTorch version.
+"""Masked normal operator apply: CUDA kernels and their plain PyTorch versions.
 
-Replaces the forward of ``normal_apply_pallas`` (``cinemri_tpu/ops/kernels/
-normal_pallas.py``, ``fwd_pallas_call`` / body ``_fwd_kernel``), which
-computes ``N(z)`` in every VarNet cascade's data-consistency step.
+Replaces ``normal_apply_pallas`` (``cinemri_tpu/ops/kernels/
+normal_pallas.py``): its forward ``fwd_pallas_call`` / body ``_fwd_kernel``,
+which computes ``N(z)`` in every VarNet cascade's data-consistency step, and
+its custom-VJP backward ``_bwd_pallas_call`` / body ``_bwd_kernel``.
 
-Computes ``out = Σ_c conj(S_c) ⊙ (K ·_h (S_c ⊙ x)) + λ·x`` on (re, im)
-pairs, with ``x (b, t, h, w)``, ``K (b, 1|t, h, h)`` applied along h,
-``S (b, c, h, w)`` and a scalar ``λ``, in f32 with the 4-multiplication
-complex product.
+Forward, on (re, im) pairs, with ``x (b, t, h, w)``, ``K (b, 1|t, h, h)``
+applied along h, ``S (b, c, h, w)`` and a scalar ``λ``, in f32 with the
+4-multiplication complex product::
 
-Kernel (``csrc/normal_apply.cu``): what bounds it on the H100 is the FP32
-rate (9.6 GFLOP against ~18 MB per apply at t=15, c=10, h=w=200). The
-Pallas program holds a whole plane, K and the coil stack on chip and
-relies on the TPU's sequential grid; neither carries to Hopper. The kernel
-runs a grid over (w-tile, h-tile, b·t), loops over coils and over chunks
-of K's columns with K and ``S_c ⊙ x`` tiles staged in shared memory, and
-keeps ``z`` and the coil sum in registers, so only x, K, S and out move
-through device memory.
+    out = Σ_c conj(S_c) ⊙ (K ·_h (S_c ⊙ x)) + λ·x
 
-Dispatch: a CPU tensor takes :func:`normal_apply_torch`; a CUDA tensor
-launches the kernel or raises. There is no backward kernel yet, so the CUDA
-path raises on inputs that require grad. ``LAUNCHES`` counts kernel
-launches.
+Backward, for the cotangent ``g`` of ``out``, with ``ȳ_c = Kᴴ (S_c ⊙ g)``
+and ``z_c = K (S_c ⊙ x)`` (recomputed)::
+
+    x̄   = Σ_c conj(S_c) ⊙ ȳ_c + λ·g
+    s̄_c = Σ_t [conj(g) ⊙ z_c + ȳ_c ⊙ conj(x)]
+    λ̄   = Σ_{b,t} Re⟨g, x⟩              (per-(b, t) partials, summed here)
+    K̄   = 0                              (K derives from the never-learned mask)
+
+Forward kernel (``csrc/normal_apply.cu``): bound by the FP32 rate (9.6 GFLOP
+against ~18 MB per apply at t=15, c=10, h=w=200). The Pallas program holds a
+whole plane, K and the coil stack on chip and relies on the TPU's sequential
+grid; neither carries to Hopper. The kernel runs a grid over (w-tile,
+h-tile, b·t), loops over coils and over chunks of K's columns with K and
+``S_c ⊙ x`` tiles staged in shared memory, and keeps ``z`` and the coil sum
+in registers, so only x, K, S and out move through device memory.
+
+Backward kernel (``csrc/normal_apply_bwd.cu``): twice the forward's
+contractions, bound by the FP32 rate too. The Pallas kernel sums ``s̄`` over
+frames in an output block that stays resident across the sequential grid;
+CUDA blocks run in no order, so the kernel writes per-frame partials
+``(b, t, c, h, w)`` and a second kernel sums them over t (deterministic).
+
+Dispatch: a CPU tensor takes the plain version; a CUDA tensor launches the
+kernel or raises. :class:`NormalApply` wraps forward and backward for
+autograd; its ``plain`` flag picks the plain versions in both directions.
+``LAUNCHES`` and ``BWD_LAUNCHES`` count kernel launches.
 """
 
 from __future__ import annotations
@@ -32,22 +47,60 @@ import torch
 
 from cinemri_tpu_torch.ops.kernels import _build
 
-__all__ = ["normal_apply", "normal_apply_torch", "LAUNCHES"]
+__all__ = [
+    "normal_apply",
+    "normal_apply_torch",
+    "normal_apply_bwd",
+    "normal_apply_bwd_torch",
+    "NormalApply",
+    "LAUNCHES",
+    "BWD_LAUNCHES",
+]
 
 LAUNCHES = 0
+BWD_LAUNCHES = 0
+
+
+def _cmul(ar, ai, br, bi):
+    """``a ⊙ b`` with the 4-multiplication product."""
+    return ar * br - ai * bi, ar * bi + ai * br
+
+
+def _k_h(kr, ki, yr, yi):
+    """``K ·_h y`` for ``K (b, 1|t, h, h)`` and ``y (b, t, c, h, w)``."""
+    k_r = kr[:, :, None]  # broadcasts over coils (and frames)
+    k_i = ki[:, :, None]
+    return k_r @ yr - k_i @ yi, k_r @ yi + k_i @ yr
 
 
 def normal_apply_torch(xr, xi, kr, ki, sr, si, lam) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version: coil-expand, K along h by ``torch.matmul``, conj-reduce."""
-    yr = sr[:, None] * xr[:, :, None] - si[:, None] * xi[:, :, None]  # (b, t, c, h, w)
-    yi = sr[:, None] * xi[:, :, None] + si[:, None] * xr[:, :, None]
-    k_r = kr[:, :, None]  # (b, 1|t, 1, h, h) broadcasts over coils (and frames)
-    k_i = ki[:, :, None]
-    zr = k_r @ yr - k_i @ yi
-    zi = k_r @ yi + k_i @ yr
+    yr, yi = _cmul(sr[:, None], si[:, None], xr[:, :, None], xi[:, :, None])  # (b, t, c, h, w)
+    zr, zi = _k_h(kr, ki, yr, yi)
     outr = (sr[:, None] * zr + si[:, None] * zi).sum(dim=2)
     outi = (sr[:, None] * zi - si[:, None] * zr).sum(dim=2)
     return outr + lam * xr, outi + lam * xi
+
+
+def normal_apply_bwd_torch(xr, xi, gr, gi, kr, ki, sr, si, lam):
+    """Plain version of the backward: ``(x̄_re, x̄_im, s̄_re, s̄_im, λ̄)``
+    with ``s̄ (b, c, h, w)`` summed over frames and ``λ̄ (b, t)`` the
+    per-(b, t) partials of ``Σ Re⟨g, x⟩``."""
+    s_r, s_i = sr[:, None], si[:, None]  # (b, 1, c, h, w)
+    g_r, g_i = gr[:, :, None], gi[:, :, None]  # (b, t, 1, h, w)
+    x_r, x_i = xr[:, :, None], xi[:, :, None]
+    # ȳ = Kᴴ (S_c ⊙ g), Kᴴ = conj(K)ᵀ
+    vr, vi = _cmul(s_r, s_i, g_r, g_i)
+    ybr, ybi = _k_h(kr.transpose(-1, -2), -ki.transpose(-1, -2), vr, vi)
+    # z = K (S_c ⊙ x)
+    yr, yi = _cmul(s_r, s_i, x_r, x_i)
+    zr, zi = _k_h(kr, ki, yr, yi)
+    xbr = (s_r * ybr + s_i * ybi).sum(dim=2) + lam * gr
+    xbi = (s_r * ybi - s_i * ybr).sum(dim=2) + lam * gi
+    sbr = (g_r * zr + g_i * zi + ybr * x_r + ybi * x_i).sum(dim=1)
+    sbi = (g_r * zi - g_i * zr + ybi * x_r - ybr * x_i).sum(dim=1)
+    lb = (gr * xr + gi * xi).sum(dim=(2, 3))
+    return xbr, xbi, sbr, sbi, lb
 
 
 def _check(xr, xi, kr, ki, sr, si):
@@ -67,17 +120,19 @@ def _check(xr, xi, kr, ki, sr, si):
             raise TypeError(f"{name} must be float32, got {a.dtype}")
         if not a.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-        if a.requires_grad and torch.is_grad_enabled():
-            raise NotImplementedError(
-                "the CUDA normal-apply kernel has no backward yet (ROADMAP "
-                "Queue 2, normal_apply backward); run the forward under "
-                "torch.inference_mode()"
-            )
     if b * t > 65535:
         raise ValueError(f"b*t = {b * t} exceeds the kernel grid's 65535 limit")
     if max(b * c, b * t) * h * w >= 2**31:
         raise ValueError("tensor sizes exceed the kernel's index range")
     return b, t, c, h, w, kt
+
+
+def _on_cuda(name: str, xr) -> bool:
+    if xr.device.type == "cpu":
+        return False
+    if xr.device.type != "cuda":
+        raise ValueError(f"{name} runs on cpu or cuda, got {xr.device}")
+    return True
 
 
 def normal_apply(xr, xi, kr, ki, sr, si, lam) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -88,10 +143,8 @@ def normal_apply(xr, xi, kr, ki, sr, si, lam) -> Tuple[torch.Tensor, torch.Tenso
     tensors go to :func:`normal_apply_torch`, CUDA tensors to the kernel in
     ``csrc/normal_apply.cu``. Returns ``(out_re, out_im)``.
     """
-    if xr.device.type == "cpu":
+    if not _on_cuda("normal_apply", xr):
         return normal_apply_torch(xr, xi, kr, ki, sr, si, lam)
-    if xr.device.type != "cuda":
-        raise ValueError(f"normal_apply runs on cpu or cuda, got {xr.device}")
     b, t, c, h, w, kt = _check(xr, xi, kr, ki, sr, si)
     outr = torch.empty_like(xr)
     outi = torch.empty_like(xi)
@@ -109,3 +162,71 @@ def normal_apply(xr, xi, kr, ki, sr, si, lam) -> Tuple[torch.Tensor, torch.Tenso
     global LAUNCHES
     LAUNCHES += 1
     return outr, outi
+
+
+def normal_apply_bwd(xr, xi, gr, gi, kr, ki, sr, si, lam):
+    """Backward of :func:`normal_apply` for the cotangent ``g`` of ``out``:
+    ``(x̄_re, x̄_im, s̄_re, s̄_im, λ̄)`` with ``s̄ (b, c, h, w)`` and the
+    per-(b, t) partials ``λ̄ (b, t)``.
+
+    CPU tensors go to :func:`normal_apply_bwd_torch`, CUDA tensors to the
+    kernels in ``csrc/normal_apply_bwd.cu``. ``g`` must be contiguous.
+    """
+    if not _on_cuda("normal_apply_bwd", xr):
+        return normal_apply_bwd_torch(xr, xi, gr, gi, kr, ki, sr, si, lam)
+    b, t, c, h, w, kt = _check(xr, xi, kr, ki, sr, si)
+    for name, a in (("gr", gr), ("gi", gi)):
+        if a.shape != xr.shape or a.device != xr.device or a.dtype != torch.float32:
+            raise ValueError(f"{name} must be a float32 {tuple(xr.shape)} tensor on {xr.device}")
+        if not a.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if b * t * c * h * w >= 2**31:
+        raise ValueError("the per-frame s̄ partials exceed the kernel's index range")
+    xbr, xbi = torch.empty_like(xr), torch.empty_like(xi)
+    sbr, sbi = torch.empty_like(sr), torch.empty_like(si)
+    lb = torch.empty((b, t), dtype=torch.float32, device=xr.device)
+    if xr.numel() == 0:
+        return xbr, xbi, sbr.zero_(), sbi.zero_(), lb.zero_()
+    # per-frame partials of s̄, summed over t by the second kernel
+    spr = torch.empty((b, t, c, h, w), dtype=torch.float32, device=xr.device)
+    spi = torch.empty_like(spr)
+    lib = _build.load("normal_apply_bwd")
+    with torch.cuda.device(xr.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = lib.cinemri_normal_apply_bwd(
+            xr.data_ptr(), xi.data_ptr(), gr.data_ptr(), gi.data_ptr(),
+            kr.data_ptr(), ki.data_ptr(), sr.data_ptr(), si.data_ptr(), float(lam),
+            xbr.data_ptr(), xbi.data_ptr(), spr.data_ptr(), spi.data_ptr(),
+            sbr.data_ptr(), sbi.data_ptr(), lb.data_ptr(), b, t, c, h, w, kt, stream,
+        )
+    _build.check(lib, code, "cinemri_normal_apply_bwd launch")
+    global BWD_LAUNCHES
+    BWD_LAUNCHES += 1
+    return xbr, xbi, sbr, sbi, lb
+
+
+class NormalApply(torch.autograd.Function):
+    """Differentiable normal apply, the counterpart of the JAX custom VJP.
+
+    ``apply(xr, xi, kr, ki, sr, si, lam, plain)``: ``lam`` is a Python
+    float or a tensor; ``plain`` picks the plain versions over the kernels
+    in both directions. ``K`` gets no gradient (the caller detaches it).
+    """
+
+    @staticmethod
+    def forward(ctx, xr, xi, kr, ki, sr, si, lam, plain: bool):
+        ctx.save_for_backward(xr, xi, kr, ki, sr, si)
+        ctx.lam = float(lam)
+        ctx.lam_shape = lam.shape if torch.is_tensor(lam) else None
+        ctx.plain = plain
+        apply = normal_apply_torch if plain else normal_apply
+        return apply(xr, xi, kr, ki, sr, si, lam)
+
+    @staticmethod
+    def backward(ctx, gr, gi):
+        xr, xi, kr, ki, sr, si = ctx.saved_tensors
+        bwd = normal_apply_bwd_torch if ctx.plain else normal_apply_bwd
+        xbr, xbi, sbr, sbi, lb = bwd(xr, xi, gr.contiguous(), gi.contiguous(),
+                                     kr, ki, sr, si, ctx.lam)
+        lam_bar = lb.sum().reshape(ctx.lam_shape) if ctx.needs_input_grad[6] else None
+        return xbr, xbi, None, None, sbr, sbi, lam_bar, None

@@ -7,10 +7,11 @@ Shapes: k-space ``(b, t, c, h, w)`` Complex; sensitivity maps
 Complex; masks real float tensors, canonically ``(b, t|1, 1, h, 1)``.
 
 The masked normal operator of a line mask runs through
-:func:`~cinemri_tpu_torch.ops.kernels.normal_cuda.normal_apply`: the
-hand-written CUDA kernel for CUDA tensors, its plain version for CPU
-tensors. :func:`set_normal_backend` ``("torch")`` sends CUDA tensors to the
-plain version too, as an explicit choice for comparison.
+:class:`~cinemri_tpu_torch.ops.kernels.normal_cuda.NormalApply`: the
+hand-written CUDA kernels (forward and backward) for CUDA tensors, their
+plain versions for CPU tensors. :func:`set_normal_backend` ``("torch")``
+sends CUDA tensors to the plain versions too, in both directions, as an
+explicit choice for comparison.
 """
 
 from __future__ import annotations
@@ -111,20 +112,20 @@ def normal_plus_lambda_kernel(x: Complex, kernel: Complex, sens_maps: Complex, l
     """``H(x) = Aᴴ M A x + λ x`` with a precomputed h-axis kernel.
 
     ``x (b, t, 1, h, w)``, ``kernel (b, t|1, h, h)`` from
-    :func:`masked_normal_kernel`, ``sens_maps (b, 1, c, h, w)``.
+    :func:`masked_normal_kernel`, ``sens_maps (b, 1, c, h, w)``; ``lam`` a
+    Python float or a tensor. Differentiable in ``x``, ``sens_maps`` and a
+    tensor ``lam``; the kernel matrix is detached, as the JAX package
+    stop-gradients it (it derives from the never-learned mask).
     """
-    apply = (
-        normal_cuda.normal_apply if _NORMAL_BACKEND == "kernel"
-        else normal_cuda.normal_apply_torch
-    )
-    outr, outi = apply(
+    outr, outi = normal_cuda.NormalApply.apply(
         x.re[:, :, 0].contiguous(),
         x.im[:, :, 0].contiguous(),
-        kernel.re.contiguous(),
-        kernel.im.contiguous(),
+        kernel.re.detach().contiguous(),
+        kernel.im.detach().contiguous(),
         sens_maps.re[:, 0].contiguous(),
         sens_maps.im[:, 0].contiguous(),
         lam,
+        _NORMAL_BACKEND == "torch",
     )
     return Complex(outr[:, :, None], outi[:, :, None])
 

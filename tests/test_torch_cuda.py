@@ -62,20 +62,65 @@ def test_normal_kernel_matches_plain(dev, b, t, c, h, w, kt, lam):
     _close(got, normal_cuda.normal_apply_torch(*args))
 
 
-@pytest.mark.parametrize("kernel", ["dft", "normal"])
-def test_kernels_refuse_grad(dev, kernel):
-    from cinemri_tpu_torch.ops.kernels import dft_cuda, normal_cuda
+@pytest.mark.parametrize("b,t,c,h,w,kt,lam", [(2, 3, 2, 70, 33, 1, 0.37),
+                                              (1, 4, 3, 24, 20, 4, 0.0)])
+def test_normal_bwd_kernel_matches_plain(dev, b, t, c, h, w, kt, lam):
+    from cinemri_tpu_torch.ops.kernels import normal_cuda
+    from cinemri_tpu_torch.physics.operators import masked_normal_kernel
 
-    r = lambda *s, grad=False: torch.randn(s, device=dev, requires_grad=grad)
+    rng = np.random.default_rng(2)
+    mask = torch.from_numpy((rng.random((b, kt, 1, h, 1)) < 0.4).astype(np.float32)).to(dev)
+    k = masked_normal_kernel(mask)
+    g = torch.Generator(device=dev).manual_seed(3)
+    r = lambda *s: torch.randn(s, generator=g, device=dev)
+    args = (r(b, t, h, w), r(b, t, h, w), r(b, t, h, w), r(b, t, h, w), k.re.contiguous(),
+            k.im.contiguous(), r(b, c, h, w), r(b, c, h, w), lam)
+    before = normal_cuda.BWD_LAUNCHES
+    got = normal_cuda.normal_apply_bwd(*args)
+    assert normal_cuda.BWD_LAUNCHES == before + 1
+    want = normal_cuda.normal_apply_bwd_torch(*args)
+    _close(got[:2], want[:2])
+    _close(got[2:4], want[2:4])
+    assert got[4].shape == (b, t)
+    torch.testing.assert_close(got[4].sum(), want[4].sum(), rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize("kernel", ["dft", "normal"])
+def test_kernel_grads_match_plain(dev, kernel):
+    """Autograd through each kernel's Function on the card (kernel forward
+    and backward) against the same Function on the plain versions."""
+    from cinemri_tpu_torch.ops import fft as F
+    from cinemri_tpu_torch.ops.kernels import dft_cuda, normal_cuda
+    from cinemri_tpu_torch.physics.operators import masked_normal_kernel
+
+    g = torch.Generator(device=dev).manual_seed(4)
+    r = lambda *s: torch.randn(s, generator=g, device=dev)
     if kernel == "dft":
-        x, w = r(4, 8, grad=True), r(8, 8)
-        call = lambda: dft_cuda.complex_dft_matmul(x, x, w, w)
-        counter = lambda: dft_cuda.LAUNCHES
+        mats = (F._dft_tensors(15, False, False, "ortho", dev)
+                + F._dft_adjoint_tensors(15, False, False, "ortho", dev))
+        inputs, shape = (r(300, 15), r(300, 15)), (300, 15)
+        call = lambda xr, xi, plain: dft_cuda.ComplexDFTMatmul.apply(xr, xi, *mats, plain)
+        counts = lambda: (dft_cuda.LAUNCHES,)
+        expected = (2,)  # forward, and backward on Wᴴ
     else:
-        x, k, s = r(1, 2, 8, 8, grad=True), r(1, 2, 8, 8), r(1, 3, 8, 8)
-        call = lambda: normal_cuda.normal_apply(x, x, k, k, s, s, 0.0)
-        counter = lambda: normal_cuda.LAUNCHES
-    before = counter()
-    with pytest.raises(NotImplementedError):
-        call()
-    assert counter() == before
+        k = masked_normal_kernel((torch.rand(1, 3, 1, 40, 1, generator=g, device=dev) < 0.4).float())
+        kr, ki = k.re.contiguous(), k.im.contiguous()
+        inputs = (r(1, 3, 40, 24), r(1, 3, 40, 24), r(1, 2, 40, 24), r(1, 2, 40, 24),
+                  torch.tensor(0.3, device=dev))
+        shape = (1, 3, 40, 24)
+        call = lambda xr, xi, sr, si, lam, plain: normal_cuda.NormalApply.apply(
+            xr, xi, kr, ki, sr, si, lam, plain)
+        counts = lambda: (normal_cuda.LAUNCHES, normal_cuda.BWD_LAUNCHES)
+        expected = (1, 1)
+    cr, ci = r(*shape), r(*shape)
+    grads = []
+    for plain in (False, True):
+        leaves = [a.clone().requires_grad_(True) for a in inputs]
+        before = counts()
+        yr, yi = call(*leaves, plain)
+        ((yr * cr).sum() + (yi * ci).sum()).backward()
+        launched = tuple(a - b for a, b in zip(counts(), before))
+        assert launched == ((0,) * len(expected) if plain else expected)
+        grads.append([a.grad for a in leaves])
+    for got, want in zip(*grads):
+        assert (got - want).abs().max().item() <= 2e-5 * want.abs().max().item()

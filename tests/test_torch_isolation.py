@@ -41,7 +41,12 @@ def test_port_imports_no_jax_and_builds_nothing():
                  "cinemri_tpu_torch.serve",
                  "cinemri_tpu_torch.interop.flax_params",
                  "cinemri_tpu_torch.models.varnet",
-                 "cinemri_tpu_torch.data.masks"):
+                 "cinemri_tpu_torch.data.masks",
+                 "cinemri_tpu_torch.data.transforms",
+                 "cinemri_tpu_torch.ops.ssim",
+                 "cinemri_tpu_torch.models.remat",
+                 "cinemri_tpu_torch.train.optim",
+                 "cinemri_tpu_torch.train.step"):
         assert name in out["modules"]
     assert out["bad"] == []
     assert out["loaded"] == []  # no kernel library loaded

@@ -186,7 +186,7 @@ class TestBuildModel:
         with pytest.raises(ValueError):
             build_model("nope", "XF", device="cpu")
         with pytest.raises(TypeError):
-            build_model("varnet", "XF", device="cpu", remat=True)
+            build_model("varnet", "XF", device="cpu", bf16=True)
 
     def test_torch_style_init(self):
         a = build_model("varnet", "XF", device="cpu", generator=torch.Generator().manual_seed(5), **SMALL)

@@ -155,16 +155,21 @@ class TestOpstats:
             {"cat": "kernel", "name": "void fft2d_r2c_64x64<float>", "ts": 5, "dur": 10},
             {"cat": "gpu_memcpy", "name": "Memcpy HtoD", "ts": 30, "dur": 5},
             {"cat": "cpu_op", "name": "aten::conv2d", "ts": 0, "dur": 100},
+            {"cat": "kernel", "name": "void (anonymous namespace)::normal_apply_bwd_reduce_kernel", "ts": 40, "dur": 2},
+            {"cat": "kernel", "name": "mystery_kernel", "ts": 42, "dur": 3},
+            {"cat": "kernel", "name": "mystery_kernel", "ts": 45, "dur": 1},
         ]}
         path = tmp_path / "t.json"
         path.write_text(__import__("json").dumps(trace))
         events = opstats.kernel_events(path)
-        assert len(events) == 3
+        assert len(events) == 6
         kinds = opstats.fold_by_kind(events)
         assert kinds["dft_matmul (port kernel)"] == {"ms": 0.01, "count": 1}
+        assert kinds["normal_apply_bwd (port kernels)"] == {"ms": 0.002, "count": 1}
         assert kinds["conv / gemm (cuDNN, cuBLAS)"]["count"] == 1
         assert kinds["copy / cat / pad"]["count"] == 1
-        busy, window = opstats.busy_share(events)
+        assert opstats.top_names(events, "other") == [("mystery_kernel", 0.004, 2)]
+        busy, window = opstats.busy_share(events[:3])
         assert (busy, window) == (0.02, 0.035)
 
 
@@ -190,3 +195,57 @@ class TestLowFreq:
         for i, (p, n) in enumerate(((2, 4), (7, 6))):
             want = mask_center_band(torch.from_numpy(x[i]), torch.tensor(p), torch.tensor(n))
             np.testing.assert_array_equal(got[i].numpy(), want.numpy())
+
+
+class TestDFTGradient:
+    """The DFT product's autograd Function against ``jax.grad`` of the JAX
+    transforms on Complex pairs (max |diff| ≤ 1e-5): the backward is the same
+    product with ``Wᴴ``."""
+
+    @pytest.mark.parametrize("fn,kw", [("fft1c", {"axis": 1}), ("ifft1c", {"axis": -1}),
+                                       ("ifft2c", {}), ("fft2c", {})])
+    @pytest.mark.parametrize("backend", ["kernel", "torch"])
+    def test_matches_jax_grad(self, rng, fn, kw, backend):
+        import jax
+
+        x = c64(rng, 2, 5, 12, 10)
+        cr = rng.standard_normal(x.shape).astype(np.float32)
+        ci = rng.standard_normal(x.shape).astype(np.float32)
+
+        def loss_j(xre, xim):
+            y = getattr(JF, fn)(JComplex(xre, xim), **kw)
+            return jnp.sum(y.re * cr) + jnp.sum(y.im * ci)
+
+        want = jax.grad(loss_j, argnums=(0, 1))(jnp.asarray(x.real), jnp.asarray(x.imag))
+        xt = from_complex(x)
+        xt.re.requires_grad_(True)
+        xt.im.requires_grad_(True)
+        try:
+            TF.set_dft_backend(backend)
+            y = getattr(TF, fn)(xt, **kw)
+        finally:
+            TF.set_dft_backend("kernel")
+        loss = (y.re * torch.from_numpy(cr)).sum() + (y.im * torch.from_numpy(ci)).sum()
+        got = torch.autograd.grad(loss, (xt.re, xt.im))
+        for g, w in zip(got, want):
+            assert np.abs(g.numpy() - np.asarray(w)).max() <= 1e-5
+
+    def test_adjoint_is_conjugate_transpose_of_the_same_matrix(self):
+        for inverse in (False, True):
+            wr, wi = TF._dft_tensors(15, inverse, False, "ortho", torch.device("cpu"))
+            hr, hi = TF._dft_adjoint_tensors(15, inverse, False, "ortho", torch.device("cpu"))
+            assert hr.is_contiguous() and hi.is_contiguous()
+            torch.testing.assert_close(hr, wr.T, rtol=0, atol=0)
+            torch.testing.assert_close(hi, -wi.T, rtol=0, atol=0)
+
+    def test_matrices_get_no_gradient_and_grad_may_be_strided(self, rng):
+        x = from_complex(c64(rng, 3, 8))
+        x.re.requires_grad_(True)
+        wr, wi = (a.clone().requires_grad_(True)
+                  for a in TF._dft_tensors(8, False, False, "ortho", torch.device("cpu")))
+        hr, hi = TF._dft_adjoint_tensors(8, False, False, "ortho", torch.device("cpu"))
+        yr, yi = dft_cuda.ComplexDFTMatmul.apply(x.re, x.im, wr, wi, hr, hi, False)
+        # the incoming gradient is a transposed (non-contiguous) view
+        (yr * torch.ones(8, 3).T).sum().backward()
+        assert wr.grad is None and wi.grad is None
+        torch.testing.assert_close(x.re.grad, torch.ones(3, 8) @ hr.T, rtol=1e-6, atol=1e-6)

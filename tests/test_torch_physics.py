@@ -151,3 +151,97 @@ class TestNormalApply:
         k = torch.zeros(1, 1, 4, 4, device="meta")
         with pytest.raises(ValueError):
             normal_cuda.normal_apply(z, z, k, k, z, z, 0.0)
+
+
+class TestNormalApplyBackward:
+    """The port's plain backward against the JAX custom VJP of
+    ``normal_apply_pallas`` (Pallas interpret mode, as tests/test_kernels.py
+    runs it) and against autograd of the plain forward, at
+    tests/test_kernels.py's gradient tolerance (2e-4)."""
+
+    TOL = dict(rtol=2e-4, atol=2e-4)
+
+    def _inputs(self, rng, b, kt, t=3, c=3, h=16, w=12):
+        x, s = c64(rng, b, t, h, w), c64(rng, b, c, h, w)
+        kern = TO.masked_normal_kernel(torch.from_numpy(line_mask(rng, b, kt, h)))
+        g = c64(rng, b, t, h, w)
+        f32 = lambda a: np.ascontiguousarray(a, dtype=np.float32)
+        arrays = (f32(x.real), f32(x.imag), f32(kern.re.numpy()), f32(kern.im.numpy()),
+                  f32(s.real), f32(s.imag))
+        return arrays, (f32(g.real), f32(g.imag))
+
+    @pytest.mark.parametrize("b", [1, 2])
+    @pytest.mark.parametrize("kt", [1, 3])
+    def test_matches_jax_custom_vjp(self, rng, b, kt):
+        import jax
+
+        arrays, (gr, gi) = self._inputs(rng, b, kt)
+        lam = 0.21
+        old = NP._INTERPRET
+        try:
+            NP._INTERPRET = True
+            _, vjp = jax.vjp(NP.normal_apply_pallas, *map(jnp.asarray, arrays), jnp.float32(lam))
+            xbr, xbi, _, _, sbr, sbi, lbar = vjp((jnp.asarray(gr), jnp.asarray(gi)))
+        finally:
+            NP._INTERPRET = old
+        xr, xi, kr, ki, sr, si = map(torch.from_numpy, arrays)
+        before = normal_cuda.BWD_LAUNCHES
+        got = normal_cuda.normal_apply_bwd(xr, xi, torch.from_numpy(gr), torch.from_numpy(gi),
+                                           kr, ki, sr, si, lam)
+        assert normal_cuda.BWD_LAUNCHES == before  # CPU tensors take the plain version
+        assert got[2].shape == (b, 3, 16, 12) and got[4].shape == (b, 3)
+        for g_, w_ in zip(got[:4], (xbr, xbi, sbr, sbi)):
+            np.testing.assert_allclose(g_.numpy(), np.asarray(w_), **self.TOL)
+        np.testing.assert_allclose(got[4].sum().item(), float(lbar), **self.TOL)
+
+    @pytest.mark.parametrize("b,kt", [(1, 3), (2, 1)])
+    def test_matches_autograd_of_plain_forward(self, rng, b, kt):
+        arrays, (gr, gi) = self._inputs(rng, b, kt)
+        xr, xi, kr, ki, sr, si = (torch.from_numpy(a).requires_grad_(i not in (2, 3))
+                                  for i, a in enumerate(arrays))
+        lam = torch.tensor(0.21, requires_grad=True)
+        outr, outi = normal_cuda.normal_apply_torch(xr, xi, kr, ki, sr, si, lam)
+        want = torch.autograd.grad((outr * torch.from_numpy(gr)).sum() + (outi * torch.from_numpy(gi)).sum(),
+                                   (xr, xi, sr, si, lam))
+        got = normal_cuda.normal_apply_bwd_torch(xr.detach(), xi.detach(), torch.from_numpy(gr),
+                                                 torch.from_numpy(gi), kr, ki, sr.detach(),
+                                                 si.detach(), 0.21)
+        for g_, w_ in zip(got[:4], want[:4]):
+            np.testing.assert_allclose(g_.numpy(), w_.numpy(), **self.TOL)
+        np.testing.assert_allclose(got[4].sum().item(), want[4].item(), **self.TOL)
+
+    @pytest.mark.parametrize("backend", ["kernel", "torch"])
+    def test_operator_grads_match_jax(self, rng, backend):
+        """``normal_plus_lambda_kernel`` through the autograd Function (the K
+        matrix detached, a tensor λ) against ``jax.grad`` of the JAX XLA path."""
+        import jax
+
+        x, s = c64(rng, 2, 3, 1, 16, 12), c64(rng, 2, 1, 3, 16, 12)
+        m = line_mask(rng, 2, 3, 16)
+        gr = rng.standard_normal(x.shape).astype(np.float32)
+        gi = rng.standard_normal(x.shape).astype(np.float32)
+        kern_j = JO.masked_normal_kernel(jnp.asarray(m))
+
+        def loss_j(xre, xim, sre, sim, lam):
+            out = JO.normal_plus_lambda_kernel(JComplex(xre, xim), kern_j, JComplex(sre, sim), lam)
+            return jnp.sum(out.re * gr) + jnp.sum(out.im * gi)
+
+        want = jax.grad(loss_j, argnums=(0, 1, 2, 3, 4))(
+            *(jnp.asarray(a.astype(np.float32)) for a in (x.real, x.imag, s.real, s.imag)),
+            jnp.float32(0.21))
+        xt, st = from_complex(x), from_complex(s)
+        for a in (xt.re, xt.im, st.re, st.im):
+            a.requires_grad_(True)
+        lam = torch.tensor(0.21, requires_grad=True)
+        kern = TO.masked_normal_kernel(torch.from_numpy(m))
+        kern.re.requires_grad_(True)  # detached inside: gets no gradient
+        try:
+            TO.set_normal_backend(backend)
+            out = TO.normal_plus_lambda_kernel(xt, kern, st, lam)
+        finally:
+            TO.set_normal_backend("kernel")
+        loss = (out.re * torch.from_numpy(gr)).sum() + (out.im * torch.from_numpy(gi)).sum()
+        got = torch.autograd.grad(loss, (xt.re, xt.im, st.re, st.im, lam, kern.re), allow_unused=True)
+        for g_, w_ in zip(got, want):
+            np.testing.assert_allclose(g_.numpy(), np.asarray(w_), **self.TOL)
+        assert got[5] is None

@@ -86,3 +86,25 @@ class TestServe:
         with pytest.raises(RuntimeError, match="CUDA"):
             resolve_device(None)
         assert resolve_device("cpu") == torch.device("cpu")
+
+
+class TestServeThenTrain:
+    def test_backward_after_a_served_request(self):
+        """A request served under inference mode builds the DFT-matrix cache;
+        a later backward pass through ``ifft2c`` at the same size must be
+        able to save those matrices for backward."""
+        from cinemri_tpu_torch.ops import fft as TF
+
+        TF._dft_tensors.cache_clear()
+        TF._dft_adjoint_tensors.cache_clear()
+        model = build_model("varnet", "XF", device="cpu", **SMALL)
+        serve = bind_model(model, device="cpu")
+        kre, kim, mask = _request(1, 3)
+        assert serve(kre, kim, mask).shape == (1, 4, 24, 20)
+        x = Complex(torch.randn(2, 24, 20, requires_grad=True), torch.randn(2, 24, 20))
+        y = TF.ifft2c(x)
+        (y.re.square().sum() + y.im.square().sum()).backward()
+        # ifft2c is unitary: the gradient of ‖ifft2c(x)‖² in x_re is 2·x_re
+        torch.testing.assert_close(x.re.grad, 2 * x.re.detach(), rtol=1e-4, atol=1e-4)
+        # and serving again after training still works and gives the same image
+        torch.testing.assert_close(serve(kre, kim, mask), serve(kre, kim, mask), rtol=0, atol=0)
