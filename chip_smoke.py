@@ -3,30 +3,41 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from ``cinemri_tpu_torch/csrc`` with nvcc,
-holds each kernel against its plain PyTorch version at the shapes of the
-serving and training paths, runs the full-width VarNet-XF forward (10
-cascades, chans 16, pools 3, sens net 8/3) on a 15-frame x 10-coil x
-200x200 volume through the kernels and through the plain versions, profiles
-one forward, and answers four requests through ``cinemri_tpu_torch.serve``
-three times: through the kernels, through the plain versions and through
-one library call each. Then it trains: four steps of
-``cinemri_tpu_torch.train`` (SSIM loss, Adam 1e-4, cascade remat) on one
-such volume, twice through the plain versions (their run-to-run gap), once
-through one library call each and once through the kernels, from the same
-initial weights; it profiles one train step and times steps without remat.
+Builds the port's CUDA kernels from ``cinemri_tpu_torch/csrc`` with nvcc
+(one nvcc per source, in parallel) and holds each kernel against its plain
+PyTorch version and one library call at the shapes of the serving and
+training paths; the fused 2-D DFT ``fft2_plane``, which no path runs (as in
+the JAX package), at the 2-D DFT shapes of the ported paths, beside the two
+1-D DFT launches that ``ifft2c`` makes today and cuFFT.
+
+Then it drives two models at full width through the port's entry points.
+VarNet-XF (10 cascades, chans 16, pools 3, sens net 8/3): the forward on a
+15-frame x 10-coil x 200x200 volume through the kernels and through the
+plain versions, one profiled forward, four requests through
+``cinemri_tpu_torch.serve`` three times (through the kernels, the plain
+versions and one library call each), then four train steps of
+``cinemri_tpu_torch.train`` (SSIM loss, Adam 1e-4, cascade remat) twice
+through the plain versions (their run-to-run gap), once through the library
+calls and once through the kernels, from the same initial weights, one
+profiled step and steps without remat. CineNet-XF (10 cascades, 6 CG
+iterations, chans 16, pools 3, with RSS-normalized sensitivity maps as
+input): the same forward, profile and serving runs, one warm forward under
+``torch.cuda.set_sync_debug_mode("error")`` (λ stays on the device), the same
+four train runs, one profiled step and the host syncs of one step.
+
 It checks that each kernel run launched every kernel as many times as the
 path calls it and that the runs agree. Any failure ends the run with a
 non-zero exit code.
 
 Output, last three lines: one JSON object with a row per kernel and run
-(``"serve"`` or ``"train"``), the card's name and power limit as nvidia-smi
+(``"serve"``, ``"train"``, ``"cinenet-serve"``, ``"cinenet-train"`` and, for
+``fft2_plane``, ``"check"``), the card's name and power limit as nvidia-smi
 reports them, and ``{"ok": true, "device": {...}}``. A row's ``ms``,
 ``plain_ms`` and ``library_ms`` sum CUDA-event times taken around every
-call of that function in its run (the four serve requests, or the four
-train steps); ``bound_ms`` sums the bound of each call of the kernel run.
-The line before them, ``[details] {...}``, holds the per-shape
-microbenchmarks and every other number.
+call of that function in its run (the four serve requests, the four train
+steps, or one call at each of the four check shapes); ``bound_ms`` sums the
+bound of each call of the kernel run. The line before them, ``[details]
+{...}``, holds the per-shape microbenchmarks and every other number.
 
 Imports nothing of JAX. Exits non-zero without a CUDA device, or when the
 ``cinemri_tpu_torch`` package is not beside this file.
@@ -35,6 +46,7 @@ Imports nothing of JAX. Exits non-zero without a CUDA device, or when the
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import math
 import statistics
@@ -42,6 +54,8 @@ import subprocess
 import sys
 import tempfile
 import time
+import traceback
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -57,6 +71,8 @@ PEAKS = (
 )
 
 FLAGSHIP = dict(num_cascades=10, sens_chans=8, sens_pools=3, chans=16, pools=3)
+# the JAX package's protocol CineNet (bench/_protocol.py CONFIGS["cinenet"])
+CINENET = dict(num_cascades=10, cg_iters=6, chans=16, pools=3)
 T, C, H, W = 15, 10, 200, 200
 
 # Tolerances, relative to the largest magnitude of the plain result. Both
@@ -65,7 +81,8 @@ T, C, H, W = 15, 10, 200, 200
 DFT_TOL = 2e-5
 NORMAL_TOL = 2e-5
 # Whole forward, kernels vs plain versions: rounding differences pass
-# through 10 cascades and 21 instance-normalized U-Nets.
+# through 10 cascades and their instance-normalized U-Nets (and CineNet's
+# 6-step CG solves).
 MODEL_TOL = 1e-4
 # λ̄ of the normal-apply backward, relative: a sum over b·t·h·w terms whose
 # inputs are made correlated (g = x + noise) so that it does not cancel.
@@ -83,6 +100,19 @@ LAM_TOL = 1e-5
 TRAIN_STEPS = 4
 TRAIN_LOSS_TOL = 1e-4
 TRAIN_GRAD_TOL = 1e-2
+# CineNet's first-step gradient at full width is ill-conditioned in f32: every
+# f32 summation order, the plain versions' own included, lands about 2%
+# (relative L2) from the gradient evaluated in f64 (the loss within 1e-7), so
+# any two f32 orders are about 2.2% apart (1.9-2.1% and 2.2% on the H100);
+# Adam's first step, ±lr by the sign of each gradient element, carries that
+# into the later steps' losses (up to 6e-4 apart). So the CineNet train runs
+# are held to wider gaps against the plain run, which the plain-vs-plain and
+# library-vs-plain gaps must meet too, and the kernels' first-step gradient
+# must be no farther from the f64 gradient than F64_RATIO times the plain
+# versions'.
+CINENET_TRAIN_LOSS_TOL = 2e-3
+CINENET_TRAIN_GRAD_TOL = 5e-2
+F64_RATIO = 1.5
 
 
 def fail(msg: str) -> None:
@@ -129,10 +159,19 @@ def dft_cost(xr, xi, wr, wi):
 
 
 def normal_cost(xr, xi, kr, ki, sr, si, lam):
+    """The h-contraction per coil, the products around it and ``+ λx``
+    (which the kernel computes whatever λ is); λ's four bytes are left out."""
     b, t, h, w = xr.shape
     c, kt = sr.shape[1], kr.shape[1]
-    flops = 8.0 * b * t * c * h * h * w + 14.0 * b * t * c * h * w + (4.0 * b * t * h * w if lam else 0.0)
+    flops = 8.0 * b * t * c * h * h * w + 14.0 * b * t * c * h * w + 4.0 * b * t * h * w
     return flops, 8.0 * (2 * b * t * h * w + b * kt * h * h + b * c * h * w)
+
+
+def fft2_cost(xr, xi, whr, whi, wwr, wwi):
+    """Two complex products per plane, ``W_h·X`` and ``(W_h·X)·W_wᵀ``; reads
+    the planes and both matrices, writes the planes."""
+    b, h, w = xr.shape
+    return 8.0 * b * (h * h * w + h * w * w), 4.0 * (4 * b * h * w + 2 * h * h + 2 * w * w)
 
 
 def normal_bwd_cost(xr, xi, gr, gi, kr, ki, sr, si, lam):
@@ -166,8 +205,18 @@ def normal_library(torch):
         return torch.complex(xr, xi), torch.complex(kr, ki).expand(b, t, h, h), s, s.conj(), lam
 
     def call(x, k, s, sc, lam):
-        out = torch.einsum("bckw,btkw,btik,bciw->btiw", s, x, k, sc)
-        return out + lam * x if lam else out
+        return torch.einsum("bckw,btkw,btik,bciw->btiw", s, x, k, sc) + lam * x
+
+    return prep, call
+
+
+def fft2_library(torch):
+    """One complex64 ``einsum`` for ``W_h · X[b] · W_wᵀ``."""
+    def prep(xr, xi, whr, whi, wwr, wwi):
+        return torch.complex(whr, whi), torch.complex(xr, xi), torch.complex(wwr, wwi)
+
+    def call(wh, x, ww):
+        return torch.einsum("ij,bjk,lk->bil", wh, x, ww)
 
     return prep, call
 
@@ -178,9 +227,10 @@ def normal_bwd_library(torch):
     computes this backward."""
     def prep(xr, xi, gr, gi, kr, ki, sr, si, lam):
         b, t, h, _ = xr.shape
+        lam = (lam.detach().reshape(()) if torch.is_tensor(lam)
+               else torch.tensor(lam, dtype=torch.float32, device=xr.device))
         return (torch.complex(xr, xi), torch.complex(gr, gi),
-                torch.complex(kr, ki).expand(b, t, h, h), torch.complex(sr, si),
-                torch.tensor(float(lam), device=xr.device))
+                torch.complex(kr, ki).expand(b, t, h, h), torch.complex(sr, si), lam)
 
     def call(x, g, k, s, lam):
         with torch.enable_grad():
@@ -247,10 +297,23 @@ def flagship_inputs(torch, mask_func, seed: int, device):
     return as_t(k.real), as_t(k.imag), as_t(mask)
 
 
-def train_batch(torch, device):
+def rss_maps(torch, seed: int, device):
+    """Random RSS-normalized sensitivity maps (1, 1, 10, 200, 200) from
+    ``default_rng(seed + 1)``, as the JAX package's
+    ``bench/_protocol.py::rss_normalized_maps`` makes CineNet's input."""
+    rng = np.random.default_rng(seed + 1)
+    shape = (1, 1, C, H, W)
+    s = (rng.standard_normal(shape) + 1j * rng.standard_normal(shape)).astype(np.complex64)
+    s /= np.sqrt((np.abs(s) ** 2).sum(2, keepdims=True))
+    as_t = lambda a: torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)).to(device)
+    return as_t(s.real), as_t(s.imag)
+
+
+def train_batch(torch, device, sens_maps: bool = False):
     """The JAX package's train-step batch (``bench/train_step.py``): k-space
     from ``default_rng(0)`` under ``RandomMask([10], [4])(15, 200, seed=0)``,
-    target = |k| averaged over coils."""
+    target = |k| averaged over coils; with ``sens_maps``, RSS-normalized maps
+    drawn next from the same generator, as that script gives CineNet."""
     from cinemri_tpu_torch.data.masks import RandomMask
     from cinemri_tpu_torch.ops.cplx import Complex
 
@@ -260,8 +323,14 @@ def train_batch(torch, device):
     mask = RandomMask([10], [4])(T, H, seed=0)[None].astype(np.float32)
     km = k * mask
     as_t = lambda a: torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)).to(device)
-    return {"masked_kspace": Complex(as_t(km.real), as_t(km.imag)), "mask": as_t(mask),
-            "target": as_t(np.abs(k).mean(axis=2))}
+    batch = {"masked_kspace": Complex(as_t(km.real), as_t(km.imag)), "mask": as_t(mask),
+             "target": as_t(np.abs(k).mean(axis=2))}
+    if sens_maps:
+        s = (rng.standard_normal((1, 1, C, H, W))
+             + 1j * rng.standard_normal((1, 1, C, H, W))).astype(np.complex64)
+        s /= np.sqrt((np.abs(s) ** 2).sum(2, keepdims=True))
+        batch["sens_maps"] = Complex(as_t(s.real), as_t(s.imag))
+    return batch
 
 
 def main() -> int:
@@ -282,7 +351,7 @@ def main() -> int:
     from cinemri_tpu_torch.models import build_model
     from cinemri_tpu_torch.ops import fft as FFT
     from cinemri_tpu_torch.ops.cplx import Complex
-    from cinemri_tpu_torch.ops.kernels import _build, dft_cuda, normal_cuda
+    from cinemri_tpu_torch.ops.kernels import _build, dft_cuda, fft2_cuda, normal_cuda
     from cinemri_tpu_torch.physics import operators as OPS
     from cinemri_tpu_torch.serve import bind_model
     from cinemri_tpu_torch.train import create_train_state, make_train_step
@@ -413,149 +482,192 @@ def main() -> int:
                    dft_cuda.complex_dft_matmul, dft_cuda.complex_dft_matmul_torch,
                    dft_library(torch), dft_cost, DFT_TOL)
 
-    for b, kt, seed in ((1, T, 1), (1, 1, 2), (2, T, 3)):
+    # λ: VarNet's 0.0 in the forward; 0.37 in a backward; a device tensor
+    # (CineNet's softplus(λᵢ), read by the kernels through a pointer)
+    lam_dev = torch.tensor(0.37, device=dev)
+    for b, kt, seed, lam in ((1, T, 1, 0.0), (1, 1, 2, 0.37), (2, T, 3, 0.0), (1, T, 4, lam_dev)):
         mask_func = RandomMask([10], [4]) if kt > 1 else EquispacedMask([0.08], [4])
         masks = np.stack([mask_func(T, H, seed=seed + i) for i in range(b)])  # (b, t|1, 1, h, 1)
         kern = OPS.masked_normal_kernel(torch.from_numpy(masks).to(dev))
         sr, si = randn(b, C, H, W), randn(b, C, H, W)
         rss = torch.sqrt((sr * sr + si * si).sum(1, keepdim=True))
         args = (randn(b, T, H, W), randn(b, T, H, W), kern.re.contiguous(), kern.im.contiguous(),
-                sr / rss, si / rss, 0.0)  # unit-RSS maps, as the sens net's
-        check_case("normal_apply", dict(b=b, t=T, c=C, h=H, w=W, kt=kt), args,
-                   normal_cuda.normal_apply, normal_cuda.normal_apply_torch,
+                sr / rss, si / rss)  # unit-RSS maps, as the sens net's
+        lam_label = "device tensor 0.37" if torch.is_tensor(lam) else lam
+        fwd_lam = lam if torch.is_tensor(lam) else 0.0  # the forward cases: VarNet's 0.0
+        check_case("normal_apply", dict(b=b, t=T, c=C, h=H, w=W, kt=kt,
+                                        lam=lam_label if torch.is_tensor(lam) else 0.0),
+                   args + (fwd_lam,), normal_cuda.normal_apply, normal_cuda.normal_apply_torch,
                    normal_library(torch), normal_cost, NORMAL_TOL)
         # the backward on the same operands; g = x + noise keeps λ̄ = Σ Re⟨g, x⟩
         # from cancelling, so its relative error measures the kernel
-        lam = 0.37 if kt == 1 else 0.0
         xr, xi = args[0], args[1]
-        check_bwd_case(dict(b=b, t=T, c=C, h=H, w=W, kt=kt, lam=lam),
+        check_bwd_case(dict(b=b, t=T, c=C, h=H, w=W, kt=kt, lam=lam_label),
                        (xr, xi, xr + randn(b, T, H, W), xi + randn(b, T, H, W)) + args[2:6] + (lam,))
     del args, sr, si, rss, kern, xr, xi
+
+    # fft2_plane, wired into no path (as in the JAX package), at the 2-D DFT
+    # shapes of the ported paths: CineNet's image_ref and VarNet's x_ref
+    # ifft2c (150 planes), the sens net's ifft2c (10), a small forward DFT, and
+    # random non-symmetric W_h ≠ W_w, h ≠ w (a transposed W_w would show). For
+    # the DFTs also the route the port takes today (ops/fft.py: two DFT
+    # kernel launches and _apply_dft's axis-move copies) and cuFFT between
+    # the shifts, for information.
+    fft2_args = []
+    for (b, h, w), inverse in (((T * C, H, W), True), ((C, H, W), True), ((3, 32, 32), False),
+                               ((4, 24, 20), None)):
+        if inverse is None:
+            mats = tuple(randn(n, n) / math.sqrt(n) for n in (h, h, w, w))
+        else:
+            mats = (FFT._dft_tensors(h, inverse, False, "ortho", dev)
+                    + FFT._dft_tensors(w, inverse, False, "ortho", dev))
+        args = (randn(b, h, w), randn(b, h, w)) + mats
+        fft2_args.append(args)
+        label = "random" if inverse is None else ("centered inverse DFT" if inverse else "centered DFT")
+        check_case("fft2_plane", dict(B=b, h=h, w=w, matrices=label), args, fft2_cuda.fft2_plane,
+                   fft2_cuda.fft2_plane_torch, fft2_library(torch), fft2_cost, DFT_TOL)
+        if inverse is None:
+            continue
+        x = Complex(args[0], args[1])
+        route = FFT.ifft2c if inverse else FFT.fft2c
+        with torch.no_grad():
+            via_1d = route(x)
+            two_ms = cuda_ms(torch, lambda: route(x))
+        xc = torch.complex(args[0], args[1])
+        fft = torch.fft.ifft2 if inverse else torch.fft.fft2
+        cufft = lambda: torch.fft.fftshift(fft(torch.fft.ifftshift(xc, dim=(-2, -1)), norm="ortho"),
+                                           dim=(-2, -1))
+        cufft_ms = cuda_ms(torch, cufft)
+        want = cufft()
+        got = fft2_cuda.fft2_plane(*args)
+        torch.cuda.synchronize()
+        scale = want.abs().max().item()
+        errs = [max((a - want.real).abs().max().item(), (b_ - want.imag).abs().max().item())
+                for a, b_ in (got, (via_1d.re, via_1d.im))]
+        cases[-1].update(two_dft_launches_ms=two_ms, cufft_ms=cufft_ms,
+                         max_abs_err_vs_cufft=errs[0], two_dft_launches_max_abs_err_vs_cufft=errs[1])
+        print(f"[kernel] fft2_plane {(b, h, w)} vs today's route: two DFT launches with copies "
+              f"{two_ms:.4f} ms, cuFFT {cufft_ms:.4f} ms; max_abs_err vs cuFFT: kernel {errs[0]:.3e}, "
+              f"two launches {errs[1]:.3e} (tol {DFT_TOL * scale:.3e})")
+        if not max(errs) <= DFT_TOL * scale:
+            fail(f"fft2_plane or the two-launch route disagrees with cuFFT at {(b, h, w)}: {errs}")
+    # the check run of the kernel row: one call at each shape, CUDA events around each
+    fft2_runs = (Timed(torch, fft2_cuda, "fft2_plane", fft2_cost),
+                 Timed(torch, fft2_cuda, "fft2_plane_torch", fft2_cost),
+                 Timed(torch, fft2_cuda, "fft2_plane_torch", fft2_cost, fft2_library(torch)[1],
+                       fft2_library(torch)[0]))
+    fft2_cuda.LAUNCHES = 0
+    for args in fft2_args:
+        for timer in fft2_runs:
+            timer(*args)
+    torch.cuda.synchronize()
+    fft2_launches = fft2_cuda.LAUNCHES
+    if fft2_launches != len(fft2_args):
+        fail(f"the fft2_plane check run launched {fft2_launches} kernels, not {len(fft2_args)}")
+    del args, fft2_args, mats, x, xc, via_1d, want, got
     torch.cuda.empty_cache()
 
-    # -- 3. main path: the full-width VarNet-XF forward ---------------------------
-    model = build_model("varnet", "XF", device=dev,
-                        generator=torch.Generator().manual_seed(0), **FLAGSHIP).eval()
-    kre, kim, mask = flagship_inputs(torch, RandomMask([10], [4]), 0, dev)
-    k = Complex(kre, kim)
+    def set_backends(backend):
+        FFT.set_dft_backend(backend)
+        OPS.set_normal_backend(backend)
 
-    def forward():
-        with torch.inference_mode():
-            return model(k, mask)
+    def forward_phase(tag, forward, expected):
+        """The forward through the kernels (launches counted) and through the
+        plain versions, checked against each other; then 12 timed warm
+        forwards and one profiled forward."""
+        dft_cuda.LAUNCHES = normal_cuda.LAUNCHES = 0
+        out_kernel = forward()
+        torch.cuda.synchronize()
+        per_forward = {"dft": dft_cuda.LAUNCHES, "normal": normal_cuda.LAUNCHES}
+        print(f"[{tag}] launches per forward: {per_forward}")
+        if per_forward != expected:
+            fail(f"{tag}: expected {expected} launches per forward, got {per_forward}")
+        if out_kernel.shape != (1, T, H, W) or not torch.isfinite(out_kernel).all():
+            fail(f"{tag}: output has shape {tuple(out_kernel.shape)} or non-finite values")
+        set_backends("torch")
+        out_plain = forward()
+        set_backends("kernel")
+        err = (out_kernel - out_plain).abs().max().item()
+        scale = out_plain.abs().max().item()
+        print(f"[{tag}] kernels vs plain versions: max_abs_err {err:.3e} "
+              f"(tol {MODEL_TOL * scale:.3e}, max |out| {scale:.4f})")
+        if not err <= MODEL_TOL * scale:
+            fail(f"{tag}: the forward through the kernels disagrees with the plain forward: {err}")
+        torch.cuda.reset_peak_memory_stats()
+        times = [cuda_ms(torch, forward, iters=1, warmup=1 if i == 0 else 0) for i in range(12)]
+        peak = torch.cuda.max_memory_allocated()
+        ms_vol = statistics.median(times)
+        print(f"[{tag}] kernels: {ms_vol:.3f} ms/volume (median of {len(times)}, min {min(times):.3f}), "
+              f"{T / ms_vol * 1e3:.2f} frames/s, peak memory {peak / 2**20:.1f} MiB")
+        return dict(out=out_kernel, scale=scale, max_abs_err=err, launches_per_forward=per_forward,
+                    forward_ms=times, ms_per_volume=ms_vol, frames_per_s=T / ms_vol * 1e3,
+                    peak_memory_bytes=peak)
 
-    # per forward: ifft2c (2 DFTs) in the sens net and for x_ref, then per
-    # cascade one fft1c + one ifft1c over t and one normal apply
-    nc = FLAGSHIP["num_cascades"]
-    expected = {"dft": 4 + 2 * nc, "normal": nc}
-    dft_cuda.LAUNCHES = normal_cuda.LAUNCHES = 0
-    out_kernel = forward()
-    torch.cuda.synchronize()
-    per_forward = {"dft": dft_cuda.LAUNCHES, "normal": normal_cuda.LAUNCHES}
-    print(f"[forward] launches per forward: {per_forward}")
-    if per_forward != expected:
-        fail(f"expected {expected} launches per forward, got {per_forward}")
-    if out_kernel.shape != (1, T, H, W) or not torch.isfinite(out_kernel).all():
-        fail(f"forward output has shape {tuple(out_kernel.shape)} or non-finite values")
+    def serve_phase(tag, serve, inputs, expected, direct_out, scale):
+        """The requests through ``serve`` three times: (a) through the kernels,
+        whose launches are counted, (b) through the plain versions and (c)
+        through one library call each, both in the plain versions' slots,
+        uncounted. CUDA events around every call of each (Timed)."""
+        def serve_all(*timers):
+            latencies, outs = [], []
+            with contextlib.ExitStack() as stack:
+                for timer in timers:
+                    stack.enter_context(timer)
+                for request in inputs:
+                    t0 = time.perf_counter()
+                    outs.append(serve(*request))
+                    torch.cuda.synchronize()
+                    latencies.append((time.perf_counter() - t0) * 1e3)
+            return latencies, outs
 
-    FFT.set_dft_backend("torch")
-    OPS.set_normal_backend("torch")
-    out_plain = forward()
-    FFT.set_dft_backend("kernel")
-    OPS.set_normal_backend("kernel")
-    model_err = (out_kernel - out_plain).abs().max().item()
-    model_scale = out_plain.abs().max().item()
-    print(f"[forward] kernels vs plain versions: max_abs_err {model_err:.3e} "
-          f"(tol {MODEL_TOL * model_scale:.3e}, max |out| {model_scale:.4f})")
-    if not model_err <= MODEL_TOL * model_scale:
-        fail(f"forward through the kernels disagrees with the plain forward: {model_err}")
+        kern = (Timed(torch, dft_cuda, "complex_dft_matmul", dft_cost),
+                Timed(torch, normal_cuda, "normal_apply", normal_cost))
+        dft_cuda.LAUNCHES = normal_cuda.LAUNCHES = 0
+        latencies, outs = serve_all(*kern)
+        served = {"dft": dft_cuda.LAUNCHES, "normal": normal_cuda.LAUNCHES}
+        print(f"[{tag}] kernels: {len(inputs)} requests, latency ms "
+              f"{[round(x, 3) for x in latencies]}, launches {served}")
+        if served != {k_: v * len(inputs) for k_, v in expected.items()}:
+            fail(f"{tag}: the serving run did not launch every kernel as expected: {served}")
+        for o in outs:
+            if o.shape != (1, T, H, W) or not torch.isfinite(o).all():
+                fail(f"{tag}: served image has shape {tuple(o.shape)} or non-finite values")
+        serve_err = (outs[0] - direct_out).abs().max().item()
+        if not serve_err <= MODEL_TOL * scale:
+            fail(f"{tag}: served image differs from the direct forward on the same input: {serve_err}")
+        print(f"[{tag}] request 0 vs direct forward: max_abs_err {serve_err:.3e}")
 
-    torch.cuda.reset_peak_memory_stats()
-    fwd = [cuda_ms(torch, forward, iters=1, warmup=1 if i == 0 else 0) for i in range(12)]
-    peak_mem = torch.cuda.max_memory_allocated()
-    ms_vol = statistics.median(fwd)
-    print(f"[forward] kernels: {ms_vol:.3f} ms/volume (median of {len(fwd)}, min {min(fwd):.3f}), "
-          f"{T / ms_vol * 1e3:.2f} frames/s, peak memory {peak_mem / 2**20:.1f} MiB")
+        set_backends("torch")
+        plain = (Timed(torch, dft_cuda, "complex_dft_matmul_torch", dft_cost),
+                 Timed(torch, normal_cuda, "normal_apply_torch", normal_cost))
+        plain_lat, plain_outs = serve_all(*plain)
+        lib = tuple(Timed(torch, mod, attr, cost, fn_[1], fn_[0]) for mod, attr, cost, fn_ in (
+            (dft_cuda, "complex_dft_matmul_torch", dft_cost, dft_library(torch)),
+            (normal_cuda, "normal_apply_torch", normal_cost, normal_library(torch))))
+        lib_lat, lib_outs = serve_all(*lib)
+        set_backends("kernel")
+        for label, lat, others in (("plain versions", plain_lat, plain_outs),
+                                   ("library calls", lib_lat, lib_outs)):
+            err = max((a - b_).abs().max().item() for a, b_ in zip(outs, others))
+            print(f"[{tag}] {label}: latency ms {[round(x, 3) for x in lat]}; "
+                  f"max_abs_err vs the kernels {err:.3e}")
+            if not err <= MODEL_TOL * scale:
+                fail(f"{tag}: serving through the {label} disagrees with the kernels: {err}")
+        return dict(launches=served, kern=kern, plain=plain, lib=lib, latency_ms=latencies,
+                    plain_latency_ms=plain_lat, library_latency_ms=lib_lat)
 
-    # one warm forward under the profiler: device time by kernel kind, idle share
-    print("[profile] " + json.dumps(profiled(forward)))
-
-    # -- 4. serve: four requests through the serving entry, three times -----------
-    serve = bind_model(model, device=dev)
-    requests = [(RandomMask([10], [4]), s) for s in (0, 1, 2)] + [(EquispacedMask([0.08], [4]), 3)]
-    inputs = [flagship_inputs(torch, mf, s, dev) for mf, s in requests]
-    torch.cuda.synchronize()
-
-    def serve_all(*timers):
-        latencies, outs = [], []
-        with contextlib.ExitStack() as stack:
-            for timer in timers:
-                stack.enter_context(timer)
-            for kr_, ki_, m_ in inputs:
-                t0 = time.perf_counter()
-                outs.append(serve(kr_, ki_, m_))
-                torch.cuda.synchronize()
-                latencies.append((time.perf_counter() - t0) * 1e3)
-        return latencies, outs
-
-    # (a) through the kernels: the main path's run, whose launches are counted
-    kernel_dft = Timed(torch, dft_cuda, "complex_dft_matmul", dft_cost)
-    kernel_normal = Timed(torch, normal_cuda, "normal_apply", normal_cost)
-    dft_cuda.LAUNCHES = normal_cuda.LAUNCHES = 0
-    latencies, outs = serve_all(kernel_dft, kernel_normal)
-    served = {"dft": dft_cuda.LAUNCHES, "normal": normal_cuda.LAUNCHES}
-    print(f"[serve] kernels: {len(inputs)} requests, latency ms {[round(x, 3) for x in latencies]}, "
-          f"launches {served}")
-    if served != {k: v * len(inputs) for k, v in expected.items()}:
-        fail(f"serving run did not launch every kernel as expected: {served}")
-    for o in outs:
-        if o.shape != (1, T, H, W) or not torch.isfinite(o).all():
-            fail(f"served image has shape {tuple(o.shape)} or non-finite values")
-    serve_err = (outs[0] - out_kernel).abs().max().item()
-    if not serve_err <= MODEL_TOL * model_scale:
-        fail(f"served image differs from the direct forward on the same input: {serve_err}")
-    print(f"[serve] request 0 vs direct forward: max_abs_err {serve_err:.3e}")
-
-    # (b) through the plain versions and (c) through the library calls, each
-    # in the plain backends' slot; launches here are not counted
-    FFT.set_dft_backend("torch")
-    OPS.set_normal_backend("torch")
-    plain_dft = Timed(torch, dft_cuda, "complex_dft_matmul_torch", dft_cost)
-    plain_normal = Timed(torch, normal_cuda, "normal_apply_torch", normal_cost)
-    plain_lat, plain_outs = serve_all(plain_dft, plain_normal)
-    lib_prep, lib_fn = dft_library(torch)
-    lib_dft = Timed(torch, dft_cuda, "complex_dft_matmul_torch", dft_cost, lib_fn, lib_prep)
-    lib_prep, lib_fn = normal_library(torch)
-    lib_normal = Timed(torch, normal_cuda, "normal_apply_torch", normal_cost, lib_fn, lib_prep)
-    lib_lat, lib_outs = serve_all(lib_dft, lib_normal)
-    FFT.set_dft_backend("kernel")
-    OPS.set_normal_backend("kernel")
-    for label, lat, others in (("plain versions", plain_lat, plain_outs),
-                               ("library calls", lib_lat, lib_outs)):
-        err = max((a - b).abs().max().item() for a, b in zip(outs, others))
-        print(f"[serve] {label}: latency ms {[round(x, 3) for x in lat]}; "
-              f"max_abs_err vs the kernels {err:.3e}")
-        if not err <= MODEL_TOL * model_scale:
-            fail(f"serving through the {label} disagrees with the kernels: {err}")
-
-    # -- 5. train: four full-width VarNet-XF train steps, four times ----------------
-    del serve, inputs, outs, plain_outs, lib_outs, model, out_kernel, out_plain, k
-    torch.cuda.empty_cache()
-    tmodel = build_model("varnet", "XF", device=dev, generator=torch.Generator().manual_seed(0),
-                         **FLAGSHIP)  # remat on, as the JAX package trains
-    init = {n: v.detach().clone() for n, v in tmodel.state_dict().items()}
-    batch = train_batch(torch, dev)
     train_step = make_train_step()
 
     def launches():
         return {"dft": dft_cuda.LAUNCHES, "normal": normal_cuda.LAUNCHES,
                 "normal_bwd": normal_cuda.BWD_LAUNCHES}
 
-    def train_run(steps, *timers):
+    def train_run(model, init, batch, steps, *timers):
         """``steps`` train steps from the initial weights with a fresh Adam;
         per step the CUDA-event ms, loss, grad norm and kernel launches, and
         the gradients of the first step."""
-        tmodel.load_state_dict(init)
-        state = create_train_state(tmodel, device=dev)
+        model.load_state_dict(init)
+        state = create_train_state(model, device=dev)
         rec = dict(ms=[], loss=[], grad_norm=[], launches=[])
         grads = None
         with contextlib.ExitStack() as stack:
@@ -578,7 +690,7 @@ def main() -> int:
                 if aux["output"].shape != (1, T, H, W):
                     fail(f"train output has shape {tuple(aux['output'].shape)}")
                 if i == 0:
-                    grads = {n: q.grad.detach().clone() for n, q in tmodel.named_parameters()}
+                    grads = {n: q.grad.detach().clone() for n, q in model.named_parameters()}
         return rec, grads
 
     def gap(rec, grads, ref, ref_grads):
@@ -592,88 +704,271 @@ def main() -> int:
                          for n, g in ref_grads.items()), reverse=True)[:3]
         return loss, num / den, leaves
 
-    def set_backends(backend):
-        FFT.set_dft_backend(backend)
-        OPS.set_normal_backend(backend)
+    @contextlib.contextmanager
+    def float64_plain():
+        """While entered, the plain versions compute in float64: the DFT
+        matrices come from the complex128 matrices the f32 ones are rounded
+        from, and λ keeps its dtype. Stands in for the module attributes, as
+        Timed does."""
+        saved = (FFT._dft_tensors, FFT._dft_adjoint_tensors, OPS._dft_tensors,
+                 normal_cuda.lambda_tensor)
 
-    # (a) through the plain versions, twice: the run-to-run gap
-    set_backends("torch")
-    tplain = (Timed(torch, dft_cuda, "complex_dft_matmul_torch", dft_cost),
-              Timed(torch, normal_cuda, "normal_apply_torch", normal_cost),
-              Timed(torch, normal_cuda, "normal_apply_bwd_torch", normal_bwd_cost))
-    plain_rec, plain_grads = train_run(TRAIN_STEPS, *tplain)
-    plain2_rec, plain2_grads = train_run(TRAIN_STEPS)
-    # (b) through one library call each, in the plain versions' slots
-    tlib = tuple(Timed(torch, mod, attr, cost, lib[1], lib[0]) for mod, attr, cost, lib in (
-        (dft_cuda, "complex_dft_matmul_torch", dft_cost, dft_library(torch)),
-        (normal_cuda, "normal_apply_torch", normal_cost, normal_library(torch)),
-        (normal_cuda, "normal_apply_bwd_torch", normal_bwd_cost, normal_bwd_library(torch))))
-    lib_rec, lib_grads = train_run(TRAIN_STEPS, *tlib)
-    set_backends("kernel")
+        @functools.lru_cache(maxsize=None)
+        def mats(n, inverse, device):
+            f = np.fft.ifft if inverse else np.fft.fft
+            eye = np.eye(n, dtype=np.complex128)
+            m = np.fft.fftshift(f(np.fft.ifftshift(eye, axes=0), axis=0, norm="ortho"), axes=0)
+            return (torch.from_numpy(m.real.copy()).to(device),
+                    torch.from_numpy(m.imag.copy()).to(device),
+                    torch.from_numpy(m.real.T.copy()).to(device),
+                    torch.from_numpy(-m.imag.T.copy()).to(device))
 
-    # (c) through the kernels: the train path's run, whose launches are counted
-    tkern = (Timed(torch, dft_cuda, "complex_dft_matmul", dft_cost),
-             Timed(torch, normal_cuda, "normal_apply", normal_cost),
-             Timed(torch, normal_cuda, "normal_apply_bwd", normal_bwd_cost))
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    dft_cuda.LAUNCHES = normal_cuda.LAUNCHES = normal_cuda.BWD_LAUNCHES = 0
-    kern_rec, kern_grads = train_run(TRAIN_STEPS, *tkern)
-    trained = launches()
-    train_peak = torch.cuda.max_memory_allocated()
+        def lam64(lam, device):
+            if torch.is_tensor(lam):
+                return lam.detach().reshape(1)
+            return torch.full((1,), lam, dtype=torch.float64, device=device)
+
+        FFT._dft_tensors = OPS._dft_tensors = lambda n, inv, alt, norm, d: mats(n, inv, d)[:2]
+        FFT._dft_adjoint_tensors = lambda n, inv, alt, norm, d: mats(n, inv, d)[2:]
+        normal_cuda.lambda_tensor = lam64
+        set_backends("torch")
+        try:
+            yield
+        finally:
+            set_backends("kernel")
+            (FFT._dft_tensors, FFT._dft_adjoint_tensors, OPS._dft_tensors,
+             normal_cuda.lambda_tensor) = saved
+
+    def train_phase(tag, model, batch, per_step, loss_tol=TRAIN_LOSS_TOL, grad_tol=TRAIN_GRAD_TOL,
+                    f64_reference=False):
+        """TRAIN_STEPS steps from the same weights four times: (a) through the
+        plain versions twice (their run-to-run gap), (b) through one library
+        call each in the plain versions' slots, (c) through the kernels, whose
+        launches are counted per step; the gaps against the plain run, and
+        one profiled warm step. With ``f64_reference``, also one step of the
+        plain versions in float64, and each run's first-step gradient
+        against it."""
+        init = {n: v.detach().clone() for n, v in model.state_dict().items()}
+        set_backends("torch")
+        tplain = (Timed(torch, dft_cuda, "complex_dft_matmul_torch", dft_cost),
+                  Timed(torch, normal_cuda, "normal_apply_torch", normal_cost),
+                  Timed(torch, normal_cuda, "normal_apply_bwd_torch", normal_bwd_cost))
+        plain_rec, plain_grads = train_run(model, init, batch, TRAIN_STEPS, *tplain)
+        plain2_rec, plain2_grads = train_run(model, init, batch, TRAIN_STEPS)
+        tlib = tuple(Timed(torch, mod, attr, cost, fn_[1], fn_[0]) for mod, attr, cost, fn_ in (
+            (dft_cuda, "complex_dft_matmul_torch", dft_cost, dft_library(torch)),
+            (normal_cuda, "normal_apply_torch", normal_cost, normal_library(torch)),
+            (normal_cuda, "normal_apply_bwd_torch", normal_bwd_cost, normal_bwd_library(torch))))
+        lib_rec, lib_grads = train_run(model, init, batch, TRAIN_STEPS, *tlib)
+        set_backends("kernel")
+
+        tkern = (Timed(torch, dft_cuda, "complex_dft_matmul", dft_cost),
+                 Timed(torch, normal_cuda, "normal_apply", normal_cost),
+                 Timed(torch, normal_cuda, "normal_apply_bwd", normal_bwd_cost))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        dft_cuda.LAUNCHES = normal_cuda.LAUNCHES = normal_cuda.BWD_LAUNCHES = 0
+        kern_rec, kern_grads = train_run(model, init, batch, TRAIN_STEPS, *tkern)
+        trained = launches()
+        peak = torch.cuda.max_memory_allocated()
+        print(f"[{tag}] launches per step: {kern_rec['launches']} (expected {per_step}); "
+              f"run total {trained}")
+        if any(step_launches != per_step for step_launches in kern_rec["launches"]):
+            fail(f"{tag}: train steps did not launch the kernels as expected: {kern_rec['launches']}")
+        if trained != {n: v * TRAIN_STEPS for n, v in per_step.items()}:
+            fail(f"{tag}: the train run counted {trained} launches")
+
+        gaps = dict(plain_gap=gap(plain2_rec, plain2_grads, plain_rec, plain_grads),
+                    kernel_gap=gap(kern_rec, kern_grads, plain_rec, plain_grads),
+                    library_gap=gap(lib_rec, lib_grads, plain_rec, plain_grads))
+        labels = ("plain vs plain", "kernels vs plain", "library vs plain")
+        for label, (loss_gap, grad_gap, leaves) in zip(labels, gaps.values()):
+            print(f"[{tag}] {label}: loss rel {loss_gap:.3e} (tol {loss_tol:.0e}), step-1 grads "
+                  f"rel L2 {grad_gap:.3e} (tol {grad_tol:.0e}), worst leaves "
+                  f"{[(n, f'{v:.3e}') for v, n in leaves]}")
+        if f64_reference:
+            model64 = model.to(torch.float64)
+            batch64 = {k_: (Complex(v.re.double(), v.im.double()) if isinstance(v, Complex)
+                            else v.double()) for k_, v in batch.items()}
+            with float64_plain():
+                rec64, grads64 = train_run(model64, init, batch64, 1)
+            model.to(torch.float32)
+            del model64, batch64
+            gaps["f64_gaps"] = {label: gap(rec, grads, rec64, grads64) for label, rec, grads in (
+                ("plain", plain_rec, plain_grads), ("kernels", kern_rec, kern_grads),
+                ("library", lib_rec, lib_grads))}
+            print(f"[{tag}] first step against the plain versions in float64: " + "; ".join(
+                f"{label} loss rel {g[0]:.3e}, grads rel L2 {g[1]:.3e}"
+                for label, g in gaps["f64_gaps"].items()))
+            ratio = gaps["f64_gaps"]["kernels"][1] / gaps["f64_gaps"]["plain"][1]
+            if not ratio <= F64_RATIO:
+                fail(f"{tag}: the kernels' first-step gradient is {ratio:.2f}x as far from the f64 "
+                     f"gradient as the plain versions' (limit {F64_RATIO})")
+        for label, (loss_gap, grad_gap, _) in zip(labels, gaps.values()):
+            if not (loss_gap <= loss_tol and grad_gap <= grad_tol):
+                fail(f"{tag}: train run, {label}, is outside the tolerances: {loss_gap}, {grad_gap}")
+
+        ms_step = statistics.median(kern_rec["ms"][1:])
+        for label, rec in (("kernels", kern_rec), ("plain versions", plain_rec),
+                           ("plain versions, again", plain2_rec), ("library calls", lib_rec)):
+            print(f"[{tag}] {label}: ms/step {[round(x, 3) for x in rec['ms']]}, "
+                  f"loss {rec['loss']}, grad_norm {rec['grad_norm']}")
+        print(f"[{tag}] kernels, remat on: {ms_step:.3f} ms/step (median of steps 2-{TRAIN_STEPS}), "
+              f"{1e3 / ms_step:.3f} volumes/s, peak memory {peak / 2**20:.1f} MiB")
+
+        model.load_state_dict(init)
+        pstate = create_train_state(model, device=dev)
+        pstate, _ = train_step(pstate, batch)
+        profile_ = profiled(lambda: train_step(pstate, batch))
+        print(f"[{tag}-profile] " + json.dumps(profile_))
+        return dict(init=init, batch=batch, kernels=kern_rec, plain=plain_rec,
+                    plain_again=plain2_rec, library=lib_rec, ms_per_step=ms_step,
+                    volumes_per_s=1e3 / ms_step, peak_memory_bytes=peak, launches=trained,
+                    launches_per_step=per_step, profile=profile_, timers=(tkern, tplain, tlib),
+                    **gaps)
+
+    # -- 3. main path: the full-width VarNet-XF forward ---------------------------
+    model = build_model("varnet", "XF", device=dev,
+                        generator=torch.Generator().manual_seed(0), **FLAGSHIP).eval()
+    kre, kim, mask = flagship_inputs(torch, RandomMask([10], [4]), 0, dev)
+    k = Complex(kre, kim)
+
+    def forward():
+        with torch.inference_mode():
+            return model(k, mask)
+
+    # per forward: ifft2c (2 DFTs) in the sens net and for x_ref, then per
+    # cascade one fft1c + one ifft1c over t and one normal apply
+    nc = FLAGSHIP["num_cascades"]
+    expected = {"dft": 4 + 2 * nc, "normal": nc}
+    vfwd = forward_phase("forward", forward, expected)
+    # one warm forward under the profiler: device time by kernel kind, idle share
+    print("[profile] " + json.dumps(profiled(forward)))
+
+    # -- 4. serve: four requests through the serving entry, three times -----------
+    requests = [(RandomMask([10], [4]), s) for s in (0, 1, 2)] + [(EquispacedMask([0.08], [4]), 3)]
+    vserve = serve_phase("serve", bind_model(model, device=dev),
+                         [flagship_inputs(torch, mf, s, dev) for mf, s in requests],
+                         expected, vfwd.pop("out"), vfwd["scale"])
+
+    # -- 5. train: four full-width VarNet-XF train steps, four times ----------------
+    del model, k
+    torch.cuda.empty_cache()
+    tmodel = build_model("varnet", "XF", device=dev, generator=torch.Generator().manual_seed(0),
+                         **FLAGSHIP)  # remat on, as the JAX package trains
     # per step, with remat: the forward's 24 DFTs and 10 normal applies, the
     # replay of each cascade in the backward (2 DFTs and 1 normal apply per
     # cascade), and the backward of the cascades' DFTs (2 per cascade, on Wᴴ)
     # and normal applies (1 per cascade); the sens net's and x_ref's 4 DFTs
     # act on data and have no backward
-    per_step = {"dft": 4 + 2 * nc + 2 * nc + 2 * nc, "normal": nc + nc, "normal_bwd": nc}
-    print(f"[train] launches per step: {kern_rec['launches']} (expected {per_step}); "
-          f"run total {trained}")
-    if any(step_launches != per_step for step_launches in kern_rec["launches"]):
-        fail(f"train steps did not launch the kernels as expected: {kern_rec['launches']}")
-    if trained != {n: v * TRAIN_STEPS for n, v in per_step.items()}:
-        fail(f"train run counted {trained} launches")
-
-    plain_gap = gap(plain2_rec, plain2_grads, plain_rec, plain_grads)
-    kern_gap = gap(kern_rec, kern_grads, plain_rec, plain_grads)
-    lib_gap = gap(lib_rec, lib_grads, plain_rec, plain_grads)
-    gaps = (("plain vs plain", plain_gap), ("kernels vs plain", kern_gap),
-            ("library vs plain", lib_gap))
-    for label, (loss_gap, grad_gap, leaves) in gaps:
-        print(f"[train] {label}: loss rel {loss_gap:.3e} (tol {TRAIN_LOSS_TOL:.0e}), step-1 grads "
-              f"rel L2 {grad_gap:.3e} (tol {TRAIN_GRAD_TOL:.0e}), worst leaves "
-              f"{[(n, f'{v:.3e}') for v, n in leaves]}")
-    for label, (loss_gap, grad_gap, _) in gaps:
-        if not (loss_gap <= TRAIN_LOSS_TOL and grad_gap <= TRAIN_GRAD_TOL):
-            fail(f"train run, {label}, is outside the tolerances: {loss_gap}, {grad_gap}")
-
-    ms_step = statistics.median(kern_rec["ms"][1:])
-    for label, rec in (("kernels", kern_rec), ("plain versions", plain_rec),
-                       ("plain versions, again", plain2_rec), ("library calls", lib_rec)):
-        print(f"[train] {label}: ms/step {[round(x, 3) for x in rec['ms']]}, "
-              f"loss {rec['loss']}, grad_norm {rec['grad_norm']}")
-    print(f"[train] kernels, remat on: {ms_step:.3f} ms/step (median of steps 2-{TRAIN_STEPS}), "
-          f"{1e3 / ms_step:.3f} volumes/s, peak memory {train_peak / 2**20:.1f} MiB")
-
-    # one warm step under the profiler
-    tmodel.load_state_dict(init)
-    pstate = create_train_state(tmodel, device=dev)
-    pstate, _ = train_step(pstate, batch)
-    train_profile = profiled(lambda: train_step(pstate, batch))
-    print("[train-profile] " + json.dumps(train_profile))
+    vtrain = train_phase("train", tmodel, train_batch(torch, dev),
+                         {"dft": 4 + 2 * nc + 2 * nc + 2 * nc, "normal": nc + nc, "normal_bwd": nc})
 
     # without remat: every cascade's activations kept for the backward
     tmodel.remat = False
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    noremat_rec, _ = train_run(3)
+    noremat_rec, _ = train_run(tmodel, vtrain.pop("init"), vtrain.pop("batch"), 3)
     noremat_peak = torch.cuda.max_memory_allocated()
-    tmodel.remat = True
     noremat_ms = statistics.median(noremat_rec["ms"][1:])
     print(f"[train] kernels, remat off: {noremat_ms:.3f} ms/step (median of steps 2-3, "
           f"{[round(x, 3) for x in noremat_rec['ms']]}), peak memory {noremat_peak / 2**20:.1f} MiB")
+    vtrain["no_remat"] = dict(steps=noremat_rec, ms_per_step=noremat_ms, peak_memory_bytes=noremat_peak)
+    del tmodel
+    torch.cuda.empty_cache()
 
-    # -- 6. report -------------------------------------------------------------------
+    # -- 6. CineNet-XF at full width: forward, λ on the device, serving ---------------
+    cmodel = build_model("cinenet", "XF", device=dev,
+                         generator=torch.Generator().manual_seed(0), **CINENET).eval()
+    kre, kim, mask = flagship_inputs(torch, RandomMask([10], [4]), 0, dev)
+    ck, cs = Complex(kre, kim), Complex(*rss_maps(torch, 0, dev))
+
+    def cforward():
+        with torch.inference_mode():
+            return cmodel(ck, mask, cs)
+
+    # per forward: image_ref's ifft2c (2 DFTs), then per cascade one fft1c and
+    # one ifft1c over t, and a CG solve: one normal apply for the initial
+    # residual and one per iteration
+    cnc, cgi = CINENET["num_cascades"], CINENET["cg_iters"]
+    c_expected = {"dft": 2 + 2 * cnc, "normal": cnc * (1 + cgi)}
+    cfwd = forward_phase("cinenet-forward", cforward, c_expected)
+    print("[cinenet-profile] " + json.dumps(profiled(cforward)))
+
+    # a warm forward (DFT-matrix and λ caches built) makes no host sync: λ
+    # = softplus(λᵢ) reaches the kernels on the device
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        sync_out = cforward()
+    except RuntimeError as e:
+        fail(f"a warm CineNet forward synchronized with the host: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    sync_err = (sync_out - cfwd["out"]).abs().max().item()
+    print(f"[cinenet-forward] one warm forward under set_sync_debug_mode('error'): no sync; "
+          f"max_abs_err vs the first forward {sync_err:.3e}")
+    if not sync_err <= MODEL_TOL * cfwd["scale"]:
+        fail(f"the forward under sync debug mode differs from the first: {sync_err}")
+    del sync_out
+
+    cserve = serve_phase("cinenet-serve", bind_model(cmodel, device=dev),
+                         [flagship_inputs(torch, mf, s, dev) + rss_maps(torch, s, dev)
+                          for mf, s in requests],
+                         c_expected, cfwd.pop("out"), cfwd["scale"])
+
+    # -- 7. CineNet-XF train: four full-width steps, four times ------------------------
+    del cmodel, ck, cs
+    torch.cuda.empty_cache()
+    ctmodel = build_model("cinenet", "XF", device=dev, generator=torch.Generator().manual_seed(0),
+                          **CINENET)  # remat on
+    cbatch = train_batch(torch, dev, sens_maps=True)
+    # per step, with remat: the forward's 22 DFTs and 70 normal applies; the
+    # replay of each cascade (2 DFTs and 7 normal applies: torch's
+    # non-reentrant checkpoint replays up to the last saved tensor, the
+    # last CG step's x update, which follows its normal apply); the backward
+    # of the normal applies (7 per cascade) and of the cascades' DFTs but
+    # one: image_ref's 2 DFTs and cascade 0's fft1c act on data (the maps
+    # are an input, not learned as VarNet's) and have no backward
+    ctrain = train_phase("cinenet-train", ctmodel, cbatch,
+                         {"dft": (2 + 2 * cnc) + 2 * cnc + (2 * cnc - 1),
+                          "normal": 2 * cnc * (1 + cgi), "normal_bwd": cnc * (1 + cgi)},
+                         CINENET_TRAIN_LOSS_TOL, CINENET_TRAIN_GRAD_TOL, f64_reference=True)
+
+    # the host syncs of one warm step, each named by the port's frame that made it
+    ctmodel.load_state_dict(ctrain.pop("init"))
+    sstate = create_train_state(ctmodel, device=dev)
+    sstate, _ = train_step(sstate, cbatch)
+    torch.cuda.synchronize()
+    syncs = []
+
+    def record_sync(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" not in str(message):
+            return
+        frames = [f for f in traceback.extract_stack()[:-1]
+                  if "warnings" not in f.filename]
+        ours = [f for f in frames if "cinemri_tpu_torch" in f.filename]
+        at = ours[-1] if ours else frames[-1]
+        syncs.append(f"{Path(at.filename).name}:{at.lineno} {at.name}: {str(message)[:120]}")
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record_sync
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            train_step(sstate, cbatch)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    sync_names = sorted(set(syncs))
+    print(f"[cinenet-train] host syncs in one warm step (sync debug mode 'warn'): {len(syncs)}; "
+          f"{[(n, syncs.count(n)) for n in sync_names]}")
+    ctrain.update(host_syncs_per_step=len(syncs), host_syncs=sync_names)
+    del ctmodel, sstate, cbatch, ctrain["batch"]
+    torch.cuda.empty_cache()
+
+    # -- 8. report -------------------------------------------------------------------
     def row(kernel, source, replaces, run, launches, timed, plain, library):
         b_ms, b_by = timed.bound(peak_flops, peak_bw)
         return dict(name=kernel, route="cuda", source=source, replaces=replaces, run=run,
@@ -688,24 +983,25 @@ def main() -> int:
                "cinemri_tpu/ops/kernels/normal_pallas.py:182")
     bwd_src = ("normal_apply_bwd", "cinemri_tpu_torch/csrc/normal_apply_bwd.cu",
                "cinemri_tpu/ops/kernels/normal_pallas.py:203")
-    rows = [
-        row(*dft_src, "serve", served["dft"], kernel_dft, plain_dft, lib_dft),
-        row(*fwd_src, "serve", served["normal"], kernel_normal, plain_normal, lib_normal),
-        row(*dft_src, "train", trained["dft"], tkern[0], tplain[0], tlib[0]),
-        row(*fwd_src, "train", trained["normal"], tkern[1], tplain[1], tlib[1]),
-        row(*bwd_src, "train", trained["normal_bwd"], tkern[2], tplain[2], tlib[2]),
-    ]
+    fft2_src = ("fft2_plane", "cinemri_tpu_torch/csrc/fft2_plane.cu",
+                "cinemri_tpu/ops/kernels/fft2_pallas.py:45")
+    rows = []
+    for run, srv in (("serve", vserve), ("cinenet-serve", cserve)):
+        rows += [row(*dft_src, run, srv["launches"]["dft"], srv["kern"][0], srv["plain"][0], srv["lib"][0]),
+                 row(*fwd_src, run, srv["launches"]["normal"], srv["kern"][1], srv["plain"][1],
+                     srv["lib"][1])]
+    for run, tr in (("train", vtrain), ("cinenet-train", ctrain)):
+        tkern, tplain, tlib = tr.pop("timers")
+        rows += [row(*src, run, tr["launches"][key], tkern[i], tplain[i], tlib[i])
+                 for i, (src, key) in enumerate(((dft_src, "dft"), (fwd_src, "normal"),
+                                                 (bwd_src, "normal_bwd")))]
+    rows.append(row(*fft2_src, "check", fft2_launches, *fft2_runs))
+    for srv in (vserve, cserve):
+        for key in ("kern", "plain", "lib"):
+            srv.pop(key)
     print("[details] " + json.dumps(dict(
-        cases=cases, forward_ms=fwd, ms_per_volume=ms_vol, frames_per_s=T / ms_vol * 1e3,
-        peak_memory_bytes=peak_mem, model_max_abs_err=model_err, launches_per_forward=per_forward,
-        serve_latency_ms=latencies, plain_serve_latency_ms=plain_lat,
-        library_serve_latency_ms=lib_lat, serve_launches=served,
-        train=dict(kernels=kern_rec, plain=plain_rec, plain_again=plain2_rec, library=lib_rec,
-                   ms_per_step=ms_step, volumes_per_s=1e3 / ms_step, peak_memory_bytes=train_peak,
-                   launches=trained, launches_per_step=per_step, plain_gap=plain_gap,
-                   kernel_gap=kern_gap, library_gap=lib_gap, profile=train_profile,
-                   no_remat=dict(steps=noremat_rec, ms_per_step=noremat_ms,
-                                 peak_memory_bytes=noremat_peak)))))
+        cases=cases, forward=vfwd, serve=vserve, train=vtrain,
+        cinenet=dict(config=CINENET, forward=cfwd, serve=cserve, train=ctrain))))
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

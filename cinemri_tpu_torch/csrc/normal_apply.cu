@@ -3,14 +3,16 @@
 //   out[b,t] = Σ_c conj(S[b,c]) ⊙ (K[b,t'] ·_h (S[b,c] ⊙ x[b,t])) + λ·x[b,t]
 //
 //   x, out: (b, t, h, w)   K: (b, kt, h, h), t' = t if kt > 1 else 0
-//   S: (b, c, h, w)        λ: scalar
+//   S: (b, c, h, w)        λ: one float32 in device memory (read by the kernel,
+//                          so a learned λ never goes through the host)
 //
 // K acts along h: (K ·_h y)[i, w] = Σ_k K[i, k] · y[k, w].
 //
 // Replaces the forward Pallas kernel normal_apply_pallas / fwd_pallas_call
 // (cinemri_tpu/ops/kernels/normal_pallas.py, body _fwd_kernel). It carries
-// N(z) in every VarNet cascade's data-consistency step
-// (physics/operators.py::normal_plus_lambda_kernel).
+// N(z) in every VarNet cascade's data-consistency step (λ = 0) and every
+// CineNet conjugate-gradient apply (λ = softplus of a learned weight)
+// through physics/operators.py::normal_plus_lambda_kernel.
 //
 // Arithmetic: the 4-multiplication complex product in full f32 on CUDA
 // cores (FMA, no TF32), matching the JAX package's Precision.HIGHEST.
@@ -39,8 +41,8 @@ __global__ void __launch_bounds__((BH / TM) * (BW / TN))
 normal_apply_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
                     const float* __restrict__ kr, const float* __restrict__ ki,
                     const float* __restrict__ sr, const float* __restrict__ si,
-                    float lam, float* __restrict__ outr, float* __restrict__ outi,
-                    int T, int C, int H, int W, int KT) {
+                    const float* __restrict__ lamp, float* __restrict__ outr,
+                    float* __restrict__ outi, int T, int C, int H, int W, int KT) {
   constexpr int TX = BW / TN;  // threads along w
   constexpr int TY = BH / TM;  // threads along h
   constexpr int NT = TX * TY;
@@ -145,6 +147,7 @@ normal_apply_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
     }
   }
 
+  const float lam = *lamp;
 #pragma unroll
   for (int m = 0; m < TM; ++m) {
     const int i = i0 + ty + TY * m;
@@ -164,7 +167,7 @@ normal_apply_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
 
 extern "C" int cinemri_normal_apply(const float* xr, const float* xi,
                                     const float* kr, const float* ki,
-                                    const float* sr, const float* si, float lam,
+                                    const float* sr, const float* si, const float* lam,
                                     float* outr, float* outi, int b, int t,
                                     int c, int h, int w, int kt, void* stream) {
   constexpr int BH = 64, BW = 64, BK = 16, TM = 4, TN = 4;

@@ -10,6 +10,7 @@
 //
 //   x, g, x̄: (b, t, h, w)   K: (b, kt, h, h), t' = t if kt > 1 else 0
 //   S, s̄: (b, c, h, w)      partials: (b, t, c, h, w)   λ̄: (b, t)
+//   λ: one float32 in device memory, read by the kernel
 //
 // Replaces the backward Pallas kernel _bwd_pallas_call (body _bwd_kernel) of
 // normal_apply_pallas (cinemri_tpu/ops/kernels/normal_pallas.py), the
@@ -139,7 +140,8 @@ normal_apply_bwd_kernel(const float* __restrict__ xr, const float* __restrict__ 
                         const float* __restrict__ gr, const float* __restrict__ gi,
                         const float* __restrict__ kr, const float* __restrict__ ki,
                         const float* __restrict__ sr, const float* __restrict__ si,
-                        float lam, float* __restrict__ xbr, float* __restrict__ xbi,
+                        const float* __restrict__ lamp, float* __restrict__ xbr,
+                        float* __restrict__ xbi,
                         float* __restrict__ spr, float* __restrict__ spi, int T, int C,
                         int H, int W, int KT) {
   __shared__ Smem sm;
@@ -209,6 +211,7 @@ normal_apply_bwd_kernel(const float* __restrict__ xr, const float* __restrict__ 
     }
   }
 
+  const float lam = *lamp;
 #pragma unroll
   for (int m = 0; m < TM; ++m) {
     const int i = i0 + ty + TY * m;
@@ -270,7 +273,7 @@ normal_apply_bwd_lambda_kernel(const float* __restrict__ xr, const float* __rest
 
 extern "C" int cinemri_normal_apply_bwd(const float* xr, const float* xi, const float* gr,
                                         const float* gi, const float* kr, const float* ki,
-                                        const float* sr, const float* si, float lam,
+                                        const float* sr, const float* si, const float* lam,
                                         float* xbr, float* xbi, float* spr, float* spi,
                                         float* sbr, float* sbi, float* lb, int b, int t,
                                         int c, int h, int w, int kt, void* stream) {

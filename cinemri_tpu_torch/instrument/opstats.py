@@ -5,8 +5,7 @@ Counterpart of ``cinemri_tpu/instrument/opstats.py``: parses the kernel
 events of an exported chrome trace and folds their durations by kind
 (the port's CUDA kernels, convolutions, normalization, elementwise, ...),
 and reports the device's busy and idle share over the traced window.
-``chip_smoke.py`` folds its profiled flagship forward and train step with
-these.
+``chip_smoke.py`` folds its profiled forwards and train steps with these.
 """
 
 from __future__ import annotations
@@ -23,11 +22,15 @@ KINDS: Tuple[Tuple[str, Tuple[str, ...]], ...] = (
     ("dft_matmul (port kernel)", ("dft_matmul_kernel",)),
     ("normal_apply_bwd (port kernels)", ("normal_apply_bwd",)),
     ("normal_apply (port kernel)", ("normal_apply_kernel",)),
+    # before the convolutions, whose keys include cuDNN's fft2d_*
+    ("fft2_plane (port kernel)", ("fft2_plane_kernel",)),
     ("instance norm", ("batch_norm", "instance_norm", "welford")),
-    # cuDNN's FFT convolutions run fft2d_* and pointwise_mult_and_sum_complex
+    # cuDNN's FFT convolutions run fft2d_*, pointwise_mult_and_sum_complex,
+    # the DSE engine's vector_fft and the float2 transposes region_transform_*
     ("conv / gemm (cuDNN, cuBLAS)", ("conv", "implicit", "xmma", "cudnn", "sm90", "sm80",
                                      "gemm", "winograd", "cutlass", "dgrad", "wgrad",
-                                     "fft2d", "pointwise_mult_and_sum")),
+                                     "fft2d", "pointwise_mult_and_sum", "vector_fft",
+                                     "region_transform")),
     ("pooling", ("pool",)),
     ("copy / cat / pad", ("memcpy", "memset", "copy", "cat", "pad", "flip")),
     ("reduction", ("reduce",)),

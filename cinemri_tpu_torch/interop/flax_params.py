@@ -10,9 +10,11 @@ leaves (``jax.tree.map(np.asarray, params)``). The inverse of
     both spatial axes flipped (torch correlates with the flipped kernel,
     flax's ``ConvTranspose`` with the kernel as stored).
 
-Tree names: ``sens_net/NormUnet_0/Unet_0/…``, ``cascades/net_xf|net_yf/
-Unet_0/…`` (or ``cascades/plane_net`` with weight sharing; shared by all
-cascades, no cascade axis) and ``lambda_reg (num_cascades,)``.
+Tree names, VarNet: ``sens_net/NormUnet_0/Unet_0/…``,
+``cascades/net_xf|net_yf/Unet_0/…`` (or ``cascades/plane_net`` with weight
+sharing; shared by all cascades, no cascade axis) and ``lambda_reg
+(num_cascades,)``. CineNet: ``cascades/net_xf|net_yf/…`` (or
+``cascades/plane_net``), each a plain ``Unet`` tree, and ``lambda_reg``.
 """
 
 from __future__ import annotations
@@ -22,7 +24,13 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
-__all__ = ["conv_weight", "conv_transpose_weight", "unet_state_dict", "varnet_state_dict"]
+__all__ = [
+    "conv_weight",
+    "conv_transpose_weight",
+    "unet_state_dict",
+    "varnet_state_dict",
+    "cinenet_state_dict",
+]
 
 
 def _t(a) -> torch.Tensor:
@@ -70,5 +78,16 @@ def varnet_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
     out = unet_state_dict(p["sens_net"]["NormUnet_0"]["Unet_0"], "sens_net.norm_unet.unet.")
     for name, sub in p["cascades"].items():  # net_xf + net_yf, or plane_net
         out.update(unet_state_dict(sub["Unet_0"], f"cascades.{name}.unet."))
+    out["lambda_reg"] = _t(p["lambda_reg"])
+    return out
+
+
+def cinenet_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
+    """flax ``CineNet`` params (with or without the ``params`` collection
+    key) -> ``cinemri_tpu_torch.models.CineNet`` state_dict."""
+    p = params.get("params", params)
+    out = {}
+    for name, sub in p["cascades"].items():  # net_xf + net_yf, or plane_net
+        out.update(unet_state_dict(sub, f"cascades.{name}."))
     out["lambda_reg"] = _t(p["lambda_reg"])
     return out

@@ -1,7 +1,8 @@
 """Model layer of the port (counterpart of ``cinemri_tpu/models``).
 
-Only the VarNet family, XF and XT, is ported so far; the other families and
-dynamic types raise ``NotImplementedError`` naming their ROADMAP item.
+The VarNet and CineNet families, XF and XT, are ported so far; the other
+families and dynamic types raise ``NotImplementedError`` naming their
+ROADMAP item.
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ import torch
 
 from cinemri_tpu_torch import resolve_device
 from cinemri_tpu_torch.models import denoisers
+from cinemri_tpu_torch.models.cinenet import CineNet, CineNetCascade
 from cinemri_tpu_torch.models.init import torch_style_init
 from cinemri_tpu_torch.models.varnet import SensitivityModel, VarNet, VarNetCascade
 
@@ -19,15 +21,17 @@ __all__ = [
     "VarNet",
     "VarNetCascade",
     "SensitivityModel",
+    "CineNet",
+    "CineNetCascade",
     "denoisers",
     "build_model",
     "torch_style_init",
 ]
 
 _NOT_PORTED = {
-    "cinenet": "ROADMAP Queue 1, item 10: CineNet",
     "xpdnet": "ROADMAP Queue 1, item 11: XPDNet",
 }
+_MODELS = {"varnet": VarNet, "cinenet": CineNet}
 
 
 def build_model(
@@ -42,7 +46,11 @@ def build_model(
     ``device`` defaults to CUDA and raises without a CUDA device; pass
     ``device="cpu"`` to build on the CPU. ``generator`` draws the initial
     weights (a CPU ``torch.Generator`` seeded 0 when omitted). Keyword
-    arguments go to the model class; unknown keys raise.
+    arguments go to the model class under the JAX package's names
+    (VarNet: ``num_cascades``, ``sens_chans``, ``sens_pools``, ``chans``,
+    ``pools``, ...; CineNet: ``num_cascades``, ``cg_iters``, ``chans``,
+    ``pools``, ``weight_sharing``, ``kernel_dc``, ``remat``,
+    ``remat_policy``); unknown keys raise.
     """
     dev = resolve_device(device)
     family = family.lower()
@@ -60,9 +68,10 @@ def build_model(
     if family in _NOT_PORTED:
         raise NotImplementedError(f"{family} is not ported yet ({_NOT_PORTED[family]})")
     if dynamic_type == "CRNN":
-        raise NotImplementedError("VarNet CRNN is not ported yet (ROADMAP Queue 1, item 12: CRNN)")
+        raise NotImplementedError(
+            f"{family} CRNN is not ported yet (ROADMAP Queue 1, item 12: CRNN)")
     if generator is None:
         generator = torch.Generator().manual_seed(0)
-    model = VarNet(dynamic_type=dynamic_type, **kwargs)
+    model = _MODELS[family](dynamic_type=dynamic_type, **kwargs)
     torch_style_init(model, generator)
     return model.to(dev)

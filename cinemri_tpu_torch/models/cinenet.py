@@ -1,0 +1,137 @@
+"""CineNet: alternating U-Net denoising and conjugate-gradient data
+consistency in image space.
+
+Counterpart of ``cinemri_tpu/models/cinenet.py`` for the XF and XT dynamic
+types. CineNet takes precomputed sensitivity maps as an input, its
+denoisers are plain U-Nets on raw ``[re, im]`` channels (no normalizing
+wrapper), and each cascade ends with a CG solve of
+``(AᴴMA + v·I) x = x_ref + v·x_den`` with ``v = softplus(λᵢ)`` a learned
+weight per cascade (:func:`~cinemri_tpu_torch.physics.cg.conj_grad`), whose
+step sizes and ``v`` stay on the device.
+
+One :class:`CineNetCascade` module serves every cascade (the flax
+``nn.scan`` broadcasts its params); the cascade loop is a Python loop. With
+``kernel_dc`` and a line mask, every CG apply runs through the precomputed
+h-axis normal kernel (``physics.normal_plus_lambda_kernel``, the CUDA
+kernel on the card); otherwise through the direct operator
+(``physics.normal_plus_lambda``). With ``remat`` (the default, as in the
+JAX package) each cascade is checkpointed when autograd records.
+
+I/O: ``masked_kspace (b, t, c, h, w)`` Complex, ``mask (b, t|1, 1, h, 1)``,
+``sens_maps (b, 1, c, h, w)`` Complex -> magnitude ``(b, t, h, w)`` float32.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from cinemri_tpu_torch.models.denoisers.unet import Unet
+from cinemri_tpu_torch.models.remat import call_remat, check_remat_policy
+from cinemri_tpu_torch.models.varnet import DYNAMIC_TYPES, LAMBDA_INIT, PORTED_TYPES
+from cinemri_tpu_torch.ops.cplx import Complex, cmean, from_channels, to_channels
+from cinemri_tpu_torch.ops.fft import fft1c, ifft1c
+from cinemri_tpu_torch.physics.cg import conj_grad
+from cinemri_tpu_torch.physics.operators import (
+    is_line_mask,
+    masked_normal_kernel,
+    normal_plus_lambda,
+    normal_plus_lambda_kernel,
+    sens_reduce,
+)
+
+__all__ = ["CineNet", "CineNetCascade"]
+
+
+class CineNetCascade(nn.Module):
+    """Denoise, then a CG solve; a single instance serves every cascade."""
+
+    def __init__(self, chans: int, pools: int, cg_iters: int = 4, dynamic_type: str = "XF",
+                 weight_sharing: bool = False):
+        super().__init__()
+        if dynamic_type not in PORTED_TYPES:
+            raise NotImplementedError(
+                f"CineNet dynamic_type {dynamic_type!r} is not ported yet "
+                "(ROADMAP Queue 1, item 10: CineNet 2D/3D cascades)"
+            )
+        self.cg_iters = cg_iters
+        self.dynamic_type = dynamic_type
+        self.weight_sharing = weight_sharing
+        if weight_sharing:
+            self.plane_net = Unet(chans, pools)
+        else:
+            self.net_xf = Unet(chans, pools)
+            self.net_yf = Unet(chans, pools)
+
+    def _xfyf(self, x: Complex) -> Complex:
+        """Rotated-plane regularization on raw channels: temporal-mean
+        subtraction, temporal FFT (XF only), U-Nets over the (w, t) and
+        (h, t) plane batches (h, resp. w, folded into the batch), average,
+        inverse FFT, mean restored."""
+        b, t, h, w = x.shape
+        mean = cmean(x, axis=1, keepdims=True)
+        x = x - mean
+        if self.dynamic_type == "XF":
+            x = fft1c(x, axis=1)
+        xf = to_channels(x.transpose(0, 2, 3, 1).reshape(b * h, w, t), axis=1)  # (b·h, 2, w, t)
+        yf = to_channels(x.transpose(0, 3, 2, 1).reshape(b * w, h, t), axis=1)  # (b·w, 2, h, t)
+        net_xf = self.plane_net if self.weight_sharing else self.net_xf
+        net_yf = self.plane_net if self.weight_sharing else self.net_yf
+        xf = from_channels(net_xf(xf), axis=1).reshape(b, h, w, t).transpose(0, 3, 1, 2)
+        yf = from_channels(net_yf(yf), axis=1).reshape(b, w, h, t).transpose(0, 3, 2, 1)
+        out = 0.5 * (xf + yf)
+        if self.dynamic_type == "XF":
+            out = ifft1c(out, axis=1)
+        return out + mean
+
+    def forward(self, image_pred: Complex, lam: torch.Tensor, image_ref: Complex,
+                mask: torch.Tensor, sens_maps: Complex, dc_kernel) -> Complex:
+        model_out = self._xfyf(image_pred[:, :, 0])[:, :, None]  # (b, t, 1, h, w)
+        v = F.softplus(lam)  # a 0-d tensor on the device
+        rhs = image_ref + v * model_out
+        if dc_kernel is None:
+            def op(z):
+                return normal_plus_lambda(z, mask, sens_maps, v)
+        else:
+            def op(z):
+                return normal_plus_lambda_kernel(z, dc_kernel, sens_maps, v)
+        return conj_grad(op, rhs, model_out, self.cg_iters)
+
+
+class CineNet(nn.Module):
+    """Full dynamic CineNet (XF / XT)."""
+
+    def __init__(
+        self,
+        num_cascades: int = 12,
+        cg_iters: int = 4,
+        chans: int = 18,
+        pools: int = 4,
+        dynamic_type: str = "XF",
+        weight_sharing: bool = False,
+        kernel_dc: bool = True,
+        remat: bool = True,
+        remat_policy: str = "",
+    ):
+        super().__init__()
+        if dynamic_type not in DYNAMIC_TYPES:
+            raise ValueError(
+                f"dynamic_type must be one of {DYNAMIC_TYPES} (CRNN is a separate model)"
+            )
+        check_remat_policy(remat_policy)
+        self.num_cascades = num_cascades
+        self.kernel_dc = kernel_dc
+        self.remat = remat
+        self.cascades = CineNetCascade(chans, pools, cg_iters, dynamic_type, weight_sharing)
+        self.lambda_reg = nn.Parameter(torch.full((num_cascades,), LAMBDA_INIT))
+
+    def forward(self, masked_kspace: Complex, mask: torch.Tensor,
+                sens_maps: Complex) -> torch.Tensor:
+        image_ref = sens_reduce(masked_kspace, sens_maps)  # (b, t, 1, h, w)
+        dc_kernel = masked_normal_kernel(mask) if self.kernel_dc and is_line_mask(mask) else None
+        x = image_ref
+        for i in range(self.num_cascades):
+            x = call_remat(self.cascades, self.remat, x, self.lambda_reg[i], image_ref, mask,
+                           sens_maps, dc_kernel)
+        return x[:, :, 0].abs()

@@ -20,6 +20,7 @@ __all__ = [
     "cmean",
     "to_channels",
     "from_channels",
+    "real_dot",
 ]
 
 
@@ -158,3 +159,10 @@ def to_channels(x: Complex, axis: int = -1) -> torch.Tensor:
 def from_channels(r: torch.Tensor, axis: int = -1) -> Complex:
     re, im = r.unbind(dim=axis)
     return Complex(re, im)
+
+
+def real_dot(u: Complex, v: Complex) -> torch.Tensor:
+    """``Re⟨u, v⟩`` summed over every axis, the batch axis included: the
+    reference CG's real-flattened ``torch.dot``. A 0-d tensor on the
+    operands' device (never read to the host)."""
+    return (u.re * v.re + u.im * v.im).sum()

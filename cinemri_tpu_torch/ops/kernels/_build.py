@@ -38,9 +38,9 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_F = ctypes.c_float
 
-# C entry points of each library: name -> {function: argtypes}
+# C entry points of each library: name -> {function: argtypes}. Every
+# operand, scalars such as λ included, is a device pointer.
 KERNELS: Dict[str, Dict[str, tuple]] = {
     "dft_matmul": {
         # xr, xi, wr, wi, yr, yi, B, N, stream
@@ -48,15 +48,19 @@ KERNELS: Dict[str, Dict[str, tuple]] = {
     },
     "normal_apply": {
         # xr, xi, kr, ki, sr, si, lam, outr, outi, b, t, c, h, w, kt, stream
-        "cinemri_normal_apply": (_P, _P, _P, _P, _P, _P, _F, _P, _P,
+        "cinemri_normal_apply": (_P, _P, _P, _P, _P, _P, _P, _P, _P,
                                  _I, _I, _I, _I, _I, _I, _P),
     },
     "normal_apply_bwd": {
         # xr, xi, gr, gi, kr, ki, sr, si, lam, xbr, xbi, spr, spi, sbr, sbi, lb,
         # b, t, c, h, w, kt, stream
-        "cinemri_normal_apply_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _F,
+        "cinemri_normal_apply_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P,
                                      _P, _P, _P, _P, _P, _P, _P,
                                      _I, _I, _I, _I, _I, _I, _P),
+    },
+    "fft2_plane": {
+        # xr, xi, whr, whi, wwr, wwi, yr, yi, B, h, w, stream
+        "cinemri_fft2_plane": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     },
 }
 

@@ -33,6 +33,12 @@ frames in an output block that stays resident across the sequential grid;
 CUDA blocks run in no order, so the kernel writes per-frame partials
 ``(b, t, c, h, w)`` and a second kernel sums them over t (deterministic).
 
+λ stays on the device: both kernels read it through a pointer to a
+one-element f32 tensor (:func:`lambda_tensor`), so a learned λ (CineNet's
+``softplus(λᵢ)``, 70 applies per forward) costs no device-to-host sync, and
+a Python float λ (VarNet's ``0.0``) becomes a tensor cached per (value,
+device), so it costs no host-to-device copy per call either.
+
 Dispatch: a CPU tensor takes the plain version; a CUDA tensor launches the
 kernel or raises. :class:`NormalApply` wraps forward and backward for
 autograd; its ``plain`` flag picks the plain versions in both directions.
@@ -41,6 +47,7 @@ autograd; its ``plain`` flag picks the plain versions in both directions.
 
 from __future__ import annotations
 
+from functools import lru_cache
 from typing import Tuple
 
 import torch
@@ -52,6 +59,7 @@ __all__ = [
     "normal_apply_torch",
     "normal_apply_bwd",
     "normal_apply_bwd_torch",
+    "lambda_tensor",
     "NormalApply",
     "LAUNCHES",
     "BWD_LAUNCHES",
@@ -127,6 +135,27 @@ def _check(xr, xi, kr, ki, sr, si):
     return b, t, c, h, w, kt
 
 
+@lru_cache(maxsize=64)
+def _constant_lambda(value, device: torch.device) -> torch.Tensor:
+    """A Python-number λ as a one-element f32 tensor on ``device``, made once
+    and outside inference mode (it may be saved for backward later)."""
+    with torch.inference_mode(False):
+        return torch.full((1,), value, dtype=torch.float32, device=device)
+
+
+def lambda_tensor(lam, device: torch.device) -> torch.Tensor:
+    """λ as the one-element f32 tensor on ``device`` that the kernels read.
+
+    A tensor λ (one element) is detached and reshaped: no copy when it is
+    already an f32 tensor on ``device``, and never a read to the host. A
+    Python number comes from a cache per (value, device)."""
+    if torch.is_tensor(lam):
+        if lam.numel() != 1:
+            raise ValueError(f"λ must have one element, got shape {tuple(lam.shape)}")
+        return lam.detach().reshape(1).to(device=device, dtype=torch.float32)
+    return _constant_lambda(lam, device)
+
+
 def _on_cuda(name: str, xr) -> bool:
     if xr.device.type == "cpu":
         return False
@@ -139,8 +168,9 @@ def normal_apply(xr, xi, kr, ki, sr, si, lam) -> Tuple[torch.Tensor, torch.Tenso
     """``out = Σ_c conj(S_c)⊙(K(S_c⊙x)) + λx`` on raw (re, im) f32 tensors.
 
     Shapes: ``x (b,t,h,w)``, ``K (b,{1|t},h,h)``, ``S (b,c,h,w)``, ``lam`` a
-    scalar (a tensor ``lam`` is read to the host on the CUDA path). CPU
-    tensors go to :func:`normal_apply_torch`, CUDA tensors to the kernel in
+    Python number or a one-element tensor, which the kernel reads on the
+    device (:func:`lambda_tensor`). CPU tensors go to
+    :func:`normal_apply_torch`, CUDA tensors to the kernel in
     ``csrc/normal_apply.cu``. Returns ``(out_re, out_im)``.
     """
     if not _on_cuda("normal_apply", xr):
@@ -150,12 +180,13 @@ def normal_apply(xr, xi, kr, ki, sr, si, lam) -> Tuple[torch.Tensor, torch.Tenso
     outi = torch.empty_like(xi)
     if xr.numel() == 0:
         return outr, outi
+    lam_t = lambda_tensor(lam, xr.device)
     lib = _build.load("normal_apply")
     with torch.cuda.device(xr.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = lib.cinemri_normal_apply(
             xr.data_ptr(), xi.data_ptr(), kr.data_ptr(), ki.data_ptr(),
-            sr.data_ptr(), si.data_ptr(), float(lam),
+            sr.data_ptr(), si.data_ptr(), lam_t.data_ptr(),
             outr.data_ptr(), outi.data_ptr(), b, t, c, h, w, kt, stream,
         )
     _build.check(lib, code, "cinemri_normal_apply launch")
@@ -190,12 +221,13 @@ def normal_apply_bwd(xr, xi, gr, gi, kr, ki, sr, si, lam):
     # per-frame partials of s̄, summed over t by the second kernel
     spr = torch.empty((b, t, c, h, w), dtype=torch.float32, device=xr.device)
     spi = torch.empty_like(spr)
+    lam_t = lambda_tensor(lam, xr.device)
     lib = _build.load("normal_apply_bwd")
     with torch.cuda.device(xr.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = lib.cinemri_normal_apply_bwd(
             xr.data_ptr(), xi.data_ptr(), gr.data_ptr(), gi.data_ptr(),
-            kr.data_ptr(), ki.data_ptr(), sr.data_ptr(), si.data_ptr(), float(lam),
+            kr.data_ptr(), ki.data_ptr(), sr.data_ptr(), si.data_ptr(), lam_t.data_ptr(),
             xbr.data_ptr(), xbi.data_ptr(), spr.data_ptr(), spi.data_ptr(),
             sbr.data_ptr(), sbi.data_ptr(), lb.data_ptr(), b, t, c, h, w, kt, stream,
         )
@@ -209,24 +241,26 @@ class NormalApply(torch.autograd.Function):
     """Differentiable normal apply, the counterpart of the JAX custom VJP.
 
     ``apply(xr, xi, kr, ki, sr, si, lam, plain)``: ``lam`` is a Python
-    float or a tensor; ``plain`` picks the plain versions over the kernels
-    in both directions. ``K`` gets no gradient (the caller detaches it).
+    number or a one-element tensor; either way it reaches both directions
+    as the device tensor of :func:`lambda_tensor`, saved for the backward.
+    ``plain`` picks the plain versions over the kernels in both directions.
+    ``K`` gets no gradient (the caller detaches it).
     """
 
     @staticmethod
     def forward(ctx, xr, xi, kr, ki, sr, si, lam, plain: bool):
-        ctx.save_for_backward(xr, xi, kr, ki, sr, si)
-        ctx.lam = float(lam)
+        lam_t = lambda_tensor(lam, xr.device)
+        ctx.save_for_backward(xr, xi, kr, ki, sr, si, lam_t)
         ctx.lam_shape = lam.shape if torch.is_tensor(lam) else None
         ctx.plain = plain
         apply = normal_apply_torch if plain else normal_apply
-        return apply(xr, xi, kr, ki, sr, si, lam)
+        return apply(xr, xi, kr, ki, sr, si, lam_t)
 
     @staticmethod
     def backward(ctx, gr, gi):
-        xr, xi, kr, ki, sr, si = ctx.saved_tensors
+        xr, xi, kr, ki, sr, si, lam_t = ctx.saved_tensors
         bwd = normal_apply_bwd_torch if ctx.plain else normal_apply_bwd
         xbr, xbi, sbr, sbi, lb = bwd(xr, xi, gr.contiguous(), gi.contiguous(),
-                                     kr, ki, sr, si, ctx.lam)
+                                     kr, ki, sr, si, lam_t)
         lam_bar = lb.sum().reshape(ctx.lam_shape) if ctx.needs_input_grad[6] else None
         return xbr, xbi, None, None, sbr, sbi, lam_bar, None

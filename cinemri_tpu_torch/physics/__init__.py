@@ -1,11 +1,14 @@
-"""MRI encoding-operator algebra on Complex (re, im) pairs."""
+"""MRI encoding-operator algebra on Complex (re, im) pairs, and the
+conjugate-gradient solver."""
 
+from cinemri_tpu_torch.physics.cg import conj_grad  # noqa: F401
 from cinemri_tpu_torch.physics.operators import (  # noqa: F401
     apply_mask,
     coil_weight,
     get_normal_backend,
     is_line_mask,
     masked_normal_kernel,
+    normal_plus_lambda,
     normal_plus_lambda_kernel,
     sens_expand,
     sens_reduce,

@@ -1,6 +1,7 @@
 """MRI encoding-operator algebra on Complex (re, im) pairs.
 
-Counterpart of ``cinemri_tpu/physics/operators.py`` (the VarNet subset).
+Counterpart of ``cinemri_tpu/physics/operators.py`` (the VarNet and CineNet
+subset).
 
 Shapes: k-space ``(b, t, c, h, w)`` Complex; sensitivity maps
 ``(b, 1, c, h, w)`` Complex; coil-combined images ``(b, t, 1, h, w)``
@@ -27,6 +28,7 @@ __all__ = [
     "sens_reduce",
     "apply_mask",
     "soft_dc",
+    "normal_plus_lambda",
     "is_line_mask",
     "masked_normal_kernel",
     "normal_plus_lambda_kernel",
@@ -76,6 +78,14 @@ def soft_dc(model_term: Complex, ref_kspace: Complex, mask: torch.Tensor, v) -> 
     return (1 - mask) * model_term + mask * ((model_term + v * ref_kspace) / (1 + v))
 
 
+def normal_plus_lambda(x: Complex, mask: torch.Tensor, sens_maps: Complex, lam) -> Complex:
+    """``H(x) = Aᴴ M A x + λ x``, the CG system operator, in its direct form:
+    ``sens_expand``, mask, ``sens_reduce`` (four DFTs per apply). CineNet
+    runs it when ``kernel_dc`` is off or the mask is not a line mask."""
+    k = apply_mask(sens_expand(x, sens_maps), mask)
+    return sens_reduce(k, sens_maps, keepdims=True) + lam * x
+
+
 def is_line_mask(mask: torch.Tensor) -> bool:
     """True for Cartesian phase-encode line masks ``(b, t|1, 1, h, 1)``, the
     shape :func:`masked_normal_kernel` collapses into an h-axis matrix. The
@@ -113,9 +123,11 @@ def normal_plus_lambda_kernel(x: Complex, kernel: Complex, sens_maps: Complex, l
 
     ``x (b, t, 1, h, w)``, ``kernel (b, t|1, h, h)`` from
     :func:`masked_normal_kernel`, ``sens_maps (b, 1, c, h, w)``; ``lam`` a
-    Python float or a tensor. Differentiable in ``x``, ``sens_maps`` and a
-    tensor ``lam``; the kernel matrix is detached, as the JAX package
-    stop-gradients it (it derives from the never-learned mask).
+    Python float or a one-element tensor, passed through to the kernel on
+    the device as it is (CineNet's ``softplus(λᵢ)``). Differentiable in
+    ``x``, ``sens_maps`` and a tensor ``lam``; the kernel matrix is
+    detached, as the JAX package stop-gradients it (it derives from the
+    never-learned mask).
     """
     outr, outi = normal_cuda.NormalApply.apply(
         x.re[:, :, 0].contiguous(),

@@ -3,9 +3,12 @@
 Counterpart of ``cinemri_tpu/serve.py``. A request is
 ``(kspace_re, kspace_im, mask) -> image`` in float32, the signature of the
 JAX package's exported artifact: k-space ``(n, t, c, h, w)`` twice, mask
-``(n, t|1, 1, h, 1)``, image ``(n, t, h, w)``. A batch of n volumes is
-reconstructed one volume at a time (:func:`serial_batch`), as the JAX
-package serves batches. Requests run under ``torch.inference_mode()``.
+``(n, t|1, 1, h, 1)``, image ``(n, t, h, w)``. A model that takes
+sensitivity maps (CineNet) gets them with the request, as ``(sens_re,
+sens_im)`` of shape ``(n, 1, c, h, w)``, the JAX artifact's extra two
+arguments. A batch of n volumes is reconstructed one volume at a time
+(:func:`serial_batch`), maps included, as the JAX package serves batches.
+Requests run under ``torch.inference_mode()``.
 
 The ``torch.export`` artifact is not ported yet (ROADMAP Queue 1, item 14).
 """
@@ -49,11 +52,13 @@ def bind_model(
     device=None,
 ) -> Callable:
     """Bind ``model`` (and ``state_dict``, when given) to ``device`` once;
-    return ``serve(kspace_re, kspace_im, mask) -> image``.
+    return ``serve(kspace_re, kspace_im, mask, sens_re=None, sens_im=None)
+    -> image``.
 
-    ``device`` defaults to CUDA and raises without a CUDA device. Inputs
-    may be numpy arrays or tensors; the image is a float32 tensor on
-    ``device``.
+    Sensitivity maps go to models that take them (CineNet) and are left
+    out for models that estimate their own (VarNet). ``device`` defaults to
+    CUDA and raises without a CUDA device. Inputs may be numpy arrays or
+    tensors; the image is a float32 tensor on ``device``.
     """
     dev = resolve_device(device)
     model = model.to(dev)
@@ -61,13 +66,18 @@ def bind_model(
         model.load_state_dict(state_dict)
     model.eval()
 
-    def unit(kre, kim, mask):
+    def unit(kre, kim, mask, *sens):
+        if sens:
+            return model(Complex(kre, kim), mask, Complex(*sens))
         return model(Complex(kre, kim), mask)
 
     batched = serial_batch(unit)
 
-    def serve(kspace_re, kspace_im, mask) -> torch.Tensor:
+    def serve(kspace_re, kspace_im, mask, sens_re=None, sens_im=None) -> torch.Tensor:
+        if (sens_re is None) != (sens_im is None):
+            raise ValueError("pass both sens_re and sens_im, or neither")
+        args = (kspace_re, kspace_im, mask) + (() if sens_re is None else (sens_re, sens_im))
         with torch.inference_mode():
-            return batched(_as_f32(kspace_re, dev), _as_f32(kspace_im, dev), _as_f32(mask, dev))
+            return batched(*(_as_f32(a, dev) for a in args))
 
     return serve

@@ -4,8 +4,10 @@ Counterpart of ``cinemri_tpu/train/step.py`` (single device): crop output
 and target to the common center size, take the time-averaged SSIM loss,
 backpropagate, and take one optimizer step. A batch is a dict with
 ``masked_kspace`` (Complex ``(b, t, c, h, w)``), ``mask``
-(``(b, t|1, 1, h, 1)``), ``target`` (``(b, t, h', w')``) and an optional
-``sample_weight`` (``(b,)``). PyTorch updates the model's parameters in
+(``(b, t|1, 1, h, 1)``), ``target`` (``(b, t, h', w')``), an optional
+``sample_weight`` (``(b,)``) and, for models that take them (CineNet),
+``sens_maps`` (Complex ``(b, 1, c, h, w)``), handed to the model as its
+third argument. PyTorch updates the model's parameters in
 place, so a step returns the same state object, advanced.
 
 The data-parallel ``shard_map`` step is not ported yet (ROADMAP Queue 1,
@@ -54,7 +56,10 @@ def _to(a, device: torch.device):
 
 def _loss_and_output(model: nn.Module, batch: Dict):
     dev = next(model.parameters()).device
-    output = model(_to(batch["masked_kspace"], dev), _to(batch["mask"], dev))
+    args = (batch["masked_kspace"], batch["mask"])
+    if "sens_maps" in batch:
+        args = args + (batch["sens_maps"],)
+    output = model(*(_to(a, dev) for a in args))
     target, output_c = center_crop_to_smallest(_to(batch["target"], dev), output)
     weight = batch.get("sample_weight")
     loss = ssim_loss(output_c, target, sample_weight=None if weight is None else _to(weight, dev))

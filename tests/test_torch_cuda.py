@@ -124,3 +124,90 @@ def test_kernel_grads_match_plain(dev, kernel):
         grads.append([a.grad for a in leaves])
     for got, want in zip(*grads):
         assert (got - want).abs().max().item() <= 2e-5 * want.abs().max().item()
+
+
+@pytest.mark.parametrize("b,h,w,dft", [(3, 32, 32, True), (4, 24, 20, False), (5, 70, 33, False),
+                                       (2, 200, 200, True)])
+def test_fft2_plane_kernel_matches_plain(dev, b, h, w, dft):
+    """The fused 2-D DFT against its plain version: the centered DFT
+    matrices, and random non-symmetric W_h ≠ W_w (which would show a
+    transposed or swapped W_w)."""
+    from cinemri_tpu_torch.ops import fft as F
+    from cinemri_tpu_torch.ops.kernels import fft2_cuda
+
+    g = torch.Generator(device=dev).manual_seed(b)
+    r = lambda *s: torch.randn(s, generator=g, device=dev)
+    if dft:
+        mats = F._dft_tensors(h, True, False, "ortho", dev) + F._dft_tensors(w, True, False, "ortho", dev)
+    else:
+        mats = (r(h, h), r(h, h), r(w, w), r(w, w))
+    x = (r(b, h, w), r(b, h, w))
+    before = fft2_cuda.LAUNCHES
+    got = fft2_cuda.fft2_plane(*x, *mats)
+    assert fft2_cuda.LAUNCHES == before + 1
+    _close(got, fft2_cuda.fft2_plane_torch(*x, *mats))
+
+
+def test_normal_apply_device_lambda_makes_no_sync(dev):
+    """A CUDA-tensor λ reaches both kernels by pointer: forward and backward
+    run under sync debug mode "error" once warm, and agree with the plain
+    versions."""
+    from cinemri_tpu_torch.ops.kernels import normal_cuda
+    from cinemri_tpu_torch.physics.operators import masked_normal_kernel
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    r = lambda *s: torch.randn(s, generator=g, device=dev)
+    k = masked_normal_kernel((torch.rand(1, 3, 1, 40, 1, generator=g, device=dev) < 0.4).float())
+    kr, ki = k.re.contiguous(), k.im.contiguous()
+    x, s = (r(1, 3, 40, 24), r(1, 3, 40, 24)), (r(1, 2, 40, 24), r(1, 2, 40, 24))
+    lam = torch.tensor(0.6, device=dev, requires_grad=True)
+    outs = []
+    for plain in (False, True):
+        leaves = [a.clone().requires_grad_(True) for a in x]
+        normal_cuda.NormalApply.apply(*leaves, kr, ki, *s, lam, plain)  # warm
+        lam.grad = None
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            yr, yi = normal_cuda.NormalApply.apply(*leaves, kr, ki, *s, lam, plain)
+            (yr.sum() + 2 * yi.sum()).backward()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        outs.append((yr.detach(), yi.detach(), leaves[0].grad, leaves[1].grad, lam.grad.clone()))
+    _close(outs[0][:2], outs[1][:2])
+    _close(outs[0][2:4], outs[1][2:4])
+    torch.testing.assert_close(outs[0][4], outs[1][4], rtol=1e-5, atol=0)
+
+
+def test_small_cinenet_kernels_match_plain(dev):
+    """A small CineNet-XF forward through the kernels against the plain
+    versions, and its launch counts: 2 + 2 per cascade DFT products, and
+    1 + cg_iters normal applies per cascade."""
+    from cinemri_tpu_torch.models import build_model
+    from cinemri_tpu_torch.ops import fft as F
+    from cinemri_tpu_torch.ops.cplx import Complex
+    from cinemri_tpu_torch.ops.kernels import dft_cuda, normal_cuda
+    from cinemri_tpu_torch.physics import operators as OPS
+
+    rng = np.random.default_rng(6)
+    b, t, c, h, w = 1, 4, 3, 40, 24
+    f = lambda a: torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)).to(dev)
+    mask = (rng.random((b, t, 1, h, 1)) < 0.4).astype(np.float32)
+    k = (rng.standard_normal((b, t, c, h, w)) + 1j * rng.standard_normal((b, t, c, h, w))) * mask
+    s = rng.standard_normal((b, 1, c, h, w)) + 1j * rng.standard_normal((b, 1, c, h, w))
+    s /= np.sqrt((np.abs(s) ** 2).sum(2, keepdims=True))
+    args = (Complex(f(k.real), f(k.imag)), f(mask), Complex(f(s.real), f(s.imag)))
+    model = build_model("cinenet", "XF", device=dev, num_cascades=2, cg_iters=3, chans=4, pools=2)
+    before = (dft_cuda.LAUNCHES, normal_cuda.LAUNCHES)
+    with torch.inference_mode():
+        got = model(*args)
+    assert (dft_cuda.LAUNCHES - before[0], normal_cuda.LAUNCHES - before[1]) == (2 + 2 * 2, 2 * 4)
+    try:
+        F.set_dft_backend("torch")
+        OPS.set_normal_backend("torch")
+        with torch.inference_mode():
+            want = model(*args)
+    finally:
+        F.set_dft_backend("kernel")
+        OPS.set_normal_backend("kernel")
+    assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item()

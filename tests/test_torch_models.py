@@ -178,7 +178,7 @@ class TestBuildModel:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             build_model("varnet", "2D", device="cpu", **SMALL)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build_model("cinenet", "XF", device="cpu")
+            build_model("cinenet", "2D", device="cpu")
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             build_model("varnet", "CRNN", device="cpu")
         with pytest.raises(ValueError):

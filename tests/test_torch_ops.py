@@ -15,11 +15,12 @@ import cinemri_tpu.ops.fft as JF
 from cinemri_tpu.ops.cplx import Complex as JComplex
 from cinemri_tpu.ops.cplx import to_numpy as j_to_numpy
 from cinemri_tpu.ops.kernels.dft_pallas import complex_dft_matmul_pallas
+from cinemri_tpu.ops.kernels.fft2_pallas import fft2_plane_pallas
 
 from cinemri_tpu_torch.ops import fft as TF
 from cinemri_tpu_torch.ops.cplx import cmean, csum, from_channels, from_complex, to_channels, to_numpy
 from cinemri_tpu_torch.ops.coil import rss, rss_complex
-from cinemri_tpu_torch.ops.kernels import dft_cuda
+from cinemri_tpu_torch.ops.kernels import dft_cuda, fft2_cuda
 from cinemri_tpu_torch.ops.pad import pad_to_multiple, unpad
 from cinemri_tpu_torch.physics.lowfreq import center_band, mask_center_band
 from cinemri_tpu.physics import lowfreq as JL
@@ -126,6 +127,54 @@ class TestDFT:
                                         torch.zeros(4, 4, device="meta"))
 
 
+def _f32(a):
+    return torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32))
+
+
+class TestFFT2Plane:
+    """The plain version of the fused 2-D DFT kernel against the Pallas
+    kernel in interpret mode, run as tests/test_kernels.py runs it."""
+
+    def test_random_non_symmetric_matrices_match_pallas(self, rng):
+        """W_h ≠ W_w, neither symmetric, h ≠ w: a transposition of W_w (the
+        wrapper passes it untransposed) or a swap of the two would show."""
+        x, wh, ww = c64(rng, 3, 24, 20), c64(rng, 24, 24), c64(rng, 20, 20)
+        yr, yi = fft2_plane_pallas(jnp.asarray(x.real), jnp.asarray(x.imag),
+                                   (wh.real.astype(np.float32), wh.imag.astype(np.float32)),
+                                   (ww.real.astype(np.float32), ww.imag.astype(np.float32)),
+                                   interpret=True)
+        want = np.asarray(yr) + 1j * np.asarray(yi)
+        before = fft2_cuda.LAUNCHES
+        gr, gi = fft2_cuda.fft2_plane(_f32(x.real), _f32(x.imag), _f32(wh.real), _f32(wh.imag),
+                                      _f32(ww.real), _f32(ww.imag))
+        assert fft2_cuda.LAUNCHES == before  # CPU tensors take the plain version
+        got = gr.numpy() + 1j * gi.numpy()
+        np.testing.assert_allclose(got, (wh @ x) @ ww.T, rtol=1e-4, atol=1e-4 * np.abs(want).max())
+        # unnormalized random W: |y| ~ 100, so the 1e-5 budget is taken relative
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * np.abs(want).max())
+
+    def test_centered_dft_matrices_give_fft2c(self, rng):
+        n = 32
+        x = c64(rng, 3, n, n)
+        wh = TF._dft_matrix(n, False, False, "ortho")
+        yr, yi = fft2_cuda.fft2_plane(_f32(x.real), _f32(x.imag), *map(_f32, wh), *map(_f32, wh))
+        want = np.fft.fftshift(np.fft.fft2(np.fft.ifftshift(x, axes=(-2, -1)), norm="ortho"),
+                               axes=(-2, -1))
+        np.testing.assert_allclose(yr.numpy() + 1j * yi.numpy(), want, **TOL)
+        jr, ji = fft2_plane_pallas(jnp.asarray(x.real), jnp.asarray(x.imag), wh, wh, interpret=True)
+        np.testing.assert_allclose(yr.numpy() + 1j * yi.numpy(), np.asarray(jr) + 1j * np.asarray(ji),
+                                   **TOL)
+
+    def test_wrapper_checks(self):
+        x = torch.zeros(2, 4, 6, device="meta")
+        with pytest.raises(ValueError):
+            fft2_cuda.fft2_plane(x, x, *(torch.zeros(4, 4, device="meta"),) * 2,
+                                 *(torch.zeros(6, 6, device="meta"),) * 2)
+        with pytest.raises(ValueError, match="W_w"):
+            fft2_cuda._check(torch.zeros(2, 4, 6), torch.zeros(2, 4, 6), torch.zeros(4, 4),
+                             torch.zeros(4, 4), torch.zeros(4, 4), torch.zeros(4, 4))
+
+
 class TestCoilPad:
     def test_rss(self, rng):
         a = c64(rng, 4, 6, 5)
@@ -171,6 +220,20 @@ class TestOpstats:
         assert opstats.top_names(events, "other") == [("mystery_kernel", 0.004, 2)]
         busy, window = opstats.busy_share(events[:3])
         assert (busy, window) == (0.02, 0.035)
+
+    def test_fft2_plane_and_cudnn_fft_kinds(self):
+        """The fused 2-D DFT kernel has its own kind ahead of the
+        convolutions (whose keys include cuDNN's fft2d_*), and cuDNN's
+        vector_fft and region_transform kernels fold into convolution."""
+        from cinemri_tpu_torch.instrument import opstats
+
+        names = ["void (anonymous namespace)::fft2_plane_kernel(float const*, ...)",
+                 "void DSE::vector_fft<0, 1, 256, 16, 16, 1, float, float, float2>(...)",
+                 "region_transform_ABC_val<int, 32, 32, float2>"]
+        kinds = opstats.fold_by_kind([(n, 0.0, 1.0) for n in names])
+        assert kinds["fft2_plane (port kernel)"] == {"ms": 0.001, "count": 1}
+        assert kinds["conv / gemm (cuDNN, cuBLAS)"]["count"] == 2
+        assert "other" not in kinds
 
 
 class TestLowFreq:

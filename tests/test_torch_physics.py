@@ -153,6 +153,25 @@ class TestNormalApply:
             normal_cuda.normal_apply(z, z, k, k, z, z, 0.0)
 
 
+class TestLambdaTensor:
+    """λ reaches the kernels as a one-element f32 tensor on the device: a
+    tensor λ without a copy or a host read, a Python number from a cache."""
+
+    def test_tensor_lambda_is_a_view(self):
+        lam = torch.tensor(0.25)
+        t = normal_cuda.lambda_tensor(lam, lam.device)
+        assert t.shape == (1,) and t.data_ptr() == lam.data_ptr()
+        with pytest.raises(ValueError, match="one element"):
+            normal_cuda.lambda_tensor(torch.zeros(2), torch.device("cpu"))
+
+    def test_number_is_cached_outside_inference_mode(self):
+        with torch.inference_mode():
+            a = normal_cuda.lambda_tensor(0.125, torch.device("cpu"))
+        b = normal_cuda.lambda_tensor(0.125, torch.device("cpu"))
+        assert a is b and not a.is_inference()
+        assert a.dtype == torch.float32 and a.item() == 0.125
+
+
 class TestNormalApplyBackward:
     """The port's plain backward against the JAX custom VJP of
     ``normal_apply_pallas`` (Pallas interpret mode, as tests/test_kernels.py
