@@ -6,9 +6,13 @@
 Builds the port's CUDA kernels from ``cinemri_tpu_torch/csrc`` with nvcc
 (one nvcc per source, in parallel) and holds each kernel against its plain
 PyTorch version and one library call at the shapes of the serving and
-training paths; the fused 2-D DFT ``fft2_plane``, which no path runs (as in
+training paths: the DFT at the six ``(O, N, I)`` layouts of the path and two
+ragged ones; the fused 2-D DFT ``fft2_plane``, which no path runs (as in
 the JAX package), at the 2-D DFT shapes of the ported paths, beside the two
-1-D DFT launches that ``ifft2c`` makes today and cuFFT.
+1-D DFT launches that ``ifft2c`` makes today and cuFFT. For these two
+kernels it also times the device alone (CUDA graphs, no host launch
+overhead), and it times the cascades' temporal DFT on both layouts it could
+take (``[layout]``).
 
 Then it drives two models at full width through the port's entry points.
 VarNet-XF (10 cascades, chans 16, pools 3, sens net 8/3): the forward on a
@@ -19,7 +23,9 @@ versions and one library call each), then four train steps of
 ``cinemri_tpu_torch.train`` (SSIM loss, Adam 1e-4, cascade remat) twice
 through the plain versions (their run-to-run gap), once through the library
 calls and once through the kernels, from the same initial weights, one
-profiled step and steps without remat. CineNet-XF (10 cascades, 6 CG
+profiled step and steps without remat; one more forward prints the
+``(O, N, I)`` of its DFT launches and the copies ``_apply_dft`` made (fewer
+than PR 3's). CineNet-XF (10 cascades, 6 CG
 iterations, chans 16, pools 3, with RSS-normalized sensitivity maps as
 input): the same forward, profile and serving runs, one warm forward under
 ``torch.cuda.set_sync_debug_mode("error")`` (λ stays on the device), the same
@@ -45,6 +51,7 @@ Imports nothing of JAX. Exits non-zero without a CUDA device, or when the
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import functools
 import json
@@ -150,12 +157,34 @@ def cuda_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(torch, fn, iters: int = 20) -> float:
+    """Mean device time of ``fn`` per call: ``iters`` calls captured in one
+    CUDA graph and replayed between two CUDA events, so the host's launch
+    overhead, which a small kernel cannot hide, is left out."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    del graph
+    return start.elapsed_time(end) / iters
+
+
 # (FLOP, bytes) of one call, from its inputs: the 4-multiplication complex
 # product (8 FLOP per complex multiply-add); each input read once, each
 # output written once.
 def dft_cost(xr, xi, wr, wi):
-    b, n = xr.shape
-    return 8.0 * b * n * n, 4.0 * (4 * b * n + 2 * n * n)
+    o, n, i = xr.shape
+    return 8.0 * o * n * n * i, 4.0 * (4 * o * n * i + 2 * n * n)
 
 
 def normal_cost(xr, xi, kr, ki, sr, si, lam):
@@ -192,10 +221,18 @@ def bound(cost, peak_flops: float, peak_bw: float):
 # Library yardsticks: one PyTorch call on complex64 that computes the same
 # function. Timed only; the port never calls them.
 def dft_library(torch):
+    """One complex64 ``matmul`` in the layout of the input: rows times ``Wᵀ``
+    for ``I == 1``, ``W`` from the left on each ``(N, I)`` slab otherwise."""
     def prep(xr, xi, wr, wi):
-        return torch.complex(xr, xi), torch.complex(wr, wi).T
+        x, w = torch.complex(xr, xi), torch.complex(wr, wi)
+        return x, w, xr.shape[2] > 1
 
-    return prep, torch.matmul
+    def call(x, w, slabs):
+        if slabs:
+            return torch.matmul(w, x)
+        return torch.matmul(x.reshape(x.shape[0], -1), w.T).view(x.shape)
+
+    return prep, call
 
 
 def normal_library(torch):
@@ -350,7 +387,7 @@ def main() -> int:
     from cinemri_tpu_torch.instrument import opstats
     from cinemri_tpu_torch.models import build_model
     from cinemri_tpu_torch.ops import fft as FFT
-    from cinemri_tpu_torch.ops.cplx import Complex
+    from cinemri_tpu_torch.ops.cplx import Complex, to_channels
     from cinemri_tpu_torch.ops.kernels import _build, dft_cuda, fft2_cuda, normal_cuda
     from cinemri_tpu_torch.physics import operators as OPS
     from cinemri_tpu_torch.serve import bind_model
@@ -385,9 +422,10 @@ def main() -> int:
     def randn(*shape):
         return torch.randn(shape, generator=gen, device=dev, dtype=torch.float32)
 
-    def check_case(kernel, shape, args, fn, plain, library, cost, tol):
+    def check_case(kernel, shape, args, fn, plain, library, cost, tol, graph=False):
         """One kernel against its plain version and its library call on the
-        same inputs; times each (mean of warm launches, L2-warm)."""
+        same inputs; times each (mean of warm launches, L2-warm) and, with
+        ``graph``, also their device time alone (graph_ms)."""
         got, want = fn(*args), plain(*args)
         prep, lib = library
         lib_in = prep(*args)
@@ -404,10 +442,18 @@ def main() -> int:
         case = dict(kernel=kernel, **shape, max_abs_err=err, max_rel_err=err / scale,
                     library_max_abs_err=lib_err, max_abs=scale, tol=tol * scale, ms=ms,
                     plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms, bound_by=b_by)
+        device = ""
+        if graph:
+            case.update(device_ms=graph_ms(torch, lambda: fn(*args)),
+                        plain_device_ms=graph_ms(torch, lambda: plain(*args), iters=10),
+                        library_device_ms=graph_ms(torch, lambda: lib(*lib_in), iters=10))
+            device = (f"; device alone (CUDA graph): kernel {case['device_ms']:.4f} ms plain "
+                      f"{case['plain_device_ms']:.4f} ms library {case['library_device_ms']:.4f} ms")
         cases.append(case)
         print(f"[kernel] {kernel} {shape}: max_abs_err {err:.3e} rel {err / scale:.3e} "
               f"(tol {tol * scale:.3e}; library {lib_err:.3e}) kernel {ms:.4f} ms "
-              f"plain {plain_ms:.4f} ms library {library_ms:.4f} ms bound {b_ms:.4f} ms ({b_by})")
+              f"plain {plain_ms:.4f} ms library {library_ms:.4f} ms bound {b_ms:.4f} ms ({b_by})"
+              + device)
         if not err <= tol * scale:
             fail(f"{kernel} disagrees with its plain version at {shape}: {err} > {tol * scale}")
         if not lib_err <= tol * scale:
@@ -475,12 +521,48 @@ def main() -> int:
                     top_other=opstats.top_names(events, "other"))
 
     # -- 2. kernels against their plain versions ----------------------------------
-    # the main path's shapes (sens-net ifft2c, x_ref ifft2c, temporal fft) and a ragged one
-    for b, n in ((C * W, H), (T * C * W, H), (H * W, T), (37, 64)):
+    # the main path's (O, N, I) layouts: the sens net's and x_ref's ifft2c
+    # (axis -2 on the contiguous k-space, then axis -1 on its contiguous
+    # result), the cascades' temporal transforms (fft1c on a contiguous
+    # image, ifft1c on one with t innermost); and two ragged ones
+    for o, n, i in ((C, H, W), (C * H, W, 1), (T * C, H, W), (T * C * H, W, 1),
+                    (1, T, H * W), (H * W, T, 1), (37, 64, 1), (3, 24, 7)):
         wr, wi = FFT._dft_tensors(n, False, False, "ortho", dev)
-        check_case("complex_dft_matmul", dict(B=b, N=n), (randn(b, n), randn(b, n), wr, wi),
+        check_case("complex_dft_matmul", dict(O=o, N=n, I=i),
+                   (randn(o, n, i), randn(o, n, i), wr, wi),
                    dft_cuda.complex_dft_matmul, dft_cuda.complex_dft_matmul_torch,
-                   dft_library(torch), dft_cost, DFT_TOL)
+                   dft_library(torch), dft_cost, DFT_TOL, graph=True)
+
+    # the cascades' temporal DFT and the two plane batches they feed
+    # (models/varnet.py _xfyf), from a contiguous image: the route ops/fft.py
+    # takes (I > 1 on the image, no copy; the plane batches copy) against a
+    # copy to t innermost first (I = 1; the (w, t) batch is then a view)
+    def cascade_planes(x):
+        y = FFT.fft1c(x, axis=1)
+        b, t, h, w = y.shape
+        return (to_channels(y.transpose(0, 2, 3, 1).reshape(b * h, w, t), axis=1),
+                to_channels(y.transpose(0, 3, 2, 1).reshape(b * w, h, t), axis=1))
+
+    def t_last(x):
+        return Complex(*(a.movedim(1, -1).contiguous().movedim(-1, 1) for a in (x.re, x.im)))
+
+    ximg = Complex(randn(1, T, H, W), randn(1, T, H, W))
+    with torch.no_grad():
+        planes = [cascade_planes(ximg), cascade_planes(t_last(ximg))]
+        torch.cuda.synchronize()
+        layout_err = max((a - b_).abs().max().item() for a, b_ in zip(*planes))
+        layout_scale = max(a.abs().max().item() for a in planes[0])
+        layout_ms = [cuda_ms(torch, lambda: cascade_planes(ximg)),
+                     cuda_ms(torch, lambda: cascade_planes(t_last(ximg))),
+                     cuda_ms(torch, lambda: cascade_planes(ximg)),
+                     cuda_ms(torch, lambda: cascade_planes(t_last(ximg)))]
+    layout = dict(contiguous_ms=layout_ms[0::2], t_last_copy_ms=layout_ms[1::2], max_abs_diff=layout_err)
+    print(f"[layout] cascade fft1c + plane batches at (1, {T}, {H}, {W}): contiguous route (I > 1, "
+          f"no DFT copy) {layout_ms[0]:.4f} / {layout_ms[2]:.4f} ms; copy to t innermost first "
+          f"(I = 1) {layout_ms[1]:.4f} / {layout_ms[3]:.4f} ms; max_abs_diff {layout_err:.3e}")
+    if not layout_err <= DFT_TOL * layout_scale:
+        fail(f"the two temporal DFT layouts disagree: {layout_err}")
+    del ximg, planes
 
     # λ: VarNet's 0.0 in the forward; 0.37 in a backward; a device tensor
     # (CineNet's softplus(λᵢ), read by the kernels through a pointer)
@@ -511,8 +593,8 @@ def main() -> int:
     # ifft2c (150 planes), the sens net's ifft2c (10), a small forward DFT, and
     # random non-symmetric W_h ≠ W_w, h ≠ w (a transposed W_w would show). For
     # the DFTs also the route the port takes today (ops/fft.py: two DFT
-    # kernel launches and _apply_dft's axis-move copies) and cuFFT between
-    # the shifts, for information.
+    # kernel launches, (B, h, w) and then (B·h, w, 1), no copy) and cuFFT
+    # between the shifts, for information.
     fft2_args = []
     for (b, h, w), inverse in (((T * C, H, W), True), ((C, H, W), True), ((3, 32, 32), False),
                                ((4, 24, 20), None)):
@@ -525,7 +607,7 @@ def main() -> int:
         fft2_args.append(args)
         label = "random" if inverse is None else ("centered inverse DFT" if inverse else "centered DFT")
         check_case("fft2_plane", dict(B=b, h=h, w=w, matrices=label), args, fft2_cuda.fft2_plane,
-                   fft2_cuda.fft2_plane_torch, fft2_library(torch), fft2_cost, DFT_TOL)
+                   fft2_cuda.fft2_plane_torch, fft2_library(torch), fft2_cost, DFT_TOL, graph=True)
         if inverse is None:
             continue
         x = Complex(args[0], args[1])
@@ -533,11 +615,13 @@ def main() -> int:
         with torch.no_grad():
             via_1d = route(x)
             two_ms = cuda_ms(torch, lambda: route(x))
+            two_device_ms = graph_ms(torch, lambda: route(x))
         xc = torch.complex(args[0], args[1])
         fft = torch.fft.ifft2 if inverse else torch.fft.fft2
         cufft = lambda: torch.fft.fftshift(fft(torch.fft.ifftshift(xc, dim=(-2, -1)), norm="ortho"),
                                            dim=(-2, -1))
         cufft_ms = cuda_ms(torch, cufft)
+        cufft_device_ms = graph_ms(torch, cufft)
         want = cufft()
         got = fft2_cuda.fft2_plane(*args)
         torch.cuda.synchronize()
@@ -545,9 +629,11 @@ def main() -> int:
         errs = [max((a - want.real).abs().max().item(), (b_ - want.imag).abs().max().item())
                 for a, b_ in (got, (via_1d.re, via_1d.im))]
         cases[-1].update(two_dft_launches_ms=two_ms, cufft_ms=cufft_ms,
+                         two_dft_launches_device_ms=two_device_ms, cufft_device_ms=cufft_device_ms,
                          max_abs_err_vs_cufft=errs[0], two_dft_launches_max_abs_err_vs_cufft=errs[1])
-        print(f"[kernel] fft2_plane {(b, h, w)} vs today's route: two DFT launches with copies "
-              f"{two_ms:.4f} ms, cuFFT {cufft_ms:.4f} ms; max_abs_err vs cuFFT: kernel {errs[0]:.3e}, "
+        print(f"[kernel] fft2_plane {(b, h, w)} vs today's route: two DFT launches "
+              f"{two_ms:.4f} ms (device alone {two_device_ms:.4f}), cuFFT {cufft_ms:.4f} ms (device "
+              f"alone {cufft_device_ms:.4f}); max_abs_err vs cuFFT: kernel {errs[0]:.3e}, "
               f"two launches {errs[1]:.3e} (tol {DFT_TOL * scale:.3e})")
         if not max(errs) <= DFT_TOL * scale:
             fail(f"fft2_plane or the two-launch route disagrees with cuFFT at {(b, h, w)}: {errs}")
@@ -571,10 +657,29 @@ def main() -> int:
         FFT.set_dft_backend(backend)
         OPS.set_normal_backend(backend)
 
-    def forward_phase(tag, forward, expected):
+    def dft_layouts(fn):
+        """The distinct (O, N, I) of the DFT launches in one call of ``fn``,
+        with their counts, and the copies ``_apply_dft`` made."""
+        seen = collections.Counter()
+        saved = dft_cuda.complex_dft_matmul
+
+        def record(xr, xi, wr, wi):
+            seen[tuple(xr.shape)] += 1
+            return saved(xr, xi, wr, wi)
+
+        dft_cuda.complex_dft_matmul = record
+        FFT.COPIES = 0
+        try:
+            fn()
+        finally:
+            dft_cuda.complex_dft_matmul = saved
+        return {str(k): v for k, v in seen.items()}, FFT.COPIES
+
+    def forward_phase(tag, forward, expected, max_copies):
         """The forward through the kernels (launches counted) and through the
-        plain versions, checked against each other; then 12 timed warm
-        forwards and one profiled forward."""
+        plain versions, checked against each other; the DFT layouts and
+        copies of one more forward (fewer than ``max_copies``); then 12 timed
+        warm forwards."""
         dft_cuda.LAUNCHES = normal_cuda.LAUNCHES = 0
         out_kernel = forward()
         torch.cuda.synchronize()
@@ -593,6 +698,11 @@ def main() -> int:
               f"(tol {MODEL_TOL * scale:.3e}, max |out| {scale:.4f})")
         if not err <= MODEL_TOL * scale:
             fail(f"{tag}: the forward through the kernels disagrees with the plain forward: {err}")
+        layouts, copies = dft_layouts(forward)
+        print(f"[{tag}] DFT launches by (O, N, I): {layouts}; _apply_dft copies per forward: "
+              f"{copies} (PR 3: {max_copies})")
+        if not copies < max_copies:
+            fail(f"{tag}: _apply_dft made {copies} copies in a forward, not fewer than {max_copies}")
         torch.cuda.reset_peak_memory_stats()
         times = [cuda_ms(torch, forward, iters=1, warmup=1 if i == 0 else 0) for i in range(12)]
         peak = torch.cuda.max_memory_allocated()
@@ -600,7 +710,7 @@ def main() -> int:
         print(f"[{tag}] kernels: {ms_vol:.3f} ms/volume (median of {len(times)}, min {min(times):.3f}), "
               f"{T / ms_vol * 1e3:.2f} frames/s, peak memory {peak / 2**20:.1f} MiB")
         return dict(out=out_kernel, scale=scale, max_abs_err=err, launches_per_forward=per_forward,
-                    forward_ms=times, ms_per_volume=ms_vol, frames_per_s=T / ms_vol * 1e3,
+                    dft_layouts=layouts, dft_copies=copies, forward_ms=times, ms_per_volume=ms_vol, frames_per_s=T / ms_vol * 1e3,
                     peak_memory_bytes=peak)
 
     def serve_phase(tag, serve, inputs, expected, direct_out, scale):
@@ -841,7 +951,15 @@ def main() -> int:
     # cascade one fft1c + one ifft1c over t and one normal apply
     nc = FLAGSHIP["num_cascades"]
     expected = {"dft": 4 + 2 * nc, "normal": nc}
-    vfwd = forward_phase("forward", forward, expected)
+    # an ifft2c of the contiguous flagship k-space copies nothing
+    FFT.COPIES = 0
+    with torch.inference_mode():
+        FFT.ifft2c(k)
+    print(f"[forward] _apply_dft copies in an ifft2c of the (1, {T}, {C}, {H}, {W}) k-space: {FFT.COPIES}")
+    if FFT.COPIES:
+        fail(f"an ifft2c of the contiguous k-space made {FFT.COPIES} copies")
+    # PR 3 copied 5 times per VarNet forward, 3 per CineNet forward
+    vfwd = forward_phase("forward", forward, expected, 5)
     # one warm forward under the profiler: device time by kernel kind, idle share
     print("[profile] " + json.dumps(profiled(forward)))
 
@@ -892,7 +1010,7 @@ def main() -> int:
     # residual and one per iteration
     cnc, cgi = CINENET["num_cascades"], CINENET["cg_iters"]
     c_expected = {"dft": 2 + 2 * cnc, "normal": cnc * (1 + cgi)}
-    cfwd = forward_phase("cinenet-forward", cforward, c_expected)
+    cfwd = forward_phase("cinenet-forward", cforward, c_expected, 3)
     print("[cinenet-profile] " + json.dumps(profiled(cforward)))
 
     # a warm forward (DFT-matrix and λ caches built) makes no host sync: λ

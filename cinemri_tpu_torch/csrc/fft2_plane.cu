@@ -9,7 +9,8 @@
 // after transposing it on the host.
 //
 // Arithmetic: the 4-multiplication complex product in full f32 on CUDA
-// cores (FMA, no TF32), matching the JAX kernel's Precision.HIGHEST:
+// cores (FMA, no TF32), matching the JAX kernel's Precision.HIGHEST, through
+// the block tile of cgemm_tile.cuh:
 //   A = W_h · X:    ar += whr·xr − whi·xi;   ai += whr·xi + whi·xr
 //   Y = A · W_wᵀ:   yr += ar·wwr − ai·wwi;   yi += ar·wwi + ai·wwr
 //
@@ -20,123 +21,80 @@
 // Design. The Pallas program holds one whole plane, both DFT matrices and
 // the intermediate W_h·X in VMEM (~2 MB). A 200 x 200 plane alone is 320 KB
 // in re + im, more than a block's 227 KB of shared memory, so a block owns
-// one strip of BM output rows of one plane:
+// one strip of 40 output rows of one plane (5 strips at h = 200, no padding):
 // - phase 1 computes its strip of A = W_h[rows, :] · X[b] into shared
-//   memory (BM x w complex, 53 KB at w = 200), tiled BN columns at a time,
-//   with the W_h and X tiles of each BK-deep chunk staged in shared memory;
-// - phase 2 multiplies the strip by W_wᵀ, staging W_w tiles the same way,
-//   and writes Y.
+//   memory (40 x w complex, 66.5 KB at w = 200), in column tiles of 200,
+//   with the W_h (k-contiguous) and X (column-contiguous) chunks streamed
+//   through the tile engine's cp.async ring (cgemm_tile.cuh);
+// - phase 2 multiplies the strip, read in place, by W_wᵀ, with the W_w
+//   chunks streamed the same way, and writes Y.
 // So the intermediate W_h·X stays on chip, as in the JAX kernel: only X, the
-// matrices and Y move through device memory. A thread accumulates TM x TN
-// complex outputs in registers; the grid runs over (plane, strip).
+// matrices and Y move through device memory. The strips of a plane are
+// neighbours in the grid, so X is read from device memory about once.
 
-#include <cuda_runtime.h>
+#include "cgemm_tile.cuh"
 
 namespace {
 
-constexpr int BM = 32;         // output rows per block: one strip of a plane
-constexpr int BN = 64;         // output columns per tile
-constexpr int BK = 16;         // contraction chunk
-constexpr int TM = 2, TN = 4;  // outputs per thread (rows ty + TY·m, columns tx + TX·n)
-constexpr int TX = BN / TN;    // threads along columns
-constexpr int TY = BM / TM;    // threads along rows
-constexpr int NT = TX * TY;
+using cgemm::Lane;
+using cgemm::Operand;
 
-// Row stride of the A strip in shared memory: w rounded up to the chunk
-// depth (phase 2 reads whole chunks; the padding columns hold zeros), plus
-// one so that the two rows a warp reads fall on different banks.
-__host__ __device__ inline int strip_ld(int w) { return (w + BK - 1) / BK * BK + 1; }
+// 320 threads (5 column groups of 8 x 8) each own 5 x 5 complex outputs in
+// both phases; 16-deep chunks, k steps unrolled two at a time (unrolling
+// more of them spills), two ring stages.
+using Strip = cgemm::Tile<40, 200, 16, 5, 5, 2, 1, 2>;
+constexpr int STRIP = Strip::BM;  // output rows of a block
 
-__global__ void __launch_bounds__(NT)
+// Row stride of the strip in shared memory: w rounded up to the chunk depth
+// (phase 2 reads whole chunks; the padding columns hold zeros).
+__host__ __device__ inline int strip_ld(int w) { return (w + Strip::BK - 1) / Strip::BK * Strip::BK; }
+
+constexpr int RING_FLOATS =
+    Strip::STAGES * (Strip::stage_floats<false, true, false>() > Strip::stage_floats<true, true, true>()
+                         ? Strip::stage_floats<false, true, false>()
+                         : Strip::stage_floats<true, true, true>());
+
+template <int VEC>
+__global__ void __launch_bounds__(Strip::THREADS, Strip::MINB)
 fft2_plane_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
                   const float* __restrict__ whr, const float* __restrict__ whi,
                   const float* __restrict__ wwr, const float* __restrict__ wwi,
                   float* __restrict__ yr, float* __restrict__ yi, int H, int W) {
-  extern __shared__ float strip[];                    // A: re (BM x lda), then im
-  __shared__ float sar[BK][BM + 1], sai[BK][BM + 1];  // W_h[rows, k-chunk], k-major
-  __shared__ float sbr[BK][BN + 1], sbi[BK][BN + 1];  // X[k-chunk, cols] / W_w[cols, l-chunk]ᵀ
-
-  const int lda = strip_ld(W);
-  float* const as_r = strip;
-  float* const as_i = strip + BM * lda;
-
+  using T = Strip;
+  const int lds = strip_ld(W);
+  float* const as_r = reinterpret_cast<float*>(cgemm::smem);  // A strip: re (STRIP x lds), then im
+  float* const as_i = as_r + STRIP * lds;
+  float* const ring = as_i + STRIP * lds;
   const int tid = threadIdx.x;
-  const int tx = tid % TX;
-  const int ty = tid / TX;
-  const long plane = static_cast<long>(blockIdx.x) * H * W;
-  const int i0 = blockIdx.y * BM;
-  const float* xrp = xr + plane;
-  const float* xip = xi + plane;
+  const Lane<T> lane(tid);
+  const long plane = static_cast<long>(blockIdx.y) * H * W;
+  const int i0 = blockIdx.x * STRIP;
+  const int rows = H - i0 < STRIP ? H - i0 : STRIP;
 
-  // zero the strip's padding columns [W, lda): phase 2 reads them
-  for (int idx = tid; idx < BM * (lda - W); idx += NT) {
-    const int r = idx / (lda - W), col = W + idx % (lda - W);
-    as_r[r * lda + col] = 0.f;
-    as_i[r * lda + col] = 0.f;
+  // zero the strip's padding columns [W, lds): phase 2 reads them
+  for (int e = tid; e < STRIP * (lds - W); e += T::THREADS) {
+    const int r = e / (lds - W), col = W + e % (lds - W);
+    as_r[r * lds + col] = 0.f;
+    as_i[r * lds + col] = 0.f;
   }
 
-  float accr[TM][TN], acci[TM][TN];
+  float cr[T::TM][T::TN], ci[T::TM][T::TN];
 
   // -- phase 1: A[r, :] = Σ_k W_h[i0 + r, k] · X[k, :] into shared memory ----
-  for (int c0 = 0; c0 < W; c0 += BN) {
+  const Operand wh{whr + static_cast<long>(i0) * H, whi + static_cast<long>(i0) * H, H, rows};
+  for (int c0 = 0; c0 < W; c0 += T::BN) {
+    cgemm::zero<T>(cr, ci);
+    const Operand x{xr + plane, xi + plane, W, W - c0, c0};
+    cgemm::block_mma<T, false, true, false, VEC>(ring, wh, x, H, tid, lane, cr, ci);
 #pragma unroll
-    for (int m = 0; m < TM; ++m)
+    for (int m = 0; m < T::TM; ++m) {
+      const int r = lane.ty + T::TY * m;  // rows past H hold zeros (zero-filled W_h rows)
 #pragma unroll
-      for (int n = 0; n < TN; ++n) accr[m][n] = acci[m][n] = 0.f;
-
-    for (int k0 = 0; k0 < H; k0 += BK) {
-      for (int idx = tid; idx < BM * BK; idx += NT) {
-        const int r = idx / BK, kk = idx % BK;
-        const int i = i0 + r, k = k0 + kk;
-        const bool ok = i < H && k < H;
-        const long g = static_cast<long>(i) * H + k;
-        sar[kk][r] = ok ? whr[g] : 0.f;
-        sai[kk][r] = ok ? whi[g] : 0.f;
-      }
-      for (int idx = tid; idx < BK * BN; idx += NT) {
-        const int kk = idx / BN, c = idx % BN;
-        const int k = k0 + kk, col = c0 + c;
-        const bool ok = k < H && col < W;
-        const long g = static_cast<long>(k) * W + col;
-        sbr[kk][c] = ok ? xrp[g] : 0.f;
-        sbi[kk][c] = ok ? xip[g] : 0.f;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < BK; ++kk) {
-        float a_r[TM], a_i[TM], b_r[TN], b_i[TN];
-#pragma unroll
-        for (int m = 0; m < TM; ++m) {
-          a_r[m] = sar[kk][ty + TY * m];
-          a_i[m] = sai[kk][ty + TY * m];
-        }
-#pragma unroll
-        for (int n = 0; n < TN; ++n) {
-          b_r[n] = sbr[kk][tx + TX * n];
-          b_i[n] = sbi[kk][tx + TX * n];
-        }
-#pragma unroll
-        for (int m = 0; m < TM; ++m)
-#pragma unroll
-          for (int n = 0; n < TN; ++n) {
-            accr[m][n] = fmaf(a_r[m], b_r[n], accr[m][n]);
-            accr[m][n] = fmaf(-a_i[m], b_i[n], accr[m][n]);
-            acci[m][n] = fmaf(a_r[m], b_i[n], acci[m][n]);
-            acci[m][n] = fmaf(a_i[m], b_r[n], acci[m][n]);
-          }
-      }
-      __syncthreads();
-    }
-
-#pragma unroll
-    for (int m = 0; m < TM; ++m) {
-      const int r = ty + TY * m;
-#pragma unroll
-      for (int n = 0; n < TN; ++n) {
-        const int col = c0 + tx + TX * n;
+      for (int n = 0; n < T::TN; ++n) {
+        const int col = c0 + lane.template col<false>(n);
         if (col < W) {
-          as_r[r * lda + col] = accr[m][n];
-          as_i[r * lda + col] = acci[m][n];
+          as_r[r * lds + col] = cr[m][n];
+          as_i[r * lds + col] = ci[m][n];
         }
       }
     }
@@ -144,64 +102,36 @@ fft2_plane_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
   __syncthreads();
 
   // -- phase 2: Y[i0 + r, j] = Σ_l A[r, l] · W_w[j, l] ---------------------------
-  for (int c0 = 0; c0 < W; c0 += BN) {
+  const Operand a{as_r, as_i, lds, STRIP};
+  for (int j0 = 0; j0 < W; j0 += T::BN) {
+    cgemm::zero<T>(cr, ci);
+    const Operand ww{wwr + static_cast<long>(j0) * W, wwi + static_cast<long>(j0) * W, W, W - j0};
+    cgemm::block_mma<T, true, true, true, VEC>(ring, a, ww, W, tid, lane, cr, ci);
 #pragma unroll
-    for (int m = 0; m < TM; ++m)
+    for (int m = 0; m < T::TM; ++m) {
+      const int r = lane.ty + T::TY * m;
+      if (r >= rows) continue;
 #pragma unroll
-      for (int n = 0; n < TN; ++n) accr[m][n] = acci[m][n] = 0.f;
-
-    for (int l0 = 0; l0 < W; l0 += BK) {
-      // neighbouring threads read neighbouring l of row j of W_w (coalesced)
-      for (int idx = tid; idx < BN * BK; idx += NT) {
-        const int c = idx / BK, ll = idx % BK;
-        const int j = c0 + c, l = l0 + ll;
-        const bool ok = j < W && l < W;
-        const long g = static_cast<long>(j) * W + l;
-        sbr[ll][c] = ok ? wwr[g] : 0.f;
-        sbi[ll][c] = ok ? wwi[g] : 0.f;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int ll = 0; ll < BK; ++ll) {
-        float a_r[TM], a_i[TM], b_r[TN], b_i[TN];
-#pragma unroll
-        for (int m = 0; m < TM; ++m) {
-          a_r[m] = as_r[(ty + TY * m) * lda + l0 + ll];
-          a_i[m] = as_i[(ty + TY * m) * lda + l0 + ll];
-        }
-#pragma unroll
-        for (int n = 0; n < TN; ++n) {
-          b_r[n] = sbr[ll][tx + TX * n];
-          b_i[n] = sbi[ll][tx + TX * n];
-        }
-#pragma unroll
-        for (int m = 0; m < TM; ++m)
-#pragma unroll
-          for (int n = 0; n < TN; ++n) {
-            accr[m][n] = fmaf(a_r[m], b_r[n], accr[m][n]);
-            accr[m][n] = fmaf(-a_i[m], b_i[n], accr[m][n]);
-            acci[m][n] = fmaf(a_r[m], b_i[n], acci[m][n]);
-            acci[m][n] = fmaf(a_i[m], b_r[n], acci[m][n]);
-          }
-      }
-      __syncthreads();
-    }
-
-#pragma unroll
-    for (int m = 0; m < TM; ++m) {
-      const int i = i0 + ty + TY * m;
-      if (i >= H) continue;
-#pragma unroll
-      for (int n = 0; n < TN; ++n) {
-        const int j = c0 + tx + TX * n;
+      for (int n = 0; n < T::TN; ++n) {
+        const int j = j0 + lane.template col<true>(n);
         if (j < W) {
-          const long g = plane + static_cast<long>(i) * W + j;
-          yr[g] = accr[m][n];
-          yi[g] = acci[m][n];
+          const long g = plane + static_cast<long>(i0 + r) * W + j;
+          yr[g] = cr[m][n];
+          yi[g] = ci[m][n];
         }
       }
     }
   }
+}
+
+template <int VEC>
+int launch(const float* xr, const float* xi, const float* whr, const float* whi,
+           const float* wwr, const float* wwi, float* yr, float* yi, int b, int h, int w,
+           cudaStream_t s) {
+  const int smem = static_cast<int>((2 * STRIP * strip_ld(w) + RING_FLOATS) * sizeof(float));
+  const dim3 grid((h + STRIP - 1) / STRIP, b);  // a plane's strips side by side
+  return cgemm::launch<fft2_plane_kernel<VEC>>(grid, Strip::THREADS, smem, s, xr, xi, whr, whi,
+                                               wwr, wwi, yr, yi, h, w);
 }
 
 }  // namespace
@@ -209,14 +139,12 @@ fft2_plane_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
 extern "C" int cinemri_fft2_plane(const float* xr, const float* xi, const float* whr,
                                   const float* whi, const float* wwr, const float* wwi,
                                   float* yr, float* yi, int b, int h, int w, void* stream) {
-  const int smem = 2 * BM * strip_ld(w) * static_cast<int>(sizeof(float));
-  cudaError_t err = cudaFuncSetAttribute(fft2_plane_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(b, (h + BM - 1) / BM);
-  fft2_plane_kernel<<<grid, NT, smem, static_cast<cudaStream_t>(stream)>>>(
-      xr, xi, whr, whi, wwr, wwi, yr, yi, h, w);
-  return static_cast<int>(cudaGetLastError());
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool vec = h % 4 == 0 && w % 4 == 0 && cgemm::aligned16(xr) && cgemm::aligned16(xi) &&
+                   cgemm::aligned16(whr) && cgemm::aligned16(whi) && cgemm::aligned16(wwr) &&
+                   cgemm::aligned16(wwi);
+  return vec ? launch<4>(xr, xi, whr, whi, wwr, wwi, yr, yi, b, h, w, s)
+             : launch<1>(xr, xi, whr, whi, wwr, wwi, yr, yi, b, h, w, s);
 }
 
 extern "C" const char* cinemri_error_string(int code) {

@@ -19,7 +19,8 @@ __all__ = ["kernel_events", "fold_by_kind", "top_names", "busy_share", "KINDS"]
 
 # (kind, substrings of the lower-cased kernel name), first match wins
 KINDS: Tuple[Tuple[str, Tuple[str, ...]], ...] = (
-    ("dft_matmul (port kernel)", ("dft_matmul_kernel",)),
+    # ahead of the convolutions: the tile engine's template names hold "cgemm"
+    ("dft_matmul (port kernel)", ("dft_matmul_kernel", "dft_kernel", "dft_small_")),
     ("normal_apply_bwd (port kernels)", ("normal_apply_bwd",)),
     ("normal_apply (port kernel)", ("normal_apply_kernel",)),
     # before the convolutions, whose keys include cuDNN's fft2d_*

@@ -10,8 +10,11 @@ Counterpart of ``cinemri_tpu/ops/fft.py``. Two dispatch paths behind one API:
     :class:`~cinemri_tpu_torch.ops.kernels.dft_cuda.ComplexDFTMatmul`, which
     launches the hand-written CUDA kernel for a CUDA tensor and its plain
     PyTorch version for a CPU tensor, in the forward and, on ``Wᴴ``, in the
-    backward. The arithmetic is full f32 (the JAX package's
-    ``Precision.HIGHEST``); there is no reduced-precision mode yet.
+    backward. It runs along the middle axis of an ``(O, N, I)`` view, so the
+    transform along any axis of a contiguous tensor copies nothing
+    (:func:`_apply_dft`; :data:`COPIES` counts the copies it does make). The
+    arithmetic is full f32 (the JAX package's ``Precision.HIGHEST``); there
+    is no reduced-precision mode yet.
   * ``complex64`` tensors or numpy arrays use ``torch.fft`` (host-side
     preprocessing and test oracles only).
 
@@ -21,6 +24,7 @@ norm; ``fft1c``/``ifft1c`` are the centered 1-D transforms along ``axis``.
 
 from __future__ import annotations
 
+import math
 from functools import lru_cache
 
 import numpy as np
@@ -42,6 +46,10 @@ __all__ = [
 # plain version); "torch" sends every tensor to the plain PyTorch version.
 # "torch" on the card is an explicit choice, made to compare the two.
 _DFT_BACKEND = "kernel"
+
+# Copies of the input made by _apply_dft (one per call that copies): only an
+# input that is neither contiguous nor innermost along the axis is copied.
+COPIES = 0
 
 
 def set_dft_backend(backend: str) -> None:
@@ -98,22 +106,36 @@ def _dft_adjoint_tensors(n: int, inverse: bool, alt: bool, norm: str, device: to
 
 
 def _apply_dft(x: Complex, axis: int, inverse: bool, alt: bool, norm: str) -> Complex:
-    """Centered DFT along ``axis``: move the axis last, run the (B, N) x (N, N)
-    complex product, move it back. The move costs one copy of ``x`` unless
-    the axis is already last and ``x`` is contiguous."""
+    """Centered DFT along ``axis`` as the ``(O, N, I)`` product of
+    :class:`~cinemri_tpu_torch.ops.kernels.dft_cuda.ComplexDFTMatmul`, the
+    route picked from the memory layout of ``x``:
+
+    1. the axis is innermost in memory (its moved-last view is contiguous):
+       ``I = 1`` on that view;
+    2. else ``x`` is contiguous: ``I > 1`` on ``x.view(O, n, I)``;
+    3. else one copy of ``x`` (counted in :data:`COPIES`), then route 2.
+
+    The result keeps the layout of the route's input."""
+    global COPIES
     axis = axis % x.ndim
     n = x.shape[axis]
     dev = x.re.device
     wr, wi = _dft_tensors(n, inverse, alt, norm, dev)
     whr, whi = _dft_adjoint_tensors(n, inverse, alt, norm, dev)
-    xr = torch.movedim(x.re, axis, -1).contiguous().reshape(-1, n)
-    xi = torch.movedim(x.im, axis, -1).contiguous().reshape(-1, n)
-    yr, yi = dft_cuda.ComplexDFTMatmul.apply(xr, xi, wr, wi, whr, whi, _DFT_BACKEND == "torch")
-    moved = tuple(s for a, s in enumerate(x.shape) if a != axis) + (n,)
-    return Complex(
-        torch.movedim(yr.reshape(moved), -1, axis),
-        torch.movedim(yi.reshape(moved), -1, axis),
-    )
+    plain = _DFT_BACKEND == "torch"
+    mr, mi = torch.movedim(x.re, axis, -1), torch.movedim(x.im, axis, -1)
+    if mr.is_contiguous() and mi.is_contiguous():
+        yr, yi = dft_cuda.ComplexDFTMatmul.apply(mr.view(-1, n, 1), mi.view(-1, n, 1),
+                                                 wr, wi, whr, whi, plain)
+        return Complex(torch.movedim(yr.view(mr.shape), -1, axis),
+                       torch.movedim(yi.view(mi.shape), -1, axis))
+    xr, xi = x.re, x.im
+    if not (xr.is_contiguous() and xi.is_contiguous()):
+        xr, xi = xr.contiguous(), xi.contiguous()
+        COPIES += 1
+    slab = (math.prod(x.shape[:axis]), n, math.prod(x.shape[axis + 1:]))
+    yr, yi = dft_cuda.ComplexDFTMatmul.apply(xr.view(slab), xi.view(slab), wr, wi, whr, whi, plain)
+    return Complex(yr.view(x.shape), yi.view(x.shape))
 
 
 def _native(x, axis: int, inverse: bool, norm: str):

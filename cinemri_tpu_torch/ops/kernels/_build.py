@@ -43,8 +43,8 @@ _I = ctypes.c_int
 # operand, scalars such as λ included, is a device pointer.
 KERNELS: Dict[str, Dict[str, tuple]] = {
     "dft_matmul": {
-        # xr, xi, wr, wi, yr, yi, B, N, stream
-        "cinemri_dft_matmul": (_P, _P, _P, _P, _P, _P, _I, _I, _P),
+        # xr, xi, wr, wi, yr, yi, O, N, I, stream
+        "cinemri_dft_matmul": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     },
     "normal_apply": {
         # xr, xi, kr, ki, sr, si, lam, outr, outi, b, t, c, h, w, kt, stream

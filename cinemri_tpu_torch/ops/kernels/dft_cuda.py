@@ -5,27 +5,30 @@ dft_pallas.py``, body ``_kernel``), which carries every centered 1-D DFT of
 the JAX package when its DFT backend is ``pallas``. Here it carries every
 centered DFT of :mod:`cinemri_tpu_torch.ops.fft` on a CUDA tensor.
 
-Computes ``y[b, j] = Σ_k w[j, k] x[b, k]`` on (re, im) pairs, ``x (B, N)``,
-``w (N, N)``, with the 4-multiplication complex product in f32.
+Computes ``y[o, j, i] = Σ_k w[j, k] x[o, k, i]`` on (re, im) pairs,
+``x (O, N, I)``, ``w (N, N)``: the transform runs along the middle axis, so
+a transform along any axis of a contiguous tensor is a view of it
+(``ops/fft.py::_apply_dft``). The product is the 4-multiplication complex
+product in f32.
 
-Kernel (``csrc/dft_matmul.cu``): a tiled SGEMM on CUDA cores, FMA without
-TF32. What bounds it on the H100: at N = 200 the FP32 rate (8·N FLOP per
-output against 16 bytes), at N = 15 memory. The Pallas design keeps the
-N x N matrices resident on chip; they do not fit a block's shared memory at
-N = 200, so the kernel tiles output rows x output columns x contraction and
-stages the W tiles in shared memory, with a narrow-tile instance for
-N <= 16. Input rows must be contiguous: the caller moves the transform axis
-last and copies (``ops/fft.py::_apply_dft``).
+Kernel (``csrc/dft_matmul.cu`` on the block tile of ``csrc/cgemm_tile.cuh``):
+FMA on CUDA cores without TF32, operands staged by ``cp.async`` in a ring.
+What bounds it on the H100: at N = 200 the FP32 rate (8·N FLOP per output
+against 16 bytes), at N ≤ 16 memory. Instances: ``I == 1`` (rows, ``x·Wᵀ``),
+``I > 1`` (``W`` from the left on each ``(N, I)`` slab, computed as
+``Xᵀ·Wᵀ`` over the slabs' columns, read coalesced along ``I``), both with
+8 x 5 complex outputs a thread, and ``N ≤ 16`` (``W`` in shared memory, x
+read once, y written once).
 
 Dispatch: a CPU tensor takes :func:`complex_dft_matmul_torch`; a CUDA tensor
 launches the kernel or raises. ``LAUNCHES`` counts kernel launches.
 
 Gradient: :class:`ComplexDFTMatmul` wraps the product for autograd. Its
-backward is ``x̄ = ȳ · conj(W)``, which is the same product with ``Wᴴ`` in
-``W``'s place, so it launches the same kernel (or, with ``plain``, the
-plain version); ``W`` gets no gradient. The JAX package has no Pallas
-backward for the DFT: its train step differentiates the XLA tensordot
-chain, whose transpose is this product with ``Wᴴ``.
+backward is ``x̄[o, :, i] = Wᴴ ȳ[o, :, i]``, the same product in the same
+layout with ``Wᴴ`` in ``W``'s place, so it launches the same kernel (or,
+with ``plain``, the plain version); ``W`` gets no gradient. The JAX package
+has no Pallas backward for the DFT: its train step differentiates the XLA
+tensordot chain, whose transpose is this product with ``Wᴴ``.
 """
 
 from __future__ import annotations
@@ -44,16 +47,20 @@ LAUNCHES = 0
 def complex_dft_matmul_torch(
     xr: torch.Tensor, xi: torch.Tensor, wr: torch.Tensor, wi: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain version: the same 4-multiplication product with ``torch.matmul``."""
-    yr = xr @ wr.T - xi @ wi.T
-    yi = xr @ wi.T + xi @ wr.T
-    return yr, yi
+    """Plain version: the same 4-multiplication product with ``torch.matmul``,
+    ``einsum("jk,oki->oji")`` over the middle axis of ``(O, N, I)`` (rows
+    times ``Wᵀ`` when ``I == 1``). The result is contiguous, as the kernel's
+    is."""
+    if xr.shape[2] == 1:
+        xr, xi = xr[..., 0], xi[..., 0]
+        return (xr @ wr.T - xi @ wi.T)[..., None], (xr @ wi.T + xi @ wr.T)[..., None]
+    return wr @ xr - wi @ xi, wr @ xi + wi @ xr
 
 
-def _check(xr, xi, wr, wi) -> Tuple[int, int]:
-    if xr.ndim != 2 or xr.shape != xi.shape:
-        raise ValueError(f"x must be two (B, N) tensors, got {tuple(xr.shape)}, {tuple(xi.shape)}")
-    b, n = xr.shape
+def _check(xr, xi, wr, wi) -> Tuple[int, int, int]:
+    if xr.ndim != 3 or xr.shape != xi.shape:
+        raise ValueError(f"x must be two (O, N, I) tensors, got {tuple(xr.shape)}, {tuple(xi.shape)}")
+    o, n, i = xr.shape
     if wr.shape != (n, n) or wi.shape != (n, n):
         raise ValueError(f"w must be ({n}, {n}), got {tuple(wr.shape)}, {tuple(wi.shape)}")
     for name, a in (("xr", xr), ("xi", xi), ("wr", wr), ("wi", wi)):
@@ -63,34 +70,34 @@ def _check(xr, xi, wr, wi) -> Tuple[int, int]:
             raise TypeError(f"{name} must be float32, got {a.dtype}")
         if not a.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if b >= 2**31 or n >= 2**31:
-        raise ValueError(f"shape {(b, n)} exceeds the kernel's int32 sizes")
-    return b, n
+    if max(o, n, i) >= 2**31 or o * i >= 2**31:
+        raise ValueError(f"shape {(o, n, i)} exceeds the kernel's int32 sizes")
+    return o, n, i
 
 
 def complex_dft_matmul(
     xr: torch.Tensor, xi: torch.Tensor, wr: torch.Tensor, wi: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``(B, N) x (N, N)`` complex product ``y[b, j] = Σ_k w[j, k] x[b, k]``.
+    """``y[o, j, i] = Σ_k w[j, k] x[o, k, i]`` for ``x (O, N, I)``.
 
     CPU tensors go to :func:`complex_dft_matmul_torch`; CUDA tensors to the
-    kernel in ``csrc/dft_matmul.cu``. Returns ``(y_re, y_im)``, each (B, N).
+    kernel in ``csrc/dft_matmul.cu``. Returns ``(y_re, y_im)`` shaped as x.
     """
     if xr.device.type == "cpu":
         return complex_dft_matmul_torch(xr, xi, wr, wi)
     if xr.device.type != "cuda":
         raise ValueError(f"complex_dft_matmul runs on cpu or cuda, got {xr.device}")
-    b, n = _check(xr, xi, wr, wi)
+    o, n, i = _check(xr, xi, wr, wi)
     yr = torch.empty_like(xr)
     yi = torch.empty_like(xi)
-    if b == 0:
+    if xr.numel() == 0:
         return yr, yi
     lib = _build.load("dft_matmul")
     with torch.cuda.device(xr.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = lib.cinemri_dft_matmul(
             xr.data_ptr(), xi.data_ptr(), wr.data_ptr(), wi.data_ptr(),
-            yr.data_ptr(), yi.data_ptr(), b, n, stream,
+            yr.data_ptr(), yi.data_ptr(), o, n, i, stream,
         )
     _build.check(lib, code, "cinemri_dft_matmul launch")
     global LAUNCHES
@@ -99,13 +106,14 @@ def complex_dft_matmul(
 
 
 class ComplexDFTMatmul(torch.autograd.Function):
-    """Differentiable ``(B, N) x (N, N)`` product: ``y = x Wᵀ`` forward,
-    ``x̄ = ȳ (Wᴴ)ᵀ = ȳ conj(W)`` backward.
+    """Differentiable product along the middle axis of ``(O, N, I)``:
+    ``y = W x`` forward, ``x̄ = Wᴴ ȳ`` backward, both in the layout of x.
 
     ``apply(xr, xi, wr, wi, whr, whi, plain)``: ``(whr, whi)`` is ``Wᴴ``,
     contiguous; ``plain`` picks :func:`complex_dft_matmul_torch` over
     :func:`complex_dft_matmul` in both directions. Neither matrix gets a
-    gradient.
+    gradient. The incoming gradient is copied only when it is not
+    contiguous.
     """
 
     @staticmethod

@@ -8,13 +8,14 @@ as it is and the product right-multiplies by its transpose, so with the
 centered DFT matrices of ``ops/fft.py`` it computes the centered 2-D DFT of
 each plane.
 
-Kernel (``csrc/fft2_plane.cu``): bound by the FP32 rate (8·B·(h²w + hw²)
-FLOP against 16 bytes per plane element). A block owns a strip of 32 output
-rows of one plane, computes its strip of ``W_h·X`` into shared memory and
-multiplies it by ``W_wᵀ`` there, so the intermediate never reaches device
-memory, as in the Pallas kernel; a whole 200 x 200 plane (320 KB) does not
-fit a block's shared memory, hence the strips. ``w`` is limited to
-:data:`MAX_W` by the strip's size.
+Kernel (``csrc/fft2_plane.cu``, on the block tile of ``csrc/cgemm_tile.cuh``):
+bound by the FP32 rate (8·B·(h²w + hw²) FLOP against 16 bytes per plane
+element). A block owns a strip of 40 output rows of one plane (5 strips at
+h = 200), computes its strip of ``W_h·X`` into shared memory and multiplies
+it by ``W_wᵀ`` there, so the intermediate never reaches device memory, as in
+the Pallas kernel; a whole 200 x 200 plane (320 KB) does not fit a block's
+shared memory, hence the strips. The operand chunks stream through a
+``cp.async`` ring. ``w`` is limited to :data:`MAX_W` by the strip's size.
 
 Like the Pallas kernel, it is wired into no model path: the JAX package
 calls it only from its tests, and the port's ``fft2c``/``ifft2c`` keep the
@@ -37,9 +38,10 @@ __all__ = ["fft2_plane", "fft2_plane_torch", "LAUNCHES", "MAX_W"]
 
 LAUNCHES = 0
 
-# The kernel keeps a 32 x w complex strip in shared memory (2·32·(w + 17)·4
-# bytes at most) beside 12.5 KB of staging tiles, within a block's 227 KB.
-MAX_W = 832
+# The kernel keeps a 40 x w complex strip in shared memory (2·40·w·4 bytes,
+# w rounded up to 16) beside a 64 KB ring of operand chunks, within a
+# block's 227 KB.
+MAX_W = 512
 
 
 def fft2_plane_torch(xr, xi, whr, whi, wwr, wwi) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -34,13 +34,93 @@ def test_dft_kernel_matches_plain(dev, b, n):
     from cinemri_tpu_torch.ops.kernels import dft_cuda
 
     g = torch.Generator(device=dev).manual_seed(b)
-    xr = torch.randn(b, n, generator=g, device=dev)
-    xi = torch.randn(b, n, generator=g, device=dev)
+    xr = torch.randn(b, n, 1, generator=g, device=dev)
+    xi = torch.randn(b, n, 1, generator=g, device=dev)
     wr, wi = F._dft_tensors(n, True, False, "ortho", dev)
     before = dft_cuda.LAUNCHES
     got = dft_cuda.complex_dft_matmul(xr, xi, wr, wi)
     assert dft_cuda.LAUNCHES == before + 1
     _close(got, dft_cuda.complex_dft_matmul_torch(xr, xi, wr, wi))
+
+
+@pytest.mark.parametrize("o,n,i", [(2000, 200, 1), (10, 200, 200), (30000, 200, 1), (150, 200, 200),
+                                   (40000, 15, 1), (1, 15, 40000), (37, 64, 1), (3, 24, 7),
+                                   (3, 7, 5), (5, 44, 36), (300, 40, 3)])
+def test_dft_layouts_match_plain(dev, o, n, i):
+    """Each instance of the (O, N, I) kernel (I == 1 rows, I > 1 slabs,
+    N <= 16) at the path's layouts and at ragged ones."""
+    from cinemri_tpu_torch.ops import fft as F
+    from cinemri_tpu_torch.ops.kernels import dft_cuda
+
+    g = torch.Generator(device=dev).manual_seed(o + n + i)
+    xr = torch.randn(o, n, i, generator=g, device=dev)
+    xi = torch.randn(o, n, i, generator=g, device=dev)
+    wr, wi = F._dft_tensors(n, True, False, "ortho", dev)
+    before = dft_cuda.LAUNCHES
+    got = dft_cuda.complex_dft_matmul(xr, xi, wr, wi)
+    assert dft_cuda.LAUNCHES == before + 1
+    assert got[0].shape == (o, n, i)
+    _close(got, dft_cuda.complex_dft_matmul_torch(xr, xi, wr, wi))
+
+
+@pytest.mark.parametrize("o,n,i", [(64, 200, 1), (2, 40, 8), (300, 15, 1), (2, 15, 9)])
+def test_dft_unaligned_rows_match_plain(dev, o, n, i):
+    """Operands one float past a 16-byte boundary take the 4-byte copies."""
+    from cinemri_tpu_torch.ops import fft as F
+    from cinemri_tpu_torch.ops.kernels import dft_cuda
+
+    g = torch.Generator(device=dev).manual_seed(n)
+    xr, xi = (torch.randn(o * n * i + 1, generator=g, device=dev)[1:].view(o, n, i) for _ in range(2))
+    wr, wi = F._dft_tensors(n, False, False, "ortho", dev)
+    _close(dft_cuda.complex_dft_matmul(xr, xi, wr, wi),
+           dft_cuda.complex_dft_matmul_torch(xr, xi, wr, wi))
+
+
+def test_dft_kernel_refuses_other_layouts(dev):
+    """A CUDA tensor the kernel does not take raises; nothing falls back."""
+    from cinemri_tpu_torch.ops import fft as F
+    from cinemri_tpu_torch.ops.kernels import dft_cuda
+
+    wr, wi = F._dft_tensors(15, False, False, "ortho", dev)
+    x = torch.zeros(4, 15, 6, device=dev)
+    before = dft_cuda.LAUNCHES
+    with pytest.raises(ValueError, match="contiguous"):
+        dft_cuda.complex_dft_matmul(x.transpose(0, 2), x.transpose(0, 2), wr, wi)
+    with pytest.raises(ValueError):
+        dft_cuda.complex_dft_matmul(x[..., None], x[..., None], wr, wi)
+    with pytest.raises(ValueError):
+        dft_cuda.complex_dft_matmul(x[:, :, 0], x[:, :, 0], wr, wi)
+    with pytest.raises(TypeError):
+        dft_cuda.complex_dft_matmul(x.double(), x.double(), wr, wi)
+    assert dft_cuda.LAUNCHES == before
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "transposed"])
+def test_dft_every_axis_matches_plain_backend(dev, layout):
+    """fft1c/ifft1c along every axis of a (2, 3, 4, 12, 10) tensor, contiguous
+    and with its axes reversed in memory, through the kernel and through the
+    plain backend; and the backward of each."""
+    from cinemri_tpu_torch.ops import fft as F
+    from cinemri_tpu_torch.ops.cplx import Complex
+
+    g = torch.Generator(device=dev).manual_seed(7)
+    parts = [torch.randn(2, 3, 4, 12, 10, generator=g, device=dev) for _ in range(4)]
+    if layout == "transposed":
+        parts = [p.permute(4, 3, 2, 1, 0).contiguous().permute(4, 3, 2, 1, 0) for p in parts]
+    for fn in (F.fft1c, F.ifft1c):
+        for axis in range(5):
+            outs = []
+            for backend in ("kernel", "torch"):
+                leaves = [p.detach().clone().requires_grad_(True) for p in parts[:2]]
+                try:
+                    F.set_dft_backend(backend)
+                    y = fn(Complex(*leaves), axis=axis)
+                    ((y.re * parts[2]).sum() + (y.im * parts[3]).sum()).backward()
+                finally:
+                    F.set_dft_backend("kernel")
+                outs.append((y.re.detach(), y.im.detach(), leaves[0].grad, leaves[1].grad))
+            _close(outs[0][:2], outs[1][:2])
+            _close(outs[0][2:], outs[1][2:])
 
 
 @pytest.mark.parametrize("b,t,c,h,w,kt,lam", [(1, 3, 4, 24, 20, 3, 0.0),
@@ -98,7 +178,7 @@ def test_kernel_grads_match_plain(dev, kernel):
     if kernel == "dft":
         mats = (F._dft_tensors(15, False, False, "ortho", dev)
                 + F._dft_adjoint_tensors(15, False, False, "ortho", dev))
-        inputs, shape = (r(300, 15), r(300, 15)), (300, 15)
+        inputs, shape = (r(300, 15, 1), r(300, 15, 1)), (300, 15, 1)
         call = lambda xr, xi, plain: dft_cuda.ComplexDFTMatmul.apply(xr, xi, *mats, plain)
         counts = lambda: (dft_cuda.LAUNCHES,)
         expected = (2,)  # forward, and backward on Wᴴ
@@ -127,7 +207,8 @@ def test_kernel_grads_match_plain(dev, kernel):
 
 
 @pytest.mark.parametrize("b,h,w,dft", [(3, 32, 32, True), (4, 24, 20, False), (5, 70, 33, False),
-                                       (2, 200, 200, True)])
+                                       (2, 200, 200, True), (150, 200, 200, True), (10, 200, 200, True),
+                                       (2, 44, 260, False)])
 def test_fft2_plane_kernel_matches_plain(dev, b, h, w, dft):
     """The fused 2-D DFT against its plain version: the centered DFT
     matrices, and random non-symmetric W_h ≠ W_w (which would show a

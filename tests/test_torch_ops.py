@@ -18,7 +18,7 @@ from cinemri_tpu.ops.kernels.dft_pallas import complex_dft_matmul_pallas
 from cinemri_tpu.ops.kernels.fft2_pallas import fft2_plane_pallas
 
 from cinemri_tpu_torch.ops import fft as TF
-from cinemri_tpu_torch.ops.cplx import cmean, csum, from_channels, from_complex, to_channels, to_numpy
+from cinemri_tpu_torch.ops.cplx import Complex, cmean, csum, from_channels, from_complex, to_channels, to_numpy
 from cinemri_tpu_torch.ops.coil import rss, rss_complex
 from cinemri_tpu_torch.ops.kernels import dft_cuda, fft2_cuda
 from cinemri_tpu_torch.ops.pad import pad_to_multiple, unpad
@@ -96,10 +96,88 @@ class TestDFT:
             w.real.astype(np.float32), w.imag.astype(np.float32), interpret=True,
         )
         t = lambda a: torch.from_numpy(np.ascontiguousarray(a.astype(np.float32)))
-        gr, gi = dft_cuda.complex_dft_matmul(t(x.real), t(x.imag), t(w.real), t(w.imag))
+        gr, gi = dft_cuda.complex_dft_matmul(t(x.real)[..., None], t(x.imag)[..., None],
+                                             t(w.real), t(w.imag))
         # unnormalized random W: |y| ~ 11, so the 1e-5 budget is taken relative
-        np.testing.assert_allclose(gr.numpy() + 1j * gi.numpy(),
+        np.testing.assert_allclose(gr[..., 0].numpy() + 1j * gi[..., 0].numpy(),
                                    np.asarray(yr) + 1j * np.asarray(yi), rtol=1e-5, atol=1e-4)
+
+    @pytest.mark.parametrize("o,n,i", [(3, 24, 7), (2, 16, 5), (37, 64, 1), (1, 15, 40)])
+    def test_middle_axis_plain_matches_pallas_interpret(self, rng, o, n, i):
+        """The (O, N, I) product against the Pallas kernel on the same data
+        moved to rows, ``x.moveaxis(1, -1).reshape(-1, N)``."""
+        x, w = c64(rng, o, n, i), c64(rng, n, n)
+        rows = np.moveaxis(x, 1, -1).reshape(-1, n)
+        yr, yi = complex_dft_matmul_pallas(
+            jnp.asarray(rows.real), jnp.asarray(rows.imag),
+            w.real.astype(np.float32), w.imag.astype(np.float32), interpret=True,
+        )
+        want = np.moveaxis((np.asarray(yr) + 1j * np.asarray(yi)).reshape(o, i, n), -1, 1)
+        t = lambda a: torch.from_numpy(np.ascontiguousarray(a.astype(np.float32)))
+        gr, gi = dft_cuda.complex_dft_matmul(t(x.real), t(x.imag), t(w.real), t(w.imag))
+        assert gr.shape == (o, n, i) and gr.is_contiguous()
+        # unnormalized random W: the 1e-5 budget is taken relative
+        np.testing.assert_allclose(gr.numpy() + 1j * gi.numpy(), want, rtol=1e-5,
+                                   atol=1e-5 * np.abs(want).max())
+
+    @pytest.mark.parametrize("layout", ["contiguous", "transposed"])
+    @pytest.mark.parametrize("axis", [0, 1, 2, 3, 4, -1])
+    @pytest.mark.parametrize("fn", ["fft1c", "ifft1c"])
+    def test_every_axis_and_layout_matches_jax_xla(self, rng, fn, axis, layout):
+        """A (2, 3, 4, 12, 10) input along each axis, contiguous and as a
+        transposed view (axes reversed in memory): every route of _apply_dft."""
+        x = c64(rng, 2, 3, 4, 12, 10)
+        if layout == "contiguous":
+            xt = from_complex(x)
+        else:
+            stored = np.ascontiguousarray(x.transpose(4, 3, 2, 1, 0))
+            xt = from_complex(stored).transpose(4, 3, 2, 1, 0)
+            assert not xt.re.is_contiguous()
+        got = to_numpy(getattr(TF, fn)(xt, axis=axis))
+        want = j_to_numpy(getattr(JF, fn)(jc(x), axis=axis))
+        np.testing.assert_allclose(got, want, **TOL)
+
+    @pytest.mark.parametrize("axis", [0, 2, 4])
+    def test_routes_keep_the_layout_and_copy_only_strided_inputs(self, rng, axis):
+        """Innermost in memory, the rest in order: the result has the input's
+        strides, no copy. Contiguous: a contiguous result, no copy. Neither
+        (axes reversed in memory): one copy."""
+        x = c64(rng, 2, 3, 4, 12, 10)
+        perm = {0: (1, 2, 3, 4, 0), 2: (0, 1, 3, 4, 2), 4: (0, 1, 2, 3, 4)}[axis]
+        inv = tuple(int(a) for a in np.argsort(perm))
+        innermost = from_complex(np.ascontiguousarray(x.transpose(perm))).transpose(*inv)
+        strided = from_complex(np.ascontiguousarray(x.transpose(4, 3, 2, 1, 0))).transpose(4, 3, 2, 1, 0)
+        before = TF.COPIES
+        y = TF.fft1c(innermost, axis=axis)
+        assert y.re.stride() == innermost.re.stride() and TF.COPIES == before
+        y = TF.fft1c(from_complex(x), axis=axis)
+        assert y.re.is_contiguous() and TF.COPIES == before
+        y = TF.fft1c(strided, axis=axis)
+        # (axis 0 is innermost there, but the other axes are not in row-major order)
+        assert TF.COPIES == before + 1
+
+    def test_ifft2c_of_contiguous_input_copies_nothing(self, rng):
+        x = from_complex(c64(rng, 1, 5, 3, 24, 20))
+        before = TF.COPIES
+        y = TF.ifft2c(x)
+        assert TF.COPIES == before
+        np.testing.assert_allclose(to_numpy(y), j_to_numpy(JF.ifft2c(jc(to_numpy(x)))), **TOL)
+
+    def test_varnet_forward_copies_fewer_than_before(self, rng):
+        """The VarNet-XF forward copied 5 times in the DFT's axis moves when
+        every transform moved its axis last (PERF.md §3); now fewer."""
+        from cinemri_tpu_torch.data.masks import RandomMask
+        from cinemri_tpu_torch.models import build_model
+
+        t, c, h, w = 5, 3, 32, 24
+        k = c64(rng, 1, t, c, h, w)
+        mask = RandomMask([6], [4])(t, h, seed=0)[None].astype(np.float32)
+        model = build_model("varnet", "XF", num_cascades=2, sens_chans=4, sens_pools=2, chans=4,
+                            pools=2, device="cpu", generator=torch.Generator().manual_seed(0))
+        before = TF.COPIES
+        with torch.inference_mode():
+            model.eval()(from_complex(k * mask), torch.from_numpy(mask))
+        assert TF.COPIES - before < 5
 
     def test_cpu_tensors_take_the_plain_version(self, rng):
         before = dft_cuda.LAUNCHES
@@ -121,7 +199,7 @@ class TestDFT:
             TF.set_dft_backend("pallas")
 
     def test_wrapper_refuses_other_devices(self):
-        x = torch.zeros(2, 4, device="meta")
+        x = torch.zeros(2, 4, 1, device="meta")
         with pytest.raises(ValueError):
             dft_cuda.complex_dft_matmul(x, x, torch.zeros(4, 4, device="meta"),
                                         torch.zeros(4, 4, device="meta"))
@@ -236,6 +314,22 @@ class TestOpstats:
         assert "other" not in kinds
 
 
+    def test_dft_kernel_names_fold_to_their_kind(self):
+        """The DFT kernels of dft_matmul.cu, whose template arguments name the
+        tile engine (cgemm::Tile), fold to the DFT kind, not to gemm."""
+        from cinemri_tpu_torch.instrument import opstats
+
+        names = ["void (anonymous namespace)::dft_kernel<cgemm::Tile<128, 40, 8, 8, 5, 3, 4, 1>, "
+                 "true, 4>(float const*, ...)",
+                 "(anonymous namespace)::dft_small_rows_kernel(float const*, ...)",
+                 "(anonymous namespace)::dft_small_cols_kernel(float const*, ...)",
+                 "void (anonymous namespace)::fft2_plane_kernel<4>(float const*, ...)"]
+        kinds = opstats.fold_by_kind([(n, 0.0, 1.0) for n in names])
+        assert kinds["dft_matmul (port kernel)"] == {"ms": 0.003, "count": 3}
+        assert kinds["fft2_plane (port kernel)"] == {"ms": 0.001, "count": 1}
+        assert "conv / gemm (cuDNN, cuBLAS)" not in kinds
+
+
 class TestLowFreq:
     def test_center_band_matches_jax(self):
         from cinemri_tpu_torch.data.masks import RandomMask
@@ -293,6 +387,36 @@ class TestDFTGradient:
         for g, w in zip(got, want):
             assert np.abs(g.numpy() - np.asarray(w)).max() <= 1e-5
 
+    @pytest.mark.parametrize("fn,axis,layout", [("fft1c", 1, "contiguous"), ("ifft1c", 2, "contiguous"),
+                                                ("fft1c", 0, "contiguous"), ("ifft1c", -1, "transposed"),
+                                                ("fft1c", 2, "transposed")])
+    def test_every_route_matches_jax_vjp(self, rng, fn, axis, layout):
+        """The backward along the middle axis of (O, N, I): I > 1 on a
+        contiguous input, I = 1 on an innermost axis, and the copy route,
+        against ``jax.vjp`` of the JAX transform with the same cotangent."""
+        import jax
+
+        x = c64(rng, 2, 5, 12, 10)
+        cot = c64(rng, *x.shape)
+        _, vjp = jax.vjp(lambda xre, xim: tuple(
+            (lambda y: (y.re, y.im))(getattr(JF, fn)(JComplex(xre, xim), axis=axis))),
+            jnp.asarray(x.real), jnp.asarray(x.imag))
+        want = vjp((jnp.asarray(cot.real), jnp.asarray(cot.imag)))
+        if layout == "contiguous":
+            leaves = [torch.from_numpy(np.ascontiguousarray(a)).requires_grad_(True)
+                      for a in (x.real, x.imag)]
+            xt = Complex(*leaves)
+        else:
+            leaves = [torch.from_numpy(np.ascontiguousarray(a.transpose(3, 2, 1, 0))).requires_grad_(True)
+                      for a in (x.real, x.imag)]
+            xt = Complex(*(a.permute(3, 2, 1, 0) for a in leaves))
+        y = getattr(TF, fn)(xt, axis=axis)
+        loss = (y.re * torch.from_numpy(cot.real)).sum() + (y.im * torch.from_numpy(cot.imag)).sum()
+        got = torch.autograd.grad(loss, leaves)
+        for g, w in zip(got, want):
+            g = g.numpy() if layout == "contiguous" else g.permute(3, 2, 1, 0).numpy()
+            assert np.abs(g - np.asarray(w)).max() <= 1e-5
+
     def test_adjoint_is_conjugate_transpose_of_the_same_matrix(self):
         for inverse in (False, True):
             wr, wi = TF._dft_tensors(15, inverse, False, "ortho", torch.device("cpu"))
@@ -302,13 +426,13 @@ class TestDFTGradient:
             torch.testing.assert_close(hi, -wi.T, rtol=0, atol=0)
 
     def test_matrices_get_no_gradient_and_grad_may_be_strided(self, rng):
-        x = from_complex(c64(rng, 3, 8))
+        x = from_complex(c64(rng, 3, 8, 1))
         x.re.requires_grad_(True)
         wr, wi = (a.clone().requires_grad_(True)
                   for a in TF._dft_tensors(8, False, False, "ortho", torch.device("cpu")))
         hr, hi = TF._dft_adjoint_tensors(8, False, False, "ortho", torch.device("cpu"))
         yr, yi = dft_cuda.ComplexDFTMatmul.apply(x.re, x.im, wr, wi, hr, hi, False)
         # the incoming gradient is a transposed (non-contiguous) view
-        (yr * torch.ones(8, 3).T).sum().backward()
+        (yr * torch.ones(8, 3).T[..., None]).sum().backward()
         assert wr.grad is None and wi.grad is None
-        torch.testing.assert_close(x.re.grad, torch.ones(3, 8) @ hr.T, rtol=1e-6, atol=1e-6)
+        torch.testing.assert_close(x.re.grad[..., 0], torch.ones(3, 8) @ hr.T, rtol=1e-6, atol=1e-6)
