@@ -7,12 +7,13 @@ Builds the port's CUDA kernels from ``cinemri_tpu_torch/csrc`` with nvcc
 (one nvcc per source, in parallel) and holds each kernel against its plain
 PyTorch version and one library call at the shapes of the serving and
 training paths: the DFT at the six ``(O, N, I)`` layouts of the path and two
-ragged ones; the fused 2-D DFT ``fft2_plane``, which no path runs (as in
-the JAX package), at the 2-D DFT shapes of the ported paths, beside the two
-1-D DFT launches that ``ifft2c`` makes today and cuFFT. For these two
-kernels it also times the device alone (CUDA graphs, no host launch
-overhead), and it times the cascades' temporal DFT on both layouts it could
-take (``[layout]``).
+ragged ones; the normal apply and its backward at four flagship cases, the
+forward also beside its contraction alone as one complex64 ``matmul``; the
+fused 2-D DFT ``fft2_plane``, which no path runs (as in the JAX package),
+at the 2-D DFT shapes of the ported paths, beside the two 1-D DFT launches
+that ``ifft2c`` makes today and cuFFT. Each is also timed on the device
+alone (CUDA graphs, no host launch overhead), and it times the cascades'
+temporal DFT on both layouts it could take (``[layout]``).
 
 Then it drives two models at full width through the port's entry points.
 VarNet-XF (10 cascades, chans 16, pools 3, sens net 8/3): the forward on a
@@ -245,6 +246,20 @@ def normal_library(torch):
         return torch.einsum("bckw,btkw,btik,bciw->btiw", s, x, k, sc) + lam * x
 
     return prep, call
+
+
+def contraction_matmul(torch, normal_cuda, xr, xi, kr, ki, sr, si):
+    """The normal apply's contraction alone, the same 8·b·t·c·h²·w FLOP as
+    one complex64 ``matmul``: each K on its coil-stacked ``S⊙x`` (h x G·w,
+    G the slabs sharing that K), stacked outside the timed call. Returns
+    the call."""
+    b, t, h, w = xr.shape
+    kt = kr.shape[1]
+    y = torch.complex(*normal_cuda.coil_products(sr, si, xr, xi))  # (b·t·c, h, w)
+    g = y.shape[0] // (b * kt)
+    stacked = y.reshape(b * kt, g, h, w).transpose(1, 2).reshape(b * kt, h, g * w).contiguous()
+    k = torch.complex(kr, ki).reshape(b * kt, h, h)
+    return lambda: torch.matmul(k, stacked)
 
 
 def fft2_library(torch):
@@ -486,20 +501,25 @@ def main() -> int:
         ms = cuda_ms(torch, lambda: fn(*args))
         plain_ms = cuda_ms(torch, lambda: plain(*args), iters=10)
         library_ms = cuda_ms(torch, lambda: lib(*lib_in), iters=10)
+        device = dict(device_ms=graph_ms(torch, lambda: fn(*args)),
+                      plain_device_ms=graph_ms(torch, lambda: plain(*args), iters=10),
+                      library_device_ms=graph_ms(torch, lambda: lib(*lib_in), iters=10))
         b_ms, b_by = bound(normal_bwd_cost(*args), peak_flops, peak_bw)
         err = max(errs["kernel_xbar"][0], errs["kernel_sbar"][0])
         case = dict(kernel="normal_apply_bwd", **shape, max_abs_err=err,
                     max_rel_err={k: v[0] / v[1] for k, v in errs.items() if isinstance(v, tuple)},
                     lambar_rel_err=errs["kernel_lambar_rel"],
                     library_lambar_rel_err=errs["library_lambar_rel"], ms=ms, plain_ms=plain_ms,
-                    library_ms=library_ms, bound_ms=b_ms, bound_by=b_by)
+                    library_ms=library_ms, bound_ms=b_ms, bound_by=b_by, **device)
         cases.append(case)
         print(f"[kernel] normal_apply_bwd {shape}: rel err x̄ {case['max_rel_err']['kernel_xbar']:.3e} "
               f"s̄ {case['max_rel_err']['kernel_sbar']:.3e} λ̄ {errs['kernel_lambar_rel']:.3e} "
               f"(tol {NORMAL_TOL:.0e} x max, λ̄ {LAM_TOL:.0e}; library x̄ "
               f"{case['max_rel_err']['library_xbar']:.3e} s̄ {case['max_rel_err']['library_sbar']:.3e}) "
               f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms library {library_ms:.4f} ms "
-              f"bound {b_ms:.4f} ms ({b_by})")
+              f"bound {b_ms:.4f} ms ({b_by}); device alone (CUDA graph): kernel "
+              f"{device['device_ms']:.4f} ms plain {device['plain_device_ms']:.4f} ms library "
+              f"{device['library_device_ms']:.4f} ms")
 
     def profiled(fn):
         """One call of ``fn`` under the profiler: device time by kernel kind
@@ -518,7 +538,9 @@ def main() -> int:
         return dict(host_ms=host_ms, device_window_ms=window, device_busy_ms=busy,
                     idle_share_of_host_time=1 - busy / host_ms, n_events=len(events),
                     by_kind=opstats.fold_by_kind(events),
-                    top_other=opstats.top_names(events, "other"))
+                    top_other=opstats.top_names(events, "other"),
+                    normal_apply_kernels={kind: opstats.top_names(events, kind, 8) for kind in (
+                        "normal_apply (port kernels)", "normal_apply_bwd (port kernels)")})
 
     # -- 2. kernels against their plain versions ----------------------------------
     # the main path's (O, N, I) layouts: the sens net's and x_ref's ifft2c
@@ -580,7 +602,15 @@ def main() -> int:
         check_case("normal_apply", dict(b=b, t=T, c=C, h=H, w=W, kt=kt,
                                         lam=lam_label if torch.is_tensor(lam) else 0.0),
                    args + (fwd_lam,), normal_cuda.normal_apply, normal_cuda.normal_apply_torch,
-                   normal_library(torch), normal_cost, NORMAL_TOL)
+                   normal_library(torch), normal_cost, NORMAL_TOL, graph=True)
+        # a second yardstick: the contraction alone as one complex64 matmul
+        matmul = contraction_matmul(torch, normal_cuda, *args)
+        cases[-1].update(contraction_matmul_ms=cuda_ms(torch, matmul, iters=10),
+                         contraction_matmul_device_ms=graph_ms(torch, matmul, iters=10))
+        print(f"[kernel] normal_apply {(b, kt)}: the contraction alone as one complex64 matmul "
+              f"{cases[-1]['contraction_matmul_ms']:.4f} ms (device alone "
+              f"{cases[-1]['contraction_matmul_device_ms']:.4f} ms)")
+        del matmul
         # the backward on the same operands; g = x + noise keeps λ̄ = Σ Re⟨g, x⟩
         # from cancelling, so its relative error measures the kernel
         xr, xi = args[0], args[1]

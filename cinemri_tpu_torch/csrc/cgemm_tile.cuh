@@ -24,6 +24,10 @@
 // compute, with one __syncthreads per chunk. Rows, columns and k past the
 // matrix are zero-filled by the copies, so the FMA loop has no masks.
 //
+// Conjugate B (CONJ_B): B[k, j] is read as conj of what is stored, by the
+// signs of the FMAs (no extra instruction), so a product with Kᴴ reads K in
+// place as a column-contiguous B: Kᴴ[j, k] = conj(K[k, j]).
+//
 // Register tile. The threads form 8 columns (tx) x TY rows (ty) x G column
 // groups of 8·TN columns; a thread owns TM x TN complex outputs (Lane). Per
 // k it reads TM complex A values and TN complex B values from shared memory
@@ -116,6 +120,14 @@ struct Lane {
   }
 };
 
+// The two tiles of the products along the middle axis of (O, N, I) slabs
+// (csrc/dft_matmul.cu, csrc/normal_apply*.cu), 128 threads each. Large: 8 x 5
+// complex outputs a thread (80 accumulators), k steps one at a time so that
+// 128 registers hold it, 4 blocks an SM. Small, for grids the large tile
+// would leave short of two blocks an SM and for 4-byte copies: 3 x 5 outputs.
+using Large = Tile<128, 40, 8, 8, 5, 3, 4, 1>;
+using Small = Tile<48, 40, 8, 3, 5, 3, 4, 8>;
+
 // A tile's origin in device memory (or, for a resident A, in shared memory):
 // row stride and the valid rows (k-contiguous) or columns (column-contiguous)
 // from the origin. A column-contiguous operand may run across slabs: with
@@ -195,7 +207,7 @@ __device__ __forceinline__ void stage_nc(float* s, const float* g, const Operand
 // 4·TM·TN accumulators. A and a k-contiguous B are read a word at a time (a
 // float4 over 4 k would hold 8·TM registers: the register tile would not
 // fit); a column-contiguous B as float4 runs along its columns.
-template <class T, bool A_KC, bool B_KC>
+template <class T, bool A_KC, bool B_KC, bool CONJ_B = false>
 __device__ __forceinline__ void mma_chunk(const float* __restrict__ ar, const float* __restrict__ ai,
                                           int lda, const float* __restrict__ br,
                                           const float* __restrict__ bi, const Lane<T>& lane,
@@ -239,10 +251,17 @@ __device__ __forceinline__ void mma_chunk(const float* __restrict__ ar, const fl
     for (int m = 0; m < T::TM; ++m) {
 #pragma unroll
       for (int n = 0; n < T::TN; ++n) {
-        cr[m][n] = fmaf(a_r[m], b_r[n], cr[m][n]);
-        cr[m][n] = fmaf(-a_i[m], b_i[n], cr[m][n]);
-        ci[m][n] = fmaf(a_r[m], b_i[n], ci[m][n]);
-        ci[m][n] = fmaf(a_i[m], b_r[n], ci[m][n]);
+        if constexpr (CONJ_B) {  // a · conj(b)
+          cr[m][n] = fmaf(a_r[m], b_r[n], cr[m][n]);
+          cr[m][n] = fmaf(a_i[m], b_i[n], cr[m][n]);
+          ci[m][n] = fmaf(-a_r[m], b_i[n], ci[m][n]);
+          ci[m][n] = fmaf(a_i[m], b_r[n], ci[m][n]);
+        } else {
+          cr[m][n] = fmaf(a_r[m], b_r[n], cr[m][n]);
+          cr[m][n] = fmaf(-a_i[m], b_i[n], cr[m][n]);
+          ci[m][n] = fmaf(a_r[m], b_i[n], ci[m][n]);
+          ci[m][n] = fmaf(a_i[m], b_r[n], ci[m][n]);
+        }
       }
     }
   }
@@ -262,7 +281,7 @@ __device__ __forceinline__ void zero(float (&cr)[T::TM][T::TN], float (&ci)[T::T
 // With A_RESIDENT, a k-contiguous A is read in place from shared memory (its
 // columns zero up to K rounded up to BK); else it is staged like B. Ends with
 // the ring drained and the block synchronised, so the caller may reuse it.
-template <class T, bool A_RESIDENT, bool A_KC, bool B_KC, int VEC>
+template <class T, bool A_RESIDENT, bool A_KC, bool B_KC, int VEC, bool CONJ_B = false>
 __device__ __forceinline__ void block_mma(float* ring, const Operand& a, const Operand& b, int K,
                                           int tid, const Lane<T>& lane, float (&cr)[T::TM][T::TN],
                                           float (&ci)[T::TM][T::TN]) {
@@ -301,15 +320,67 @@ __device__ __forceinline__ void block_mma(float* ring, const Operand& a, const O
     cp_async_commit();
     const float* s = ring + (c % T::STAGES) * SF;
     if constexpr (A_RESIDENT) {
-      mma_chunk<T, true, B_KC>(a.re + c * T::BK, a.im + c * T::BK, static_cast<int>(a.ld), s,
-                               s + BF, lane, cr, ci);
+      mma_chunk<T, true, B_KC, CONJ_B>(a.re + c * T::BK, a.im + c * T::BK,
+                                       static_cast<int>(a.ld), s, s + BF, lane, cr, ci);
     } else {
-      mma_chunk<T, A_KC, B_KC>(s, s + AF, A_KC ? T::LDK : T::BM, s + 2 * AF, s + 2 * AF + BF,
-                               lane, cr, ci);
+      mma_chunk<T, A_KC, B_KC, CONJ_B>(s, s + AF, A_KC ? T::LDK : T::BM, s + 2 * AF,
+                                       s + 2 * AF + BF, lane, cr, ci);
     }
   }
   cp_async_wait<0>();
   __syncthreads();
+}
+
+// One block's tile of a product along the middle axis of (O, N, I) slabs,
+//
+//   y[o, j, i] = Σ_k B[j, k] · x[o, k, i]      x, y: (O, N, I)
+//
+// for the slab columns m = o·I + i in [m0, m0 + rows) and j in [n0, n0 + BN).
+// B is the block's N x N matrix W, k-contiguous (B_KC: B[j, k] = W[j·N + k]),
+// or, with CONJ_B and B column-contiguous, Wᴴ read in place
+// (B[j, k] = conj(W[k·N + j])). Computed transposed, yᵀ = Xᵀ · Bᵀ: the rows
+// of A are the slab columns, staged as they lie (column-contiguous, read
+// coalesced along I, running on across slabs). The output tile goes through
+// shared memory (the ring, drained) so that neighbouring threads store
+// neighbouring i. The caller picks m0, rows and W per block: rows of one
+// tile must share W (csrc/normal_apply.cu gives each frame its own K).
+template <class T, int VEC, bool B_KC, bool CONJ_B>
+__device__ __forceinline__ void slab_tile(const float* __restrict__ xr,
+                                          const float* __restrict__ xi,
+                                          const float* __restrict__ wr,
+                                          const float* __restrict__ wi, float* __restrict__ yr,
+                                          float* __restrict__ yi, long m0, int rows, int n0,
+                                          int N, int I) {
+  static_assert(B_KC != CONJ_B, "instances: W k-contiguous, or Wᴴ read in place");
+  const Lane<T> lane(threadIdx.x);
+  const Operand a{xr, xi, I, rows, m0, I, static_cast<long>(N) * I};
+  const Operand b = B_KC ? Operand{wr + static_cast<long>(n0) * N, wi + static_cast<long>(n0) * N,
+                                   N, N - n0}
+                         : Operand{wr + n0, wi + n0, N, N - n0};
+  float cr[T::TM][T::TN], ci[T::TM][T::TN];
+  zero<T>(cr, ci);
+  block_mma<T, false, false, B_KC, VEC, CONJ_B>(reinterpret_cast<float*>(smem), a, b, N,
+                                                threadIdx.x, lane, cr, ci);
+  constexpr int LDT = T::BM + 4;  // 4·tx + ty: the 32 lanes' writes on distinct banks
+  static_assert(T::BN * LDT + 2 * T::BM <= T::STAGES * T::template stage_floats<false, false, B_KC>(),
+                "the output tile and its column offsets fit the ring");
+  float* const tile = reinterpret_cast<float*>(smem);
+  long* const offset = reinterpret_cast<long*>(tile + T::BN * LDT);
+  for (int r = threadIdx.x; r < rows; r += T::THREADS) offset[r] = column_offset(a, r);
+  for (int part = 0; part < 2; ++part) {
+#pragma unroll
+    for (int m = 0; m < T::TM; ++m)
+#pragma unroll
+      for (int n = 0; n < T::TN; ++n)
+        tile[lane.template col<B_KC>(n) * LDT + lane.ty + T::TY * m] = part ? ci[m][n] : cr[m][n];
+    __syncthreads();
+    float* const y = part ? yi : yr;
+    for (int e = threadIdx.x; e < T::BN * T::BM; e += T::THREADS) {
+      const int j = e / T::BM, r = e % T::BM;
+      if (r < rows && n0 + j < N) y[offset[r] + static_cast<long>(n0 + j) * I] = tile[j * LDT + r];
+    }
+    __syncthreads();
+  }
 }
 
 // Launch `Kernel` with `smem_bytes` of dynamic shared memory, raising the

@@ -49,24 +49,26 @@ using cgemm::Operand;
 //   they lie (column-contiguous, across slabs): C = Xᵀ · Wᵀ = yᵀ.
 // Blocks run over (row tile, column tile), the column tiles of a row tile
 // next to each other so that its rows of A are read from device memory once.
+// The slab instance is the engine's slab_tile (cgemm_tile.cuh), shared with
+// the normal apply's per-frame contractions.
 template <class T, bool ROWS, int VEC>
 __global__ void __launch_bounds__(T::THREADS, T::MINB)
 dft_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
            const float* __restrict__ wr, const float* __restrict__ wi,
            float* __restrict__ yr, float* __restrict__ yi, long M, int N, int I, int n_tiles) {
-  const Lane<T> lane(threadIdx.x);
   const long m0 = static_cast<long>(blockIdx.x / n_tiles) * T::BM;
   const int n0 = blockIdx.x % n_tiles * T::BN;
   const int rows = M - m0 < T::BM ? static_cast<int>(M - m0) : T::BM;
-  const long slab = static_cast<long>(N) * I;
-  const Operand a = ROWS ? Operand{xr + m0 * N, xi + m0 * N, N, rows}
-                         : Operand{xr, xi, I, rows, m0, I, slab};
-  const Operand b{wr + static_cast<long>(n0) * N, wi + static_cast<long>(n0) * N, N, N - n0};
-  float cr[T::TM][T::TN], ci[T::TM][T::TN];
-  cgemm::zero<T>(cr, ci);
-  cgemm::block_mma<T, false, ROWS, true, VEC>(reinterpret_cast<float*>(cgemm::smem), a, b, N,
-                                               threadIdx.x, lane, cr, ci);
-  if constexpr (ROWS) {
+  if constexpr (!ROWS) {
+    cgemm::slab_tile<T, VEC, true, false>(xr, xi, wr, wi, yr, yi, m0, rows, n0, N, I);
+  } else {
+    const Lane<T> lane(threadIdx.x);
+    const Operand a{xr + m0 * N, xi + m0 * N, N, rows};
+    const Operand b{wr + static_cast<long>(n0) * N, wi + static_cast<long>(n0) * N, N, N - n0};
+    float cr[T::TM][T::TN], ci[T::TM][T::TN];
+    cgemm::zero<T>(cr, ci);
+    cgemm::block_mma<T, false, true, true, VEC>(reinterpret_cast<float*>(cgemm::smem), a, b, N,
+                                                 threadIdx.x, lane, cr, ci);
 #pragma unroll
     for (int m = 0; m < T::TM; ++m) {
       const int r = lane.ty + T::TY * m;
@@ -79,29 +81,6 @@ dft_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
           yi[(m0 + r) * N + j] = ci[m][n];
         }
       }
-    }
-  } else {
-    // y[o, j, i] lies along i: the tile goes through shared memory (the ring,
-    // drained) so that neighbouring threads store neighbouring columns
-    constexpr int LDT = T::BM + 4;  // 4·tx + ty: the 32 lanes' writes on distinct banks
-    static_assert(T::BN * LDT + 2 * T::BM <= T::STAGES * T::template stage_floats<false, false, true>(),
-                  "the output tile and its column offsets fit the ring");
-    float* const tile = reinterpret_cast<float*>(cgemm::smem);
-    long* const offset = reinterpret_cast<long*>(tile + T::BN * LDT);
-    for (int r = threadIdx.x; r < rows; r += T::THREADS) offset[r] = cgemm::column_offset(a, r);
-    for (int part = 0; part < 2; ++part) {
-#pragma unroll
-      for (int m = 0; m < T::TM; ++m)
-#pragma unroll
-        for (int n = 0; n < T::TN; ++n)
-          tile[lane.template col<true>(n) * LDT + lane.ty + T::TY * m] = part ? ci[m][n] : cr[m][n];
-      __syncthreads();
-      float* const y = part ? yi : yr;
-      for (int e = threadIdx.x; e < T::BN * T::BM; e += T::THREADS) {
-        const int j = e / T::BM, r = e % T::BM;
-        if (r < rows && n0 + j < N) y[offset[r] + static_cast<long>(n0 + j) * I] = tile[j * LDT + r];
-      }
-      __syncthreads();
     }
   }
 }
@@ -220,12 +199,8 @@ dft_small_cols_kernel(const float* __restrict__ xr, const float* __restrict__ xi
   }
 }
 
-// Tiles (BM, BN, BK, TM, TN, STAGES, MINB, KU): 8 x (BM / TM) threads.
-// Large: 8 x 5 complex outputs a thread (80 accumulators), k steps one at a
-// time so that 128 registers hold it, 4 blocks an SM. Small, for grids the
-// large tile would leave short of two blocks an SM: 3 x 5 outputs a thread.
-using Large = cgemm::Tile<128, 40, 8, 8, 5, 3, 4, 1>;  // 128 threads
-using Small = cgemm::Tile<48, 40, 8, 3, 5, 3, 4, 8>;   // 128 threads
+using cgemm::Large;
+using cgemm::Small;
 
 template <class T, int VEC>
 int launch_tiles(const float* xr, const float* xi, const float* wr, const float* wi, float* yr,

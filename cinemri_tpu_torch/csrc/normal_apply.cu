@@ -9,174 +9,114 @@
 // K acts along h: (K ·_h y)[i, w] = Σ_k K[i, k] · y[k, w].
 //
 // Replaces the forward Pallas kernel normal_apply_pallas / fwd_pallas_call
-// (cinemri_tpu/ops/kernels/normal_pallas.py, body _fwd_kernel). It carries
-// N(z) in every VarNet cascade's data-consistency step (λ = 0) and every
-// CineNet conjugate-gradient apply (λ = softplus of a learned weight)
+// (cinemri_tpu/ops/kernels/normal_pallas.py:182, body _fwd_kernel). It
+// carries N(z) in every VarNet cascade's data-consistency step (λ = 0) and
+// every CineNet conjugate-gradient apply (λ = softplus of a learned weight)
 // through physics/operators.py::normal_plus_lambda_kernel.
 //
 // Arithmetic: the 4-multiplication complex product in full f32 on CUDA
 // cores (FMA, no TF32), matching the JAX package's Precision.HIGHEST.
 //
 // What bounds it on the H100: per apply it does 8·t·c·h·h·w FLOP (9.6 GFLOP
-// at t=15, c=10, h=w=200) against about 18 MB of traffic, so it is bound by
-// the FP32 rate. The Pallas program keeps a whole (h, w) plane, K and the
-// coil stack on chip (about 8 MB) and relies on the TPU's sequential grid
-// to fetch S once per batch row; neither carries over to a block's 227 KB
-// of shared memory and blocks that run in no order.
+// at t=15, c=10, h=w=200) against about 18 MB of inputs and outputs, so it
+// is bound by the FP32 rate (0.14 ms at 67 TFLOP/s). The Pallas program
+// keeps a whole (h, w) plane, K and the coil stack on chip (about 8 MB); a
+// block has 227 KB of shared memory.
 //
-// Design: the grid runs over (w-tile, h-tile, b·t). A block owns a BH x BW
-// tile of out, loops over the coils and, per coil, over BK-deep chunks of
-// the contraction: it stages K[h-tile, k-chunk] and y = S_c ⊙ x on
-// [k-chunk, w-tile] (formed while loading) in shared memory, accumulates
-// z = K·y for its tile in registers, then folds acc += conj(S_c) ⊙ z before
-// the next coil. Only x, K, S and out touch device memory; the
-// coil-expanded intermediates never do.
+// Design: for one frame the contraction over all coils is one complex
+// product, K_t (h x h) · [S_1⊙x_t | … | S_C⊙x_t] (h x c·w); at the flagship
+// 15 of them, the shape and FLOP of the DFT kernel's (150, 200, 200) slab
+// instance. So one C entry launches three kernels (normal_passes.cuh):
+// (a) the products y = S_c ⊙ x_t into a (b·t·c, h, w) scratch (48 MB at
+//     the flagship), one memory pass;
+// (b) z = K_t ·_h y on the tile engine (cgemm_tile.cuh: cp.async ring, 8 x 5
+//     complex outputs a thread, column tiles of 40 that divide 200), row
+//     tiles clipped at frame boundaries so that each block reads one K;
+// (c) out = Σ_c conj(S_c) ⊙ z_c + λx, one memory pass reading z once.
+// The scratch costs three passes over 48 MB (~0.05 ms at 3.35 TB/s) and
+// buys the engine's tile. A kernel that forms S_c⊙x in shared memory per
+// (w-tile, h-tile, frame) block instead has to restage K per coil, and its
+// 64 x 64 output tiles over a 200 x 200 plane spend 39% of the FMAs on
+// padding.
 
-#include <cuda_runtime.h>
+#include "normal_passes.cuh"
 
 namespace {
 
-template <int BH, int BW, int BK, int TM, int TN>
-__global__ void __launch_bounds__((BH / TM) * (BW / TN))
-normal_apply_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
-                    const float* __restrict__ kr, const float* __restrict__ ki,
-                    const float* __restrict__ sr, const float* __restrict__ si,
-                    const float* __restrict__ lamp, float* __restrict__ outr,
-                    float* __restrict__ outi, int T, int C, int H, int W, int KT) {
-  constexpr int TX = BW / TN;  // threads along w
-  constexpr int TY = BH / TM;  // threads along h
-  constexpr int NT = TX * TY;
-  __shared__ float skr[BK][BH + 1], ski[BK][BH + 1];  // K[i, k], stored k-major
-  __shared__ float syr[BK][BW], syi[BK][BW];          // y[k, w]
+using cgemm::Large;
+using cgemm::Small;
 
-  const int tid = threadIdx.x;
-  const int tx = tid % TX;
-  const int ty = tid / TX;
-  const int w0 = blockIdx.x * BW;
-  const int i0 = blockIdx.y * BH;
-  const int bt = blockIdx.z;
-  const int b = bt / T;
-  const int t = bt % T;
+template <int VEC>
+__global__ void __launch_bounds__(normal::PASS_THREADS)
+normal_apply_products_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
+                             const float* __restrict__ sr, const float* __restrict__ si,
+                             float* __restrict__ yr, float* __restrict__ yi, int T, int C, long P,
+                             long n) {
+  normal::products<VEC>(xr, xi, sr, si, yr, yi, T, C, P, n);
+}
 
-  const long plane = static_cast<long>(H) * W;
-  const float* xrp = xr + bt * plane;
-  const float* xip = xi + bt * plane;
-  const long koff = (static_cast<long>(b) * KT + (KT > 1 ? t : 0)) * H * H;
-  const float* krp = kr + koff;
-  const float* kip = ki + koff;
+template <class T, int VEC>
+__global__ void __launch_bounds__(T::THREADS, T::MINB)
+normal_apply_contract_kernel(const float* __restrict__ yr, const float* __restrict__ yi,
+                             const float* __restrict__ kr, const float* __restrict__ ki,
+                             float* __restrict__ zr, float* __restrict__ zi, int H, int W, int G,
+                             int n_tiles) {
+  normal::contract<T, VEC, false>(yr, yi, kr, ki, zr, zi, H, W, G, n_tiles);
+}
 
-  float accr[TM][TN], acci[TM][TN];
-#pragma unroll
-  for (int m = 0; m < TM; ++m)
-#pragma unroll
-    for (int n = 0; n < TN; ++n) accr[m][n] = acci[m][n] = 0.f;
+template <int VEC>
+__global__ void __launch_bounds__(normal::PASS_THREADS)
+normal_apply_reduce_kernel(const float* __restrict__ zr, const float* __restrict__ zi,
+                           const float* __restrict__ sr, const float* __restrict__ si,
+                           const float* __restrict__ xr, const float* __restrict__ xi,
+                           const float* __restrict__ lamp, float* __restrict__ outr,
+                           float* __restrict__ outi, int T, int C, long P, long n) {
+  normal::coil_reduce<VEC>(zr, zi, sr, si, xr, xi, lamp, outr, outi, T, C, P, n);
+}
 
-  for (int c = 0; c < C; ++c) {
-    const float* srp = sr + (static_cast<long>(b) * C + c) * plane;
-    const float* sip = si + (static_cast<long>(b) * C + c) * plane;
+template <int VEC>
+int products(const float* xr, const float* xi, const float* sr, const float* si, float* yr,
+             float* yi, int b, int t, int c, long P, cudaStream_t s) {
+  const long n = static_cast<long>(b) * t * c * (P / VEC);
+  return normal::launch_pass<normal_apply_products_kernel<VEC>>(n, s, xr, xi, sr, si, yr, yi, t,
+                                                                c, P, n);
+}
 
-    float zr[TM][TN], zi[TM][TN];
-#pragma unroll
-    for (int m = 0; m < TM; ++m)
-#pragma unroll
-      for (int n = 0; n < TN; ++n) zr[m][n] = zi[m][n] = 0.f;
-
-    for (int k0 = 0; k0 < H; k0 += BK) {
-      for (int idx = tid; idx < BH * BK; idx += NT) {
-        const int r = idx / BK, kk = idx % BK;
-        const int i = i0 + r, k = k0 + kk;
-        const bool ok = i < H && k < H;
-        const long g = static_cast<long>(i) * H + k;
-        skr[kk][r] = ok ? krp[g] : 0.f;
-        ski[kk][r] = ok ? kip[g] : 0.f;
-      }
-      for (int idx = tid; idx < BK * BW; idx += NT) {
-        const int kk = idx / BW, col = idx % BW;
-        const int k = k0 + kk, w = w0 + col;
-        float yr = 0.f, yi = 0.f;
-        if (k < H && w < W) {
-          const long g = static_cast<long>(k) * W + w;
-          const float a = srp[g], bb = sip[g], u = xrp[g], v = xip[g];
-          yr = a * u - bb * v;
-          yi = a * v + bb * u;
-        }
-        syr[kk][col] = yr;
-        syi[kk][col] = yi;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < BK; ++kk) {
-        float ar[TM], ai[TM], br[TN], bi[TN];
-#pragma unroll
-        for (int m = 0; m < TM; ++m) {
-          ar[m] = skr[kk][ty + TY * m];
-          ai[m] = ski[kk][ty + TY * m];
-        }
-#pragma unroll
-        for (int n = 0; n < TN; ++n) {
-          br[n] = syr[kk][tx + TX * n];
-          bi[n] = syi[kk][tx + TX * n];
-        }
-#pragma unroll
-        for (int m = 0; m < TM; ++m)
-#pragma unroll
-          for (int n = 0; n < TN; ++n) {
-            zr[m][n] = fmaf(ar[m], br[n], zr[m][n]);
-            zr[m][n] = fmaf(-ai[m], bi[n], zr[m][n]);
-            zi[m][n] = fmaf(ar[m], bi[n], zi[m][n]);
-            zi[m][n] = fmaf(ai[m], br[n], zi[m][n]);
-          }
-      }
-      __syncthreads();
-    }
-
-    // acc += conj(S_c) ⊙ z
-#pragma unroll
-    for (int m = 0; m < TM; ++m) {
-      const int i = i0 + ty + TY * m;
-#pragma unroll
-      for (int n = 0; n < TN; ++n) {
-        const int w = w0 + tx + TX * n;
-        if (i < H && w < W) {
-          const long g = static_cast<long>(i) * W + w;
-          const float a = srp[g], bb = sip[g];
-          accr[m][n] += a * zr[m][n] + bb * zi[m][n];
-          acci[m][n] += a * zi[m][n] - bb * zr[m][n];
-        }
-      }
-    }
-  }
-
-  const float lam = *lamp;
-#pragma unroll
-  for (int m = 0; m < TM; ++m) {
-    const int i = i0 + ty + TY * m;
-#pragma unroll
-    for (int n = 0; n < TN; ++n) {
-      const int w = w0 + tx + TX * n;
-      if (i < H && w < W) {
-        const long g = bt * plane + static_cast<long>(i) * W + w;
-        outr[g] = accr[m][n] + lam * xr[g];
-        outi[g] = acci[m][n] + lam * xi[g];
-      }
-    }
-  }
+template <int VEC>
+int reduce(const float* zr, const float* zi, const float* sr, const float* si, const float* xr,
+           const float* xi, const float* lam, float* outr, float* outi, int b, int t, int c,
+           long P, cudaStream_t s) {
+  const long n = static_cast<long>(b) * t * (P / VEC);
+  return normal::launch_pass<normal_apply_reduce_kernel<VEC>>(n, s, zr, zi, sr, si, xr, xi, lam,
+                                                              outr, outi, t, c, P, n);
 }
 
 }  // namespace
 
-extern "C" int cinemri_normal_apply(const float* xr, const float* xi,
-                                    const float* kr, const float* ki,
-                                    const float* sr, const float* si, const float* lam,
-                                    float* outr, float* outi, int b, int t,
-                                    int c, int h, int w, int kt, void* stream) {
-  constexpr int BH = 64, BW = 64, BK = 16, TM = 4, TN = 4;
-  constexpr int threads = (BH / TM) * (BW / TN);
-  const dim3 grid((w + BW - 1) / BW, (h + BH - 1) / BH, b * t);
-  normal_apply_kernel<BH, BW, BK, TM, TN>
-      <<<grid, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-          xr, xi, kr, ki, sr, si, lam, outr, outi, t, c, h, w, kt);
-  return static_cast<int>(cudaGetLastError());
+// yr, yi, zr, zi: scratch of b·t·c·h·w floats each, allocated by the caller.
+extern "C" int cinemri_normal_apply(const float* xr, const float* xi, const float* kr,
+                                    const float* ki, const float* sr, const float* si,
+                                    const float* lam, float* outr, float* outi, float* yr,
+                                    float* yi, float* zr, float* zi, int b, int t, int c, int h,
+                                    int w, int kt, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long P = static_cast<long>(h) * w;
+  const bool vec = P % 4 == 0 && cgemm::aligned16(xr) && cgemm::aligned16(xi) &&
+                   cgemm::aligned16(sr) && cgemm::aligned16(si) && cgemm::aligned16(yr) &&
+                   cgemm::aligned16(yi) && cgemm::aligned16(zr) && cgemm::aligned16(zi) &&
+                   cgemm::aligned16(outr) && cgemm::aligned16(outi);
+  int err = vec ? products<4>(xr, xi, sr, si, yr, yi, b, t, c, P, s)
+                : products<1>(xr, xi, sr, si, yr, yi, b, t, c, P, s);
+  if (err) return err;
+  const int groups = b * kt, G = t * c / kt;  // slabs sharing one K
+  err = normal::tile_vec(h, w, kr, ki, yr, yi, zr, zi)
+            ? normal::launch_contract<Large, false, normal_apply_contract_kernel<Large, 4>>(
+                  yr, yi, kr, ki, zr, zi, groups, G, h, w, s)
+            : normal::launch_contract<Small, false, normal_apply_contract_kernel<Small, 1>>(
+                  yr, yi, kr, ki, zr, zi, groups, G, h, w, s);
+  if (err) return err;
+  return vec ? reduce<4>(zr, zi, sr, si, xr, xi, lam, outr, outi, b, t, c, P, s)
+             : reduce<1>(zr, zi, sr, si, xr, xi, lam, outr, outi, b, t, c, P, s);
 }
 
 extern "C" const char* cinemri_error_string(int code) {

@@ -9,255 +9,133 @@
 //   λ̄[b,t]   = Σ_{h,w} Re(g ⊙ conj(x))   (partials; the caller sums them)
 //
 //   x, g, x̄: (b, t, h, w)   K: (b, kt, h, h), t' = t if kt > 1 else 0
-//   S, s̄: (b, c, h, w)      partials: (b, t, c, h, w)   λ̄: (b, t)
+//   S, s̄: (b, c, h, w)      λ̄: (b, t)
 //   λ: one float32 in device memory, read by the kernel
 //
-// Replaces the backward Pallas kernel _bwd_pallas_call (body _bwd_kernel) of
-// normal_apply_pallas (cinemri_tpu/ops/kernels/normal_pallas.py), the
-// custom VJP that carries the normal apply through the VarNet train step.
+// Replaces the backward Pallas kernel _bwd_pallas_call (cinemri_tpu/ops/
+// kernels/normal_pallas.py:203, body _bwd_kernel) of normal_apply_pallas,
+// the custom VJP that carries the normal apply through the train steps.
 //
 // Arithmetic: the 4-multiplication complex product in full f32 on CUDA
 // cores (FMA, no TF32), matching the JAX package's Precision.HIGHEST.
 //
 // What bounds it on the H100: two h-contractions per coil, 16·t·c·h·h·w
-// FLOP (19.2 GFLOP at t=15, c=10, h=w=200) against about 30 MB of
-// inputs and outputs: the FP32 rate.
+// FLOP (19.2 GFLOP at t=15, c=10, h=w=200) against about 30 MB of inputs
+// and outputs: the FP32 rate (0.29 ms at 67 TFLOP/s).
 //
-// Design.
-// - The Pallas kernel adds each frame's s̄ into an output block that stays
-//   resident across the TPU's sequential grid. CUDA blocks run in parallel
-//   in no order, so pass 1 writes per-frame partials s̄[b,t,c] and pass 2
-//   (normal_apply_bwd_reduce_kernel) sums them over t: deterministic, at
-//   the cost of b·t·c·h·w·8 bytes of scratch (48 MB at the flagship).
-// - Pass 1 tiles (w, h, b·t) as the forward does, 64 x 64 output tiles, and
-//   per coil runs the two contractions one after the other so that only one
-//   4 x 4 complex accumulator is live beside x̄'s (the forward's register
-//   profile): first ȳ, whose epilogue folds conj(S_c)⊙ȳ into x̄ and writes
-//   ȳ⊙conj(x) to the partial, then z, whose epilogue adds conj(g)⊙z to the
-//   same partial element. The same thread writes and re-reads that element,
-//   so no synchronisation is needed.
-// - Kᴴ is a contraction over K's first axis. Its tile is staged transposed
-//   and conjugated into shared memory from rows of K, so both contractions
-//   read K row-wise (coalesced) from device memory.
-// - λ̄'s partials come from a third small kernel, one block per (b, t).
+// Design: the two contractions are the forward's coil-stacked per-frame
+// products on the tile engine (normal_passes.cuh), ȳ with Kᴴ read in place
+// (a conjugated, column-contiguous B: no transposed copy of K). One C entry
+// launches seven kernels on three (b·t·c, h, w) scratch pairs (144 MB at
+// the flagship):
+// 1. v = S_c ⊙ g into the products scratch;
+// 2. ȳ = Kᴴ ·_h v (the tile normal::Adjoint, 3 blocks an SM);
+// 3. y = S_c ⊙ x into the products scratch (v is consumed);
+// 4. z = K ·_h y;
+// 5. x̄_t = Σ_c conj(S_c) ⊙ ȳ_c + λg, the forward's coil reduction;
+// 6. s̄_c = Σ_t conj(g_t) ⊙ z_{t,c} + ȳ_{t,c} ⊙ conj(x_t): a thread owns
+//    four pixels of one coil and sums over the frames in registers. The
+//    Pallas kernel sums s̄ into an output block that stays resident across
+//    the TPU's sequential grid; here no per-frame partials and no atomics
+//    are needed, and the sum is deterministic;
+// 7. λ̄'s partials, one block per (b, t).
+// Passes 5 and 6 read ȳ twice (one more 48 MB pass) and keep b·c·h·w / 4
+// threads busy. One pass per pixel over t and c, holding s̄ for every coil
+// in registers, would read ȳ once, but has b·h·w threads of ~200
+// registers: too few warps to cover the memory latency, and it measured
+// slower than the two passes together on the H100.
 
-#include <cuda_runtime.h>
+#include "normal_passes.cuh"
 
 namespace {
 
-constexpr int BH = 64, BW = 64, BK = 16, TM = 4, TN = 4;
-constexpr int TX = BW / TN;  // threads along w
-constexpr int TY = BH / TM;  // threads along h
-constexpr int NT = TX * TY;
+using cgemm::Large;
+using cgemm::Small;
+using normal::Pack;
 
-struct Smem {
-  float ar[BK][BH + 1], ai[BK][BH + 1];  // A[i, k] of the contraction, stored k-major
-  float yr[BK][BW], yi[BK][BW];          // (S_c ⊙ u)[k, w]
-};
-
-// acc[i, w] = Σ_k A[i, k] · (S_c ⊙ u)[k, w] over this block's tile, with
-// A = K (ADJ false) or A = Kᴴ, A[i, k] = conj(K[k, i]) (ADJ true).
-template <bool ADJ>
-__device__ __forceinline__ void contract(float (&accr)[TM][TN], float (&acci)[TM][TN],
-                                         const float* __restrict__ krp,
-                                         const float* __restrict__ kip,
-                                         const float* __restrict__ srp,
-                                         const float* __restrict__ sip,
-                                         const float* __restrict__ urp,
-                                         const float* __restrict__ uip, int H, int W,
-                                         int i0, int w0, Smem& sm) {
-  const int tid = threadIdx.x;
-  const int tx = tid % TX;
-  const int ty = tid / TX;
-#pragma unroll
-  for (int m = 0; m < TM; ++m)
-#pragma unroll
-    for (int n = 0; n < TN; ++n) accr[m][n] = acci[m][n] = 0.f;
-
-  for (int k0 = 0; k0 < H; k0 += BK) {
-    for (int idx = tid; idx < BH * BK; idx += NT) {
-      int r, kk;
-      if (ADJ) {  // neighbouring threads read neighbouring i of row k of K
-        kk = idx / BH;
-        r = idx % BH;
-      } else {    // neighbouring threads read neighbouring k of row i of K
-        r = idx / BK;
-        kk = idx % BK;
-      }
-      const int i = i0 + r, k = k0 + kk;
-      float vr = 0.f, vi = 0.f;
-      if (i < H && k < H) {
-        const long g = ADJ ? static_cast<long>(k) * H + i : static_cast<long>(i) * H + k;
-        vr = krp[g];
-        vi = ADJ ? -kip[g] : kip[g];
-      }
-      sm.ar[kk][r] = vr;
-      sm.ai[kk][r] = vi;
-    }
-    for (int idx = tid; idx < BK * BW; idx += NT) {
-      const int kk = idx / BW, col = idx % BW;
-      const int k = k0 + kk, w = w0 + col;
-      float yr = 0.f, yi = 0.f;
-      if (k < H && w < W) {
-        const long g = static_cast<long>(k) * W + w;
-        const float a = srp[g], bb = sip[g], u = urp[g], v = uip[g];
-        yr = a * u - bb * v;
-        yi = a * v + bb * u;
-      }
-      sm.yr[kk][col] = yr;
-      sm.yi[kk][col] = yi;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      float ar[TM], ai[TM], br[TN], bi[TN];
-#pragma unroll
-      for (int m = 0; m < TM; ++m) {
-        ar[m] = sm.ar[kk][ty + TY * m];
-        ai[m] = sm.ai[kk][ty + TY * m];
-      }
-#pragma unroll
-      for (int n = 0; n < TN; ++n) {
-        br[n] = sm.yr[kk][tx + TX * n];
-        bi[n] = sm.yi[kk][tx + TX * n];
-      }
-#pragma unroll
-      for (int m = 0; m < TM; ++m)
-#pragma unroll
-        for (int n = 0; n < TN; ++n) {
-          accr[m][n] = fmaf(ar[m], br[n], accr[m][n]);
-          accr[m][n] = fmaf(-ai[m], bi[n], accr[m][n]);
-          acci[m][n] = fmaf(ar[m], bi[n], acci[m][n]);
-          acci[m][n] = fmaf(ai[m], br[n], acci[m][n]);
-        }
-    }
-    __syncthreads();
-  }
+template <int VEC>
+__global__ void __launch_bounds__(normal::PASS_THREADS)
+normal_apply_bwd_products_kernel(const float* __restrict__ ur, const float* __restrict__ ui,
+                                 const float* __restrict__ sr, const float* __restrict__ si,
+                                 float* __restrict__ yr, float* __restrict__ yi, int T, int C,
+                                 long P, long n) {
+  normal::products<VEC>(ur, ui, sr, si, yr, yi, T, C, P, n);
 }
 
-__global__ void __launch_bounds__(NT)
-normal_apply_bwd_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
-                        const float* __restrict__ gr, const float* __restrict__ gi,
-                        const float* __restrict__ kr, const float* __restrict__ ki,
-                        const float* __restrict__ sr, const float* __restrict__ si,
-                        const float* __restrict__ lamp, float* __restrict__ xbr,
-                        float* __restrict__ xbi,
-                        float* __restrict__ spr, float* __restrict__ spi, int T, int C,
-                        int H, int W, int KT) {
-  __shared__ Smem sm;
-  const int tid = threadIdx.x;
-  const int tx = tid % TX;
-  const int ty = tid / TX;
-  const int w0 = blockIdx.x * BW;
-  const int i0 = blockIdx.y * BH;
-  const int bt = blockIdx.z;
-  const int b = bt / T;
-  const int t = bt % T;
-
-  const long plane = static_cast<long>(H) * W;
-  const long xoff = bt * plane;
-  const long koff = (static_cast<long>(b) * KT + (KT > 1 ? t : 0)) * H * H;
-  const float* krp = kr + koff;
-  const float* kip = ki + koff;
-
-  float xbar_r[TM][TN], xbar_i[TM][TN], accr[TM][TN], acci[TM][TN];
-#pragma unroll
-  for (int m = 0; m < TM; ++m)
-#pragma unroll
-    for (int n = 0; n < TN; ++n) xbar_r[m][n] = xbar_i[m][n] = 0.f;
-
-  for (int c = 0; c < C; ++c) {
-    const float* srp = sr + (static_cast<long>(b) * C + c) * plane;
-    const float* sip = si + (static_cast<long>(b) * C + c) * plane;
-    float* sprp = spr + (static_cast<long>(bt) * C + c) * plane;
-    float* spip = spi + (static_cast<long>(bt) * C + c) * plane;
-
-    // ȳ = Kᴴ (S_c ⊙ g): x̄ += conj(S_c) ⊙ ȳ ; partial = ȳ ⊙ conj(x)
-    contract<true>(accr, acci, krp, kip, srp, sip, gr + xoff, gi + xoff, H, W, i0, w0, sm);
-#pragma unroll
-    for (int m = 0; m < TM; ++m) {
-      const int i = i0 + ty + TY * m;
-#pragma unroll
-      for (int n = 0; n < TN; ++n) {
-        const int w = w0 + tx + TX * n;
-        if (i < H && w < W) {
-          const long p = static_cast<long>(i) * W + w;
-          const float a = srp[p], bb = sip[p], u = xr[xoff + p], v = xi[xoff + p];
-          const float yr = accr[m][n], yi = acci[m][n];
-          xbar_r[m][n] += a * yr + bb * yi;
-          xbar_i[m][n] += a * yi - bb * yr;
-          sprp[p] = yr * u + yi * v;
-          spip[p] = yi * u - yr * v;
-        }
-      }
-    }
-
-    // z = K (S_c ⊙ x): partial += conj(g) ⊙ z
-    contract<false>(accr, acci, krp, kip, srp, sip, xr + xoff, xi + xoff, H, W, i0, w0, sm);
-#pragma unroll
-    for (int m = 0; m < TM; ++m) {
-      const int i = i0 + ty + TY * m;
-#pragma unroll
-      for (int n = 0; n < TN; ++n) {
-        const int w = w0 + tx + TX * n;
-        if (i < H && w < W) {
-          const long p = static_cast<long>(i) * W + w;
-          const float u = gr[xoff + p], v = gi[xoff + p];
-          const float zr = accr[m][n], zi = acci[m][n];
-          sprp[p] += u * zr + v * zi;
-          spip[p] += u * zi - v * zr;
-        }
-      }
-    }
-  }
-
-  const float lam = *lamp;
-#pragma unroll
-  for (int m = 0; m < TM; ++m) {
-    const int i = i0 + ty + TY * m;
-#pragma unroll
-    for (int n = 0; n < TN; ++n) {
-      const int w = w0 + tx + TX * n;
-      if (i < H && w < W) {
-        const long g = xoff + static_cast<long>(i) * W + w;
-        xbr[g] = xbar_r[m][n] + lam * gr[g];
-        xbi[g] = xbar_i[m][n] + lam * gi[g];
-      }
-    }
-  }
+template <class T, int VEC, bool ADJOINT>
+__global__ void __launch_bounds__(T::THREADS, T::MINB)
+normal_apply_bwd_contract_kernel(const float* __restrict__ yr, const float* __restrict__ yi,
+                                 const float* __restrict__ kr, const float* __restrict__ ki,
+                                 float* __restrict__ zr, float* __restrict__ zi, int H, int W,
+                                 int G, int n_tiles) {
+  normal::contract<T, VEC, ADJOINT>(yr, yi, kr, ki, zr, zi, H, W, G, n_tiles);
 }
 
-// s̄[b, e] = Σ_t partial[b, t, e], e over the c·h·w elements of a batch row.
-__global__ void normal_apply_bwd_reduce_kernel(const float* __restrict__ spr,
-                                               const float* __restrict__ spi,
-                                               float* __restrict__ sbr, float* __restrict__ sbi,
-                                               int B, int T, long chw) {
-  const long idx = static_cast<long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (idx >= B * chw) return;
-  const long b = idx / chw, e = idx % chw;
-  const float* pr = spr + b * T * chw + e;
-  const float* pi = spi + b * T * chw + e;
-  float ar = 0.f, ai = 0.f;
+// Step 5: x̄[f] = Σ_c conj(S_c) ⊙ ȳ[f, c] + λ·g[f], the forward's coil
+// reduction on ȳ and g.
+template <int VEC>
+__global__ void __launch_bounds__(normal::PASS_THREADS)
+normal_apply_bwd_xbar_kernel(const float* __restrict__ ybr, const float* __restrict__ ybi,
+                             const float* __restrict__ sr, const float* __restrict__ si,
+                             const float* __restrict__ gr, const float* __restrict__ gi,
+                             const float* __restrict__ lamp, float* __restrict__ xbr,
+                             float* __restrict__ xbi, int T, int C, long P, long n) {
+  normal::coil_reduce<VEC>(ybr, ybi, sr, si, gr, gi, lamp, xbr, xbi, T, C, P, n);
+}
+
+// Step 6: s̄[b, c] = Σ_t conj(g[f]) ⊙ z[f, c] + ȳ[f, c] ⊙ conj(x[f]): thread e
+// of the B·C·P / VEC owns VEC pixels of coil c and sums over the frames in
+// registers.
+template <int VEC>
+__global__ void __launch_bounds__(normal::PASS_THREADS)
+normal_apply_bwd_sbar_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
+                             const float* __restrict__ gr, const float* __restrict__ gi,
+                             const float* __restrict__ ybr, const float* __restrict__ ybi,
+                             const float* __restrict__ zr, const float* __restrict__ zi,
+                             float* __restrict__ sbr, float* __restrict__ sbi, int T, int C,
+                             long P, long n) {
+  const long e = static_cast<long>(blockIdx.x) * normal::PASS_THREADS + threadIdx.x;
+  if (e >= n) return;
+  const long pv = P / VEC;
+  const long bc = e / pv, p = e % pv * VEC, b = bc / C, c = bc % C;
+  Pack<VEC> ar, ai;
+#pragma unroll
+  for (int v = 0; v < VEC; ++v) ar.v[v] = ai.v[v] = 0.f;
   for (int t = 0; t < T; ++t) {
-    ar += pr[t * chw];
-    ai += pi[t * chw];
+    const long f = b * T + t, o = (f * C + c) * P + p, q = f * P + p;
+    const Pack<VEC> y_r = normal::load<VEC>(ybr + o), y_i = normal::load<VEC>(ybi + o);
+    const Pack<VEC> z_r = normal::load<VEC>(zr + o), z_i = normal::load<VEC>(zi + o);
+    const Pack<VEC> x_r = normal::load<VEC>(xr + q), x_i = normal::load<VEC>(xi + q);
+    const Pack<VEC> g_r = normal::load<VEC>(gr + q), g_i = normal::load<VEC>(gi + q);
+#pragma unroll
+    for (int v = 0; v < VEC; ++v) {
+      ar.v[v] += g_r.v[v] * z_r.v[v] + g_i.v[v] * z_i.v[v] + y_r.v[v] * x_r.v[v] +
+                 y_i.v[v] * x_i.v[v];
+      ai.v[v] += g_r.v[v] * z_i.v[v] - g_i.v[v] * z_r.v[v] + y_i.v[v] * x_r.v[v] -
+                 y_r.v[v] * x_i.v[v];
+    }
   }
-  sbr[idx] = ar;
-  sbi[idx] = ai;
+  normal::store<VEC>(sbr + bc * P + p, ar);
+  normal::store<VEC>(sbi + bc * P + p, ai);
 }
 
-// λ̄[b, t] = Σ_{h,w} g_re·x_re + g_im·x_im, one block per (b, t).
-constexpr int LB_THREADS = 256;
+// Step 7: λ̄[b, t] = Σ_{h,w} g_re·x_re + g_im·x_im, one block per (b, t).
+constexpr int LB_THREADS = 1024;
 
+template <int VEC>
 __global__ void __launch_bounds__(LB_THREADS)
 normal_apply_bwd_lambda_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
                                const float* __restrict__ gr, const float* __restrict__ gi,
-                               float* __restrict__ lb, long plane) {
+                               float* __restrict__ lb, long P) {
   __shared__ float warp_sums[LB_THREADS / 32];
-  const long off = static_cast<long>(blockIdx.x) * plane;
+  const long off = static_cast<long>(blockIdx.x) * P;
   float s = 0.f;
-  for (long p = threadIdx.x; p < plane; p += LB_THREADS)
-    s += gr[off + p] * xr[off + p] + gi[off + p] * xi[off + p];
+  for (long p = threadIdx.x * VEC; p < P; p += LB_THREADS * VEC) {
+    const Pack<VEC> x_r = normal::load<VEC>(xr + off + p), x_i = normal::load<VEC>(xi + off + p);
+    const Pack<VEC> g_r = normal::load<VEC>(gr + off + p), g_i = normal::load<VEC>(gi + off + p);
+#pragma unroll
+    for (int v = 0; v < VEC; ++v) s += g_r.v[v] * x_r.v[v] + g_i.v[v] * x_i.v[v];
+  }
 #pragma unroll
   for (int d = 16; d > 0; d >>= 1) s += __shfl_down_sync(0xffffffffu, s, d);
   if (threadIdx.x % 32 == 0) warp_sums[threadIdx.x / 32] = s;
@@ -269,32 +147,78 @@ normal_apply_bwd_lambda_kernel(const float* __restrict__ xr, const float* __rest
   }
 }
 
+template <int VEC>
+int products(const float* ur, const float* ui, const float* sr, const float* si, float* yr,
+             float* yi, int b, int t, int c, long P, cudaStream_t s) {
+  const long n = static_cast<long>(b) * t * c * (P / VEC);
+  return normal::launch_pass<normal_apply_bwd_products_kernel<VEC>>(n, s, ur, ui, sr, si, yr, yi,
+                                                                    t, c, P, n);
+}
+
+template <class T, int VEC, bool ADJOINT>
+int contract(const float* yr, const float* yi, const float* kr, const float* ki, float* zr,
+             float* zi, int groups, int G, int h, int w, cudaStream_t s) {
+  return normal::launch_contract<T, ADJOINT, normal_apply_bwd_contract_kernel<T, VEC, ADJOINT>>(
+      yr, yi, kr, ki, zr, zi, groups, G, h, w, s);
+}
+
+template <int VEC>
+int passes(const float* xr, const float* xi, const float* gr, const float* gi, const float* sr,
+           const float* si, const float* lam, float* xbr, float* xbi, float* sbr, float* sbi,
+           float* lb, const float* ybr, const float* ybi, const float* zr, const float* zi, int b,
+           int t, int c, long P, cudaStream_t s) {
+  const long pv = P / VEC;
+  int err = normal::launch_pass<normal_apply_bwd_xbar_kernel<VEC>>(
+      b * t * pv, s, ybr, ybi, sr, si, gr, gi, lam, xbr, xbi, t, c, P, b * t * pv);
+  if (err) return err;
+  err = normal::launch_pass<normal_apply_bwd_sbar_kernel<VEC>>(
+      b * c * pv, s, xr, xi, gr, gi, ybr, ybi, zr, zi, sbr, sbi, t, c, P, b * c * pv);
+  if (err) return err;
+  return cgemm::launch<normal_apply_bwd_lambda_kernel<VEC>>(dim3(b * t), LB_THREADS, 0, s, xr, xi,
+                                                             gr, gi, lb, P);
+}
+
 }  // namespace
 
+// pr, pi, ybr, ybi, zr, zi: scratch of b·t·c·h·w floats each, allocated by
+// the caller.
 extern "C" int cinemri_normal_apply_bwd(const float* xr, const float* xi, const float* gr,
                                         const float* gi, const float* kr, const float* ki,
                                         const float* sr, const float* si, const float* lam,
-                                        float* xbr, float* xbi, float* spr, float* spi,
-                                        float* sbr, float* sbi, float* lb, int b, int t,
-                                        int c, int h, int w, int kt, void* stream) {
+                                        float* xbr, float* xbi, float* sbr, float* sbi, float* lb,
+                                        float* pr, float* pi, float* ybr, float* ybi, float* zr,
+                                        float* zi, int b, int t, int c, int h, int w, int kt,
+                                        void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid((w + BW - 1) / BW, (h + BH - 1) / BH, b * t);
-  normal_apply_bwd_kernel<<<grid, NT, 0, s>>>(xr, xi, gr, gi, kr, ki, sr, si, lam, xbr, xbi,
-                                               spr, spi, t, c, h, w, kt);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-
-  const long chw = static_cast<long>(c) * h * w;
-  const int threads = 256;
-  const long blocks = (b * chw + threads - 1) / threads;
-  normal_apply_bwd_reduce_kernel<<<static_cast<unsigned>(blocks), threads, 0, s>>>(
-      spr, spi, sbr, sbi, b, t, chw);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-
-  normal_apply_bwd_lambda_kernel<<<b * t, LB_THREADS, 0, s>>>(xr, xi, gr, gi, lb,
-                                                              static_cast<long>(h) * w);
-  return static_cast<int>(cudaGetLastError());
+  const long P = static_cast<long>(h) * w;
+  const bool vec = P % 4 == 0 && cgemm::aligned16(xr) && cgemm::aligned16(xi) &&
+                   cgemm::aligned16(gr) && cgemm::aligned16(gi) && cgemm::aligned16(sr) &&
+                   cgemm::aligned16(si) && cgemm::aligned16(pr) && cgemm::aligned16(pi) &&
+                   cgemm::aligned16(ybr) && cgemm::aligned16(ybi) && cgemm::aligned16(zr) &&
+                   cgemm::aligned16(zi) && cgemm::aligned16(xbr) && cgemm::aligned16(xbi) &&
+                   cgemm::aligned16(sbr) && cgemm::aligned16(sbi);
+  const bool wide = normal::tile_vec(h, w, kr, ki, pr, pi, ybr, ybi) &&
+                    cgemm::aligned16(zr) && cgemm::aligned16(zi);
+  const int groups = b * kt, G = t * c / kt;  // slabs sharing one K
+  // 1-2: ȳ = Kᴴ ·_h (S ⊙ g)
+  int err = vec ? products<4>(gr, gi, sr, si, pr, pi, b, t, c, P, s)
+                : products<1>(gr, gi, sr, si, pr, pi, b, t, c, P, s);
+  if (err) return err;
+  err = wide ? contract<normal::Adjoint, 4, true>(pr, pi, kr, ki, ybr, ybi, groups, G, h, w, s)
+             : contract<Small, 1, true>(pr, pi, kr, ki, ybr, ybi, groups, G, h, w, s);
+  if (err) return err;
+  // 3-4: z = K ·_h (S ⊙ x)
+  err = vec ? products<4>(xr, xi, sr, si, pr, pi, b, t, c, P, s)
+            : products<1>(xr, xi, sr, si, pr, pi, b, t, c, P, s);
+  if (err) return err;
+  err = wide ? contract<Large, 4, false>(pr, pi, kr, ki, zr, zi, groups, G, h, w, s)
+             : contract<Small, 1, false>(pr, pi, kr, ki, zr, zi, groups, G, h, w, s);
+  if (err) return err;
+  // 5-7: x̄, s̄ and λ̄'s partials
+  return vec ? passes<4>(xr, xi, gr, gi, sr, si, lam, xbr, xbi, sbr, sbi, lb, ybr, ybi, zr, zi, b,
+                         t, c, P, s)
+             : passes<1>(xr, xi, gr, gi, sr, si, lam, xbr, xbi, sbr, sbi, lb, ybr, ybi, zr, zi, b,
+                         t, c, P, s);
 }
 
 extern "C" const char* cinemri_error_string(int code) {

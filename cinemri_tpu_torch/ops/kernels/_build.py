@@ -47,15 +47,16 @@ KERNELS: Dict[str, Dict[str, tuple]] = {
         "cinemri_dft_matmul": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     },
     "normal_apply": {
-        # xr, xi, kr, ki, sr, si, lam, outr, outi, b, t, c, h, w, kt, stream
-        "cinemri_normal_apply": (_P, _P, _P, _P, _P, _P, _P, _P, _P,
+        # xr, xi, kr, ki, sr, si, lam, outr, outi, scratch yr, yi, zr, zi,
+        # b, t, c, h, w, kt, stream
+        "cinemri_normal_apply": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                  _I, _I, _I, _I, _I, _I, _P),
     },
     "normal_apply_bwd": {
-        # xr, xi, gr, gi, kr, ki, sr, si, lam, xbr, xbi, spr, spi, sbr, sbi, lb,
-        # b, t, c, h, w, kt, stream
+        # xr, xi, gr, gi, kr, ki, sr, si, lam, xbr, xbi, sbr, sbi, lb,
+        # scratch pr, pi, ybr, ybi, zr, zi, b, t, c, h, w, kt, stream
         "cinemri_normal_apply_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                     _P, _P, _P, _P, _P, _P, _P,
+                                     _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                      _I, _I, _I, _I, _I, _I, _P),
     },
     "fft2_plane": {

@@ -20,18 +20,19 @@ and ``z_c = K (S_c ⊙ x)`` (recomputed)::
     K̄   = 0                              (K derives from the never-learned mask)
 
 Forward kernel (``csrc/normal_apply.cu``): bound by the FP32 rate (9.6 GFLOP
-against ~18 MB per apply at t=15, c=10, h=w=200). The Pallas program holds a
-whole plane, K and the coil stack on chip and relies on the TPU's sequential
-grid; neither carries to Hopper. The kernel runs a grid over (w-tile,
-h-tile, b·t), loops over coils and over chunks of K's columns with K and
-``S_c ⊙ x`` tiles staged in shared memory, and keeps ``z`` and the coil sum
-in registers, so only x, K, S and out move through device memory.
+against ~18 MB per apply at t=15, c=10, h=w=200). For one frame the
+contraction over every coil is one complex product, ``K_t (h × h) ·
+[S_1⊙x_t | … | S_C⊙x_t] (h × c·w)``, so the C entry runs three passes:
+the products ``S_c ⊙ x_t`` into a ``(b·t·c, h, w)`` scratch, the
+coil-stacked per-frame contraction on the FP32 tile engine of the DFT
+kernel (``csrc/cgemm_tile.cuh``), and the coil reduction ``Σ_c conj(S_c) ⊙
+z_c + λx``. :func:`coil_products`, :func:`frame_contract` and
+:func:`coil_reduce` are those passes in plain PyTorch, for the CPU tests.
 
-Backward kernel (``csrc/normal_apply_bwd.cu``): twice the forward's
-contractions, bound by the FP32 rate too. The Pallas kernel sums ``s̄`` over
-frames in an output block that stays resident across the sequential grid;
-CUDA blocks run in no order, so the kernel writes per-frame partials
-``(b, t, c, h, w)`` and a second kernel sums them over t (deterministic).
+Backward kernel (``csrc/normal_apply_bwd.cu``): the products and
+contractions for ``ȳ`` (``Kᴴ`` read in place) and ``z``, then ``x̄`` by the
+coil reduction and ``s̄`` by a pass that sums over the frames in registers
+(:func:`bwd_pixel_pass`): deterministic, no atomics, no partials.
 
 λ stays on the device: both kernels read it through a pointer to a
 one-element f32 tensor (:func:`lambda_tensor`), so a learned λ (CineNet's
@@ -59,6 +60,13 @@ __all__ = [
     "normal_apply_torch",
     "normal_apply_bwd",
     "normal_apply_bwd_torch",
+    "coil_products",
+    "frame_contract",
+    "coil_reduce",
+    "bwd_pixel_pass",
+    "lambda_partials",
+    "normal_apply_passes",
+    "normal_apply_bwd_passes",
     "lambda_tensor",
     "NormalApply",
     "LAUNCHES",
@@ -111,6 +119,82 @@ def normal_apply_bwd_torch(xr, xi, gr, gi, kr, ki, sr, si, lam):
     return xbr, xbi, sbr, sbi, lb
 
 
+# -- the kernels' passes in plain PyTorch (the CPU tests compose them) --------
+
+
+def coil_products(sr, si, ur, ui):
+    """Products pass: ``y[b, t, c] = S[b, c] ⊙ u[b, t]`` as ``(b·t·c, h, w)``
+    slabs, the kernels' scratch layout."""
+    yr, yi = _cmul(sr[:, None], si[:, None], ur[:, :, None], ui[:, :, None])
+    return yr.flatten(0, 2), yi.flatten(0, 2)
+
+
+def frame_contract(kr, ki, yr, yi, adjoint=False):
+    """Contraction pass on ``(b·t·c, h, w)`` slabs: each group of slabs that
+    shares one ``K`` (a frame's c slabs when ``K`` is per frame, a batch
+    row's t·c when it is not) goes through one coil-stacked product
+    ``K (h × h) · [y_1 | … | y_G] (h × G·w)``; ``Kᴴ`` with ``adjoint``."""
+    b, kt, h, _ = kr.shape
+    n, _, w = yr.shape
+    g = n // (b * kt)  # slabs sharing one K
+    if adjoint:
+        kr, ki = kr.transpose(-1, -2), -ki.transpose(-1, -2)
+    k_r, k_i = kr.reshape(b * kt, h, h), ki.reshape(b * kt, h, h)
+    stack = lambda a: a.reshape(b * kt, g, h, w).transpose(1, 2).reshape(b * kt, h, g * w)
+    unstack = lambda a: a.reshape(b * kt, h, g, w).transpose(1, 2).reshape(n, h, w)
+    y_r, y_i = stack(yr), stack(yi)
+    return unstack(k_r @ y_r - k_i @ y_i), unstack(k_r @ y_i + k_i @ y_r)
+
+
+def coil_reduce(sr, si, zr, zi, xr, xi, lam):
+    """Reduction pass: ``out[b, t] = Σ_c conj(S[b, c]) ⊙ z[b, t, c] + λ·x``."""
+    b, c = sr.shape[:2]
+    z_r, z_i = zr.reshape(b, -1, c, *zr.shape[1:]), zi.reshape(b, -1, c, *zi.shape[1:])
+    s_r, s_i = sr[:, None], si[:, None]
+    return ((s_r * z_r + s_i * z_i).sum(dim=2) + lam * xr,
+            (s_r * z_i - s_i * z_r).sum(dim=2) + lam * xi)
+
+
+def bwd_pixel_pass(sr, si, ybr, ybi, zr, zi, xr, xi, gr, gi, lam):
+    """The backward's passes per pixel after the contractions: ``x̄[b, t] =
+    Σ_c conj(S_c) ⊙ ȳ + λg`` (the coil reduction) and ``s̄[b, c] = Σ_t
+    conj(g) ⊙ z + ȳ ⊙ conj(x)``, from the ``(b·t·c, h, w)`` slabs of ``ȳ``
+    and ``z``."""
+    xbr, xbi = coil_reduce(sr, si, ybr, ybi, gr, gi, lam)
+    b, c = sr.shape[:2]
+    as_5d = lambda a: a.reshape(b, -1, c, *a.shape[1:])
+    y_r, y_i, z_r, z_i = map(as_5d, (ybr, ybi, zr, zi))
+    g_r, g_i, x_r, x_i = (a[:, :, None] for a in (gr, gi, xr, xi))
+    sbr = (g_r * z_r + g_i * z_i + y_r * x_r + y_i * x_i).sum(dim=1)
+    sbi = (g_r * z_i - g_i * z_r + y_i * x_r - y_r * x_i).sum(dim=1)
+    return xbr, xbi, sbr, sbi
+
+
+def lambda_partials(xr, xi, gr, gi):
+    """``λ̄`` partials per (b, t): ``Σ_{h,w} Re(g ⊙ conj(x))``."""
+    return (gr * xr + gi * xi).sum(dim=(2, 3))
+
+
+def normal_apply_passes(xr, xi, kr, ki, sr, si, lam):
+    """The forward as its kernel computes it: products, contraction, reduction."""
+    zr, zi = frame_contract(kr, ki, *coil_products(sr, si, xr, xi))
+    return coil_reduce(sr, si, zr, zi, xr, xi, lam)
+
+
+def normal_apply_bwd_passes(xr, xi, gr, gi, kr, ki, sr, si, lam):
+    """The backward as its kernels compute it: ``ȳ`` and ``z`` by products
+    and contraction, the pass per pixel, ``λ̄``'s partials."""
+    ybr, ybi = frame_contract(kr, ki, *coil_products(sr, si, gr, gi), adjoint=True)
+    zr, zi = frame_contract(kr, ki, *coil_products(sr, si, xr, xi))
+    return (*bwd_pixel_pass(sr, si, ybr, ybi, zr, zi, xr, xi, gr, gi, lam),
+            lambda_partials(xr, xi, gr, gi))
+
+
+# Tile rows (slab columns) of the contraction kernel's smaller tile
+# (cgemm::Small), which sets its largest grid.
+_SMALL_ROWS = 48
+
+
 def _check(xr, xi, kr, ki, sr, si):
     if xr.ndim != 4 or xi.shape != xr.shape:
         raise ValueError(f"x must be two (b, t, h, w) tensors, got {tuple(xr.shape)}")
@@ -128,10 +212,12 @@ def _check(xr, xi, kr, ki, sr, si):
             raise TypeError(f"{name} must be float32, got {a.dtype}")
         if not a.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if b * t > 65535:
-        raise ValueError(f"b*t = {b * t} exceeds the kernel grid's 65535 limit")
-    if max(b * c, b * t) * h * w >= 2**31:
-        raise ValueError("tensor sizes exceed the kernel's index range")
+    # the grids: the contraction's (row tile, column tile) blocks of a group
+    # (with the small tile) along x and its b·kt groups along y; the
+    # elementwise passes' 256-thread blocks
+    tiles = -(-(t * c // kt * w) // _SMALL_ROWS) * -(-h // 40)
+    if b * kt > 65535 or max(tiles, -(-b * t * c * h * w // 256)) >= 2**31:
+        raise ValueError(f"b, t, c, h, w, kt = {(b, t, c, h, w, kt)} exceed the kernels' grid limits")
     return b, t, c, h, w, kt
 
 
@@ -154,6 +240,13 @@ def lambda_tensor(lam, device: torch.device) -> torch.Tensor:
             raise ValueError(f"λ must have one element, got shape {tuple(lam.shape)}")
         return lam.detach().reshape(1).to(device=device, dtype=torch.float32)
     return _constant_lambda(lam, device)
+
+
+def _planes(scratch):
+    """Device pointers of ``scratch[0], scratch[1], ...`` (no view made)."""
+    n = scratch.shape[0]
+    step = scratch.numel() // n * scratch.element_size()
+    return [scratch.data_ptr() + i * step for i in range(n)]
 
 
 def _on_cuda(name: str, xr) -> bool:
@@ -181,13 +274,15 @@ def normal_apply(xr, xi, kr, ki, sr, si, lam) -> Tuple[torch.Tensor, torch.Tenso
     if xr.numel() == 0:
         return outr, outi
     lam_t = lambda_tensor(lam, xr.device)
+    # products y and contraction z, (b·t·c, h, w) each, re and im
+    scratch = torch.empty((4, b * t * c, h, w), dtype=torch.float32, device=xr.device)
     lib = _build.load("normal_apply")
     with torch.cuda.device(xr.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = lib.cinemri_normal_apply(
             xr.data_ptr(), xi.data_ptr(), kr.data_ptr(), ki.data_ptr(),
             sr.data_ptr(), si.data_ptr(), lam_t.data_ptr(),
-            outr.data_ptr(), outi.data_ptr(), b, t, c, h, w, kt, stream,
+            outr.data_ptr(), outi.data_ptr(), *_planes(scratch), b, t, c, h, w, kt, stream,
         )
     _build.check(lib, code, "cinemri_normal_apply launch")
     global LAUNCHES
@@ -211,16 +306,13 @@ def normal_apply_bwd(xr, xi, gr, gi, kr, ki, sr, si, lam):
             raise ValueError(f"{name} must be a float32 {tuple(xr.shape)} tensor on {xr.device}")
         if not a.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if b * t * c * h * w >= 2**31:
-        raise ValueError("the per-frame s̄ partials exceed the kernel's index range")
     xbr, xbi = torch.empty_like(xr), torch.empty_like(xi)
     sbr, sbi = torch.empty_like(sr), torch.empty_like(si)
     lb = torch.empty((b, t), dtype=torch.float32, device=xr.device)
     if xr.numel() == 0:
         return xbr, xbi, sbr.zero_(), sbi.zero_(), lb.zero_()
-    # per-frame partials of s̄, summed over t by the second kernel
-    spr = torch.empty((b, t, c, h, w), dtype=torch.float32, device=xr.device)
-    spi = torch.empty_like(spr)
+    # products (S⊙g, then S⊙x), ȳ and z, (b·t·c, h, w) each, re and im
+    scratch = torch.empty((6, b * t * c, h, w), dtype=torch.float32, device=xr.device)
     lam_t = lambda_tensor(lam, xr.device)
     lib = _build.load("normal_apply_bwd")
     with torch.cuda.device(xr.device):
@@ -228,8 +320,8 @@ def normal_apply_bwd(xr, xi, gr, gi, kr, ki, sr, si, lam):
         code = lib.cinemri_normal_apply_bwd(
             xr.data_ptr(), xi.data_ptr(), gr.data_ptr(), gi.data_ptr(),
             kr.data_ptr(), ki.data_ptr(), sr.data_ptr(), si.data_ptr(), lam_t.data_ptr(),
-            xbr.data_ptr(), xbi.data_ptr(), spr.data_ptr(), spi.data_ptr(),
-            sbr.data_ptr(), sbi.data_ptr(), lb.data_ptr(), b, t, c, h, w, kt, stream,
+            xbr.data_ptr(), xbi.data_ptr(), sbr.data_ptr(), sbi.data_ptr(), lb.data_ptr(),
+            *_planes(scratch), b, t, c, h, w, kt, stream,
         )
     _build.check(lib, code, "cinemri_normal_apply_bwd launch")
     global BWD_LAUNCHES

@@ -1,0 +1,256 @@
+#!/usr/bin/env python3
+"""Times the port's CUDA kernels of two checkouts on one NVIDIA GPU, in turns.
+
+    python3 kernel_ab.py OTHER_ROOT [--out FILE]
+
+``OTHER_ROOT`` is another checkout of the repository (for example the
+parent commit unpacked by ``git archive`` into a git-ignored directory).
+Both checkouts' ``cinemri_tpu_torch`` packages are imported in one process,
+their kernels built from their own ``csrc`` (each into its own ``_build``),
+and every kernel is timed on the same inputs at the flagship shapes of
+``chip_smoke.py``, device alone (CUDA graphs of 20 calls,
+``chip_smoke.graph_ms``), in the order other, this, this, other, and the
+host's time to issue one call (wrapper and launches, 20 calls after a
+synchronize, the device running behind), in the same turns. Kernels:
+the normal apply and its backward at ``chip_smoke.py``'s four cases, the
+DFT at its eight ``(O, N, I)`` layouts and ``fft2_plane`` at its four
+shapes. Each result is checked against this checkout's plain version at
+``chip_smoke.py``'s tolerances. Then the full-width CineNet-XF and
+VarNet-XF forwards and the CineNet-XF train step run through either
+checkout's normal-apply kernels, in the same turns (the rest of the path
+is this checkout's).
+
+Prints one ``[ab]`` line per shape and, last, the card's nvidia-smi line and
+one JSON object with every time; ``--out`` also writes that object to a
+file. Exits non-zero without a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib
+import json
+import math
+import statistics
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT))
+
+import chip_smoke as CS  # noqa: E402  (this checkout's harness)
+
+HOST_CALLS = 20  # calls per turn of the host-time measurement
+E2E_FORWARDS, E2E_STEPS = 12, 5  # per turn of the end-to-end runs
+
+
+def load_port(root: Path):
+    """The kernel wrappers of the ``cinemri_tpu_torch`` package under ``root``,
+    built; the package is imported afresh from there."""
+    for name in [m for m in sys.modules if m == "cinemri_tpu_torch" or m.startswith("cinemri_tpu_torch.")]:
+        del sys.modules[name]
+    sys.path.insert(0, str(root))
+    try:
+        mods = {m: importlib.import_module(f"cinemri_tpu_torch.ops.kernels.{m}")
+                for m in ("_build", "dft_cuda", "fft2_cuda", "normal_cuda")}
+    finally:
+        sys.path.remove(str(root))
+    if not Path(mods["_build"].__file__).resolve().is_relative_to(root.resolve()):
+        raise RuntimeError(f"imported {mods['_build'].__file__}, not the package under {root}")
+    mods["_build"].build()
+    return dict(normal_apply=mods["normal_cuda"].normal_apply,
+                normal_apply_bwd=mods["normal_cuda"].normal_apply_bwd,
+                complex_dft_matmul=mods["dft_cuda"].complex_dft_matmul,
+                fft2_plane=mods["fft2_cuda"].fft2_plane)
+
+
+def end_to_end(torch, dev, ports, normal_cuda):
+    """The full-width CineNet-XF and VarNet-XF forwards and the CineNet-XF
+    train step of ``chip_smoke.py`` (this checkout's models, random weights
+    from seed 0) through either checkout's normal-apply kernels, in turns
+    other, this, this, other: per turn, after one warm call, the median of
+    E2E_FORWARDS forwards or E2E_STEPS steps (device ms and the host's ms to
+    issue each) and the cudaMallocs of the caching allocator among them."""
+    from cinemri_tpu_torch.data.masks import RandomMask
+    from cinemri_tpu_torch.models import build_model
+    from cinemri_tpu_torch.ops.cplx import Complex
+    from cinemri_tpu_torch.train import create_train_state, make_train_step
+
+    def forward_of(family, config, *inputs):
+        model = build_model(family, "XF", device=dev, generator=torch.Generator().manual_seed(0),
+                            **config).eval()
+
+        def forward():
+            with torch.inference_mode():
+                return model(*inputs)
+        return forward
+
+    kre, kim, mask = CS.flagship_inputs(torch, RandomMask([10], [4]), 0, dev)
+    runs = {"cinenet forward": forward_of("cinenet", CS.CINENET, Complex(kre, kim), mask,
+                                          Complex(*CS.rss_maps(torch, 0, dev))),
+            "varnet forward": forward_of("varnet", CS.FLAGSHIP, Complex(kre, kim), mask)}
+    tmodel = build_model("cinenet", "XF", device=dev, generator=torch.Generator().manual_seed(0),
+                         **CS.CINENET)
+    state = create_train_state(tmodel, device=dev)
+    batch, step = CS.train_batch(torch, dev, sens_maps=True), make_train_step()
+
+    def train_step():
+        nonlocal state
+        state, _ = step(state, batch)
+    runs["cinenet train step"] = train_step
+
+    def timed(fn):
+        """(device ms between CUDA events, host ms to issue the work) of one
+        call started on an idle device: host ms near device ms means the
+        host sets the pace."""
+        torch.cuda.synchronize()
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        e0.record()
+        fn()
+        e1.record()
+        host = (time.perf_counter() - t0) * 1e3
+        e1.synchronize()
+        return e0.elapsed_time(e1), host
+
+    saved = normal_cuda.normal_apply, normal_cuda.normal_apply_bwd
+    out = {}
+    try:
+        for label, fn in runs.items():
+            n = E2E_STEPS if "train" in label else E2E_FORWARDS
+            rec = {key: {"other": [], "this": []} for key in ("ms", "host_ms", "cuda_mallocs")}
+            for side in ("other", "this", "this", "other"):
+                normal_cuda.normal_apply = ports[side]["normal_apply"]
+                normal_cuda.normal_apply_bwd = ports[side]["normal_apply_bwd"]
+                fn()  # warm
+                segments = torch.cuda.memory_stats()["segment.all.allocated"]
+                ms, host = zip(*(timed(fn) for _ in range(n)))
+                rec["ms"][side].append(statistics.median(ms))
+                rec["host_ms"][side].append(statistics.median(host))
+                rec["cuda_mallocs"][side].append(torch.cuda.memory_stats()["segment.all.allocated"] - segments)
+            out[label] = rec
+            print(f"[ab] {label} (median of {n}): ms other {rec['ms']['other']} this {rec['ms']['this']}; "
+                  f"host ms to issue it other {rec['host_ms']['other']} this {rec['host_ms']['this']}; "
+                  f"cudaMallocs other {rec['cuda_mallocs']['other']} this {rec['cuda_mallocs']['this']}")
+    finally:
+        normal_cuda.normal_apply, normal_cuda.normal_apply_bwd = saved
+    return out
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("other", type=Path, help="root of the other checkout")
+    ap.add_argument("--out", type=Path, default=None)
+    args = ap.parse_args()
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("kernel_ab: no CUDA device is available", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False  # f32 everywhere, as chip_smoke.py runs
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    smi = CS.nvidia_smi_line()
+    print(f"[ab] {smi} | torch {torch.__version__} cuda {torch.version.cuda}")
+
+    ports = {"other": load_port(args.other), "this": load_port(ROOT)}
+    # plain versions, masks and DFT matrices from this checkout
+    from cinemri_tpu_torch.data.masks import EquispacedMask, RandomMask
+    from cinemri_tpu_torch.ops import fft as FFT
+    from cinemri_tpu_torch.ops.kernels import dft_cuda, fft2_cuda, normal_cuda
+    from cinemri_tpu_torch.physics import operators as OPS
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev, dtype=torch.float32)
+
+    T, C, H, W = CS.T, CS.C, CS.H, CS.W
+    cases = []  # (label, kernel name, args, plain, tolerance)
+    lam_dev = torch.tensor(0.37, device=dev)
+    for b, kt, seed, lam in ((1, T, 1, 0.0), (1, 1, 2, 0.37), (2, T, 3, 0.0), (1, T, 4, lam_dev)):
+        mask_func = RandomMask([10], [4]) if kt > 1 else EquispacedMask([0.08], [4])
+        masks = np.stack([mask_func(T, H, seed=seed + i) for i in range(b)])
+        kern = OPS.masked_normal_kernel(torch.from_numpy(masks).to(dev))
+        sr, si = randn(b, C, H, W), randn(b, C, H, W)
+        rss = torch.sqrt((sr * sr + si * si).sum(1, keepdim=True))
+        xr, xi = randn(b, T, H, W), randn(b, T, H, W)
+        ops = (kern.re.contiguous(), kern.im.contiguous(), sr / rss, si / rss)
+        label = f"b={b} kt={kt} lam={'device tensor' if torch.is_tensor(lam) else lam}"
+        fwd_lam = lam if torch.is_tensor(lam) else 0.0
+        cases.append((f"normal_apply {label}", "normal_apply", (xr, xi) + ops + (fwd_lam,),
+                      normal_cuda.normal_apply_torch, CS.NORMAL_TOL))
+        cases.append((f"normal_apply_bwd {label}", "normal_apply_bwd",
+                      (xr, xi, xr + randn(b, T, H, W), xi + randn(b, T, H, W)) + ops + (lam,),
+                      normal_cuda.normal_apply_bwd_torch, CS.NORMAL_TOL))
+    for o, n, i in ((C, H, W), (C * H, W, 1), (T * C, H, W), (T * C * H, W, 1),
+                    (1, T, H * W), (H * W, T, 1), (37, 64, 1), (3, 24, 7)):
+        wr, wi = FFT._dft_tensors(n, False, False, "ortho", dev)
+        cases.append((f"complex_dft_matmul {(o, n, i)}", "complex_dft_matmul",
+                      (randn(o, n, i), randn(o, n, i), wr, wi), dft_cuda.complex_dft_matmul_torch,
+                      CS.DFT_TOL))
+    for (b, h, w), inverse in (((T * C, H, W), True), ((C, H, W), True), ((3, 32, 32), False),
+                               ((4, 24, 20), None)):
+        mats = (tuple(randn(n, n) / math.sqrt(n) for n in (h, h, w, w)) if inverse is None
+                else FFT._dft_tensors(h, inverse, False, "ortho", dev)
+                + FFT._dft_tensors(w, inverse, False, "ortho", dev))
+        cases.append((f"fft2_plane {(b, h, w)}", "fft2_plane", (randn(b, h, w), randn(b, h, w)) + mats,
+                      fft2_cuda.fft2_plane_torch, CS.DFT_TOL))
+
+    results = []
+    for label, kernel, call_args, plain, tol in cases:
+        want = plain(*call_args)
+        errs = {}
+        for side, port in ports.items():
+            got = port[kernel](*call_args)
+            torch.cuda.synchronize()
+            errs[side] = max((a - b_).abs().max().item() / b_.abs().max().clamp_min(1e-30).item()
+                             for a, b_ in zip(got, want))
+            if not errs[side] <= tol:
+                CS.fail(f"{side} {label}: relative error {errs[side]} > {tol}")
+        times = {"other": [], "this": []}
+        for side in ("other", "this", "this", "other"):
+            fn = ports[side][kernel]
+            times[side].append(CS.graph_ms(torch, lambda: fn(*call_args)))
+        mean = {k: statistics.mean(v) for k, v in times.items()}
+        # the host's time to issue one call (wrapper, checks, launches):
+        # launches are asynchronous, so the host waits on nothing while the
+        # launch queue has room
+        host = {"other": [], "this": []}
+        for side in ("other", "this", "this", "other"):
+            fn = ports[side][kernel]
+            fn(*call_args)  # untimed: allocations cached
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(HOST_CALLS):
+                fn(*call_args)
+            host[side].append((time.perf_counter() - t0) / HOST_CALLS * 1e6)
+        torch.cuda.synchronize()
+        host_us = {k: statistics.mean(v) for k, v in host.items()}
+        results.append(dict(case=label, device_ms=times, mean_device_ms=mean, host_us=host,
+                            mean_host_us=host_us, max_rel_err=errs))
+        print(f"[ab] {label}: device alone ms other {mean['other']:.4f} "
+              f"({', '.join(f'{x:.4f}' for x in times['other'])}) this {mean['this']:.4f} "
+              f"({', '.join(f'{x:.4f}' for x in times['this'])}); this/other "
+              f"{mean['this'] / mean['other']:.3f}; host per call µs other {host_us['other']:.1f} "
+              f"this {host_us['this']:.1f}; rel err other {errs['other']:.2e} this "
+              f"{errs['this']:.2e}")
+        del want
+    del cases
+    torch.cuda.empty_cache()
+    report = dict(device=smi, other=str(args.other), results=results,
+                  end_to_end=end_to_end(torch, dev, ports, normal_cuda))
+    if args.out:
+        args.out.parent.mkdir(parents=True, exist_ok=True)
+        args.out.write_text(json.dumps(report, indent=1))
+    print(smi)
+    print(json.dumps(report))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -123,8 +123,16 @@ def test_dft_every_axis_matches_plain_backend(dev, layout):
             _close(outs[0][2:], outs[1][2:])
 
 
-@pytest.mark.parametrize("b,t,c,h,w,kt,lam", [(1, 3, 4, 24, 20, 3, 0.0),
-                                              (2, 3, 2, 70, 33, 1, 0.37)])
+# Shapes of the normal-apply kernels' tests: b = 2 with a K per frame and
+# c·w = 600, not a multiple of the contraction's 128-column row tile (a tile
+# that followed the wrong frame's K would show); h = 70 and 36, which 40 (the
+# column tile) does not divide; kt = 1 (one K per batch row); w = 33 (4-byte
+# copies); 18 coils.
+NORMAL_SHAPES = [(1, 3, 4, 24, 20, 3, 0.0), (2, 3, 2, 70, 33, 1, 0.37), (2, 3, 3, 200, 200, 3, 0.0),
+                 (1, 2, 3, 36, 28, 2, 0.37), (2, 3, 3, 200, 200, 1, 0.37), (1, 2, 18, 24, 20, 2, 0.37)]
+
+
+@pytest.mark.parametrize("b,t,c,h,w,kt,lam", NORMAL_SHAPES)
 def test_normal_kernel_matches_plain(dev, b, t, c, h, w, kt, lam):
     from cinemri_tpu_torch.ops.kernels import normal_cuda
     from cinemri_tpu_torch.physics.operators import masked_normal_kernel
@@ -142,8 +150,7 @@ def test_normal_kernel_matches_plain(dev, b, t, c, h, w, kt, lam):
     _close(got, normal_cuda.normal_apply_torch(*args))
 
 
-@pytest.mark.parametrize("b,t,c,h,w,kt,lam", [(2, 3, 2, 70, 33, 1, 0.37),
-                                              (1, 4, 3, 24, 20, 4, 0.0)])
+@pytest.mark.parametrize("b,t,c,h,w,kt,lam", NORMAL_SHAPES + [(1, 4, 3, 24, 20, 4, 0.0)])
 def test_normal_bwd_kernel_matches_plain(dev, b, t, c, h, w, kt, lam):
     from cinemri_tpu_torch.ops.kernels import normal_cuda
     from cinemri_tpu_torch.physics.operators import masked_normal_kernel

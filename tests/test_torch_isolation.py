@@ -57,20 +57,36 @@ def test_port_imports_no_jax_and_builds_nothing():
     assert not out["triton"]
 
 
-def test_chip_smoke_imports_no_jax():
-    """chip_smoke.py exits before any result without a CUDA device, and its
-    imports hold no JAX."""
+def _run_without_cuda(script, *args):
+    """Run ``script`` as __main__ with no CUDA device visible: its exit code
+    and the JAX-package modules it imported."""
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
     code = ("import runpy, sys, json\n"
+            f"sys.argv = {[script, *args]!r}\n"
             "try:\n"
-            "    runpy.run_path('chip_smoke.py', run_name='__main__')\n"
+            f"    runpy.run_path({script!r}, run_name='__main__')\n"
             "except SystemExit as e:\n"
             "    code = e.code\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'cinemri_tpu'))\n"
             "print(json.dumps({'code': code, 'bad': bad}))\n")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                           env=env, cwd=str(ROOT), timeout=300)
-    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    return json.loads(proc.stdout.strip().splitlines()[-1]), proc.stdout
+
+
+def test_chip_smoke_imports_no_jax():
+    """chip_smoke.py exits before any result without a CUDA device, and its
+    imports hold no JAX."""
+    out, stdout = _run_without_cuda("chip_smoke.py")
     assert out["code"] not in (0, None)
     assert out["bad"] == []
-    assert '"ok": true' not in proc.stdout
+    assert '"ok": true' not in stdout
+
+
+def test_kernel_ab_imports_no_jax():
+    """kernel_ab.py exits before timing anything without a CUDA device, and
+    its imports hold no JAX."""
+    out, stdout = _run_without_cuda("kernel_ab.py", ".")
+    assert out["code"] not in (0, None)
+    assert out["bad"] == []
+    assert "[ab]" not in stdout

@@ -329,6 +329,27 @@ class TestOpstats:
         assert kinds["fft2_plane (port kernel)"] == {"ms": 0.001, "count": 1}
         assert "conv / gemm (cuDNN, cuBLAS)" not in kinds
 
+    def test_normal_kernel_names_fold_to_their_kinds(self):
+        """The normal apply's three kernels and its backward's six, whose
+        contraction names hold the tile engine (cgemm::Tile), fold to the two
+        normal-apply kinds, not to gemm."""
+        from cinemri_tpu_torch.instrument import opstats
+
+        tile = "cgemm::Tile<128, 40, 8, 8, 5, 3, 4, 1>"
+        fwd = ["void (anonymous namespace)::normal_apply_products_kernel<4>(float const*, ...)",
+               f"void (anonymous namespace)::normal_apply_contract_kernel<{tile}, 4>(float const*, ...)",
+               "void (anonymous namespace)::normal_apply_reduce_kernel<4>(float const*, ...)"]
+        bwd = ["void (anonymous namespace)::normal_apply_bwd_products_kernel<4>(float const*, ...)",
+               f"void (anonymous namespace)::normal_apply_bwd_contract_kernel<{tile}, 4, true>(...)",
+               f"void (anonymous namespace)::normal_apply_bwd_contract_kernel<{tile}, 4, false>(...)",
+               "void (anonymous namespace)::normal_apply_bwd_xbar_kernel<4>(float const*, ...)",
+               "void (anonymous namespace)::normal_apply_bwd_sbar_kernel<4>(float const*, ...)",
+               "void (anonymous namespace)::normal_apply_bwd_lambda_kernel<4>(float const*, ...)"]
+        kinds = opstats.fold_by_kind([(n, 0.0, 1.0) for n in fwd + bwd])
+        assert kinds["normal_apply (port kernels)"] == {"ms": 0.003, "count": 3}
+        assert kinds["normal_apply_bwd (port kernels)"] == {"ms": 0.006, "count": 6}
+        assert set(kinds) == {"normal_apply (port kernels)", "normal_apply_bwd (port kernels)"}
+
 
 class TestLowFreq:
     def test_center_band_matches_jax(self):

@@ -213,6 +213,36 @@ class TestNormalApplyBackward:
             np.testing.assert_allclose(g_.numpy(), np.asarray(w_), **self.TOL)
         np.testing.assert_allclose(got[4].sum().item(), float(lbar), **self.TOL)
 
+    @pytest.mark.parametrize("b", [1, 2])
+    @pytest.mark.parametrize("kt", [1, 3])
+    def test_kernel_passes_match_jax(self, rng, b, kt):
+        """The passes that the CUDA kernels implement, composed in plain
+        PyTorch (products, the coil-stacked per-frame contraction and the
+        coil reduction; for the backward ȳ with Kᴴ, z, the pass per pixel
+        and λ̄'s partials), against the JAX ``normal_apply_pallas`` and its
+        custom VJP in interpret mode."""
+        import jax
+
+        arrays, (gr, gi) = self._inputs(rng, b, kt)
+        lam = 0.21
+        old = NP._INTERPRET
+        try:
+            NP._INTERPRET = True
+            out, vjp = jax.vjp(NP.normal_apply_pallas, *map(jnp.asarray, arrays), jnp.float32(lam))
+            xbr, xbi, _, _, sbr, sbi, lbar = vjp((jnp.asarray(gr), jnp.asarray(gi)))
+        finally:
+            NP._INTERPRET = old
+        xr, xi, kr, ki, sr, si = map(torch.from_numpy, arrays)
+        got = normal_cuda.normal_apply_passes(xr, xi, kr, ki, sr, si, lam)
+        for g_, w_ in zip(got, out):
+            np.testing.assert_allclose(g_.numpy(), np.asarray(w_), **self.TOL)
+        got = normal_cuda.normal_apply_bwd_passes(xr, xi, torch.from_numpy(gr), torch.from_numpy(gi),
+                                                  kr, ki, sr, si, lam)
+        for g_, w_ in zip(got[:4], (xbr, xbi, sbr, sbi)):
+            np.testing.assert_allclose(g_.numpy(), np.asarray(w_), **self.TOL)
+        assert got[4].shape == (b, 3)
+        np.testing.assert_allclose(got[4].sum().item(), float(lbar), **self.TOL)
+
     @pytest.mark.parametrize("b,kt", [(1, 3), (2, 1)])
     def test_matches_autograd_of_plain_forward(self, rng, b, kt):
         arrays, (gr, gi) = self._inputs(rng, b, kt)
