@@ -129,7 +129,14 @@ class CineNet(nn.Module):
     def forward(self, masked_kspace: Complex, mask: torch.Tensor,
                 sens_maps: Complex) -> torch.Tensor:
         image_ref = sens_reduce(masked_kspace, sens_maps)  # (b, t, 1, h, w)
-        dc_kernel = masked_normal_kernel(mask) if self.kernel_dc and is_line_mask(mask) else None
+        dc_kernel = None
+        if self.kernel_dc and is_line_mask(mask):
+            # K and the maps at batch b once, so no CG apply copies them
+            b = masked_kspace.shape[0]
+            batched = lambda a: a.expand(b, *a.shape[1:]).contiguous()
+            k = masked_normal_kernel(mask)
+            dc_kernel = Complex(batched(k.re), batched(k.im))
+            sens_maps = Complex(batched(sens_maps.re), batched(sens_maps.im))
         x = image_ref
         for i in range(self.num_cascades):
             x = call_remat(self.cascades, self.remat, x, self.lambda_reg[i], image_ref, mask,

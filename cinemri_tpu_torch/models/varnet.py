@@ -29,7 +29,7 @@ from cinemri_tpu_torch.models.remat import call_remat, check_remat_policy
 from cinemri_tpu_torch.ops.coil import rss_complex
 from cinemri_tpu_torch.ops.cplx import Complex, cmean
 from cinemri_tpu_torch.ops.fft import fft1c, ifft1c, ifft2c
-from cinemri_tpu_torch.physics.lowfreq import center_band_rows, mask_center_band
+from cinemri_tpu_torch.physics.lowfreq import low_frequency_kspace
 from cinemri_tpu_torch.physics.operators import (
     coil_weight,
     is_line_mask,
@@ -59,10 +59,7 @@ class SensitivityModel(nn.Module):
         self.norm_unet = NormUnet(chans, num_pools, packed=packed)
 
     def forward(self, masked_kspace: Complex, mask: torch.Tensor) -> Complex:
-        # one band per sample, from that sample's frame 0
-        pad, num_low = center_band_rows(mask[:, 0, 0, :, 0])
-        x = mask_center_band(cmean(masked_kspace, axis=1), pad, num_low, axis=-2)
-        x = ifft2c(x)  # (b, c, h, w)
+        x = ifft2c(low_frequency_kspace(masked_kspace, mask))  # (b, c, h, w), a band per sample
         b, c, h, w = x.shape
         x = self.norm_unet(x.reshape(b * c, h, w)).reshape(b, c, h, w)
         x = x / rss_complex(x, axis=1)[:, None]

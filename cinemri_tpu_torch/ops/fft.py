@@ -39,7 +39,19 @@ __all__ = [
     "ifft1c",
     "fft2c",
     "ifft2c",
+    "fftshift",
+    "ifftshift",
 ]
+
+
+def fftshift(x, axes=None) -> torch.Tensor:
+    """``torch.fft.fftshift`` with numpy's ``axes`` keyword (all axes by default)."""
+    return torch.fft.fftshift(torch.as_tensor(x), dim=axes)
+
+
+def ifftshift(x, axes=None) -> torch.Tensor:
+    """``torch.fft.ifftshift`` with numpy's ``axes`` keyword (all axes by default)."""
+    return torch.fft.ifftshift(torch.as_tensor(x), dim=axes)
 
 # Backend of the Complex-pair DFT product, forward and backward: "kernel"
 # sends CUDA tensors to the hand-written CUDA kernel (CPU tensors to its

@@ -15,4 +15,9 @@ from cinemri_tpu_torch.physics.operators import (  # noqa: F401
     set_normal_backend,
     soft_dc,
     soft_dc_image_kernel,
+    soft_sense_expand,
+    soft_sense_recon,
+    soft_sense_reduce,
+    soft_sense_rss,
 )
+from cinemri_tpu_torch.physics.lowfreq import low_frequency_kspace  # noqa: F401

@@ -20,7 +20,9 @@ from typing import Tuple
 
 import torch
 
-__all__ = ["center_band", "center_band_rows", "mask_center_band"]
+from cinemri_tpu_torch.ops.cplx import Complex, cmean
+
+__all__ = ["center_band", "center_band_rows", "mask_center_band", "low_frequency_kspace"]
 
 
 def center_band_rows(m: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -58,3 +60,18 @@ def mask_center_band(
     shape = list(pad.shape) + [1] * (x.ndim - pad.ndim)
     shape[axis % x.ndim] = h
     return x * band.reshape(shape).to(x.dtype)
+
+
+def low_frequency_kspace(kspace, mask: torch.Tensor):
+    """Time-averaged k-space restricted to the fully-sampled central band.
+
+    Input ``(b, t, c, h, w)`` (Complex or a complex tensor) -> ``(b, c, h,
+    w)`` (time collapsed). The band of each sample is read from frame 0 of
+    its own mask (``mask`` of batch b or 1), as the JAX package's VarNet
+    computes it (a vmap over the batch). The JAX package's function reads
+    sample 0's band for the whole batch: the same for one volume or a shared
+    mask.
+    """
+    pad, num_low = center_band_rows(mask[:, 0, 0, :, 0])
+    x = cmean(kspace, axis=1) if isinstance(kspace, Complex) else kspace.mean(dim=1)
+    return mask_center_band(x, pad, num_low, axis=-2)

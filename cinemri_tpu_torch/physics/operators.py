@@ -1,7 +1,7 @@
 """MRI encoding-operator algebra on Complex (re, im) pairs.
 
 Counterpart of ``cinemri_tpu/physics/operators.py`` (the VarNet and CineNet
-subset).
+subset, and the soft-SENSE operators over multi-set ESPIRiT maps).
 
 Shapes: k-space ``(b, t, c, h, w)`` Complex; sensitivity maps
 ``(b, 1, c, h, w)`` Complex; coil-combined images ``(b, t, 1, h, w)``
@@ -22,6 +22,7 @@ import torch
 from cinemri_tpu_torch.ops.cplx import Complex, csum
 from cinemri_tpu_torch.ops.fft import _dft_tensors, fft2c, ifft2c
 from cinemri_tpu_torch.ops.kernels import normal_cuda
+from cinemri_tpu_torch.physics.cg import conj_grad
 
 __all__ = [
     "sens_expand",
@@ -36,6 +37,10 @@ __all__ = [
     "soft_dc_image_kernel",
     "set_normal_backend",
     "get_normal_backend",
+    "soft_sense_expand",
+    "soft_sense_reduce",
+    "soft_sense_rss",
+    "soft_sense_recon",
 ]
 
 COIL_AXIS = 2
@@ -128,14 +133,22 @@ def normal_plus_lambda_kernel(x: Complex, kernel: Complex, sens_maps: Complex, l
     ``x``, ``sens_maps`` and a tensor ``lam``; the kernel matrix is
     detached, as the JAX package stop-gradients it (it derives from the
     never-learned mask).
+
+    A ``kernel`` or ``sens_maps`` of batch 1 is shared by the ``b`` volumes
+    of ``x``, as the JAX package broadcasts it: it is copied to batch ``b``
+    for the call (the CUDA kernel takes one K and one S per volume), and
+    the gradient of shared maps sums over the batch. Callers that apply
+    the operator many times (CineNet's CG) expand them once beforehand.
     """
+    b = x.shape[0]
+    batched = lambda a: a.expand(b, *a.shape[1:]).contiguous()  # no copy at batch b
     outr, outi = normal_cuda.NormalApply.apply(
         x.re[:, :, 0].contiguous(),
         x.im[:, :, 0].contiguous(),
-        kernel.re.detach().contiguous(),
-        kernel.im.detach().contiguous(),
-        sens_maps.re[:, 0].contiguous(),
-        sens_maps.im[:, 0].contiguous(),
+        batched(kernel.re.detach()),
+        batched(kernel.im.detach()),
+        batched(sens_maps.re[:, 0]),
+        batched(sens_maps.im[:, 0]),
         lam,
         _NORMAL_BACKEND == "torch",
     )
@@ -157,3 +170,60 @@ def soft_dc_image_kernel(
     alpha = v / (1 + v)
     n = normal_plus_lambda_kernel(model_out, kernel, sens_maps, 0.0)
     return model_out * rss_sq - alpha * n + alpha * x_ref
+
+
+def soft_sense_expand(components: Complex, sens_maps_multi: Complex) -> Complex:
+    """Soft-SENSE forward: component images -> multi-coil k-space.
+
+    ``components``: (b, t, m, h, w) Complex — one image per ESPIRiT
+    eigenvector set (data/espirit.py::espirit_maps_multi);
+    ``sens_maps_multi``: (b, m, c, h, w). Returns ``F Σ_m S_m ⊙ x_m``
+    of shape (b, t, c, h, w). With m=1 this is exactly :func:`sens_expand`.
+    Soft-SENSE (Uecker et al. 2014) models aliased-FOV acquisitions the
+    reference's hard single-map model cannot represent; out of reference
+    scope, adjoint-tested against :func:`soft_sense_reduce`.
+    """
+    coil = csum(components[:, :, :, None] * sens_maps_multi[:, None], axis=2)  # (b, t, c, h, w)
+    return fft2c(coil)
+
+
+def soft_sense_reduce(kspace: Complex, sens_maps_multi: Complex) -> Complex:
+    """Soft-SENSE adjoint: multi-coil k-space -> per-set component images.
+
+    ``kspace``: (b, t, c, h, w); ``sens_maps_multi``: (b, m, c, h, w).
+    Returns (b, t, m, h, w): ``x_m = Σ_c conj(S_m) ⊙ F⁻¹ k``. With m=1
+    this is exactly :func:`sens_reduce`.
+    """
+    img = ifft2c(kspace)  # (b, t, c, h, w)
+    return csum(img[:, :, None] * sens_maps_multi[:, None].conj(), axis=3)
+
+
+def soft_sense_rss(components: Complex) -> torch.Tensor:
+    """Magnitude recon from soft-SENSE components: sqrt(Σ_m |x_m|²)."""
+    return torch.sqrt(components.abs_sq().sum(dim=2))
+
+
+def soft_sense_recon(
+    masked_kspace: Complex, mask: torch.Tensor, sens_maps_multi: Complex, lam: float = 1e-2,
+    iters: int = 10, return_components: bool = False,
+):
+    """CG-SENSE reconstruction over multiple ESPIRiT map sets.
+
+    Solves ``(Aᴴ M A + λ) x = Aᴴ y`` for the component images
+    ``x: (b, t, m, h, w)`` with ``A = soft_sense_expand`` by
+    :func:`~cinemri_tpu_torch.physics.cg.conj_grad` from ``x0 = Aᴴ y``, and
+    returns the RSS-combined magnitude (b, t, h, w). Every DFT goes through
+    ``fft2c``/``ifft2c``: 2 for the right-hand side and 4 per operator
+    apply, ``iters + 1`` applies. With m=1 this is plain CG-SENSE.
+    """
+    y = apply_mask(masked_kspace, mask)
+    rhs = soft_sense_reduce(y, sens_maps_multi)
+
+    def normal(x):
+        k = apply_mask(soft_sense_expand(x, sens_maps_multi), mask)
+        return soft_sense_reduce(k, sens_maps_multi) + lam * x
+
+    x = conj_grad(normal, rhs, rhs, iters=iters)
+    if return_components:
+        return x
+    return soft_sense_rss(x)

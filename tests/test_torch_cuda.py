@@ -299,3 +299,64 @@ def test_small_cinenet_kernels_match_plain(dev):
         F.set_dft_backend("kernel")
         OPS.set_normal_backend("kernel")
     assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item()
+
+
+def test_shared_kernel_and_maps_match_plain(dev):
+    """b = 2 volumes sharing a batch-1 K and a batch-1 S (ROADMAP Queue 3):
+    the operator copies them to batch 2 and the kernel runs; values and the
+    gradients (x, the shared S, λ) against the plain versions."""
+    from cinemri_tpu_torch.ops.cplx import Complex
+    from cinemri_tpu_torch.ops.kernels import normal_cuda
+    from cinemri_tpu_torch.physics import operators as OPS
+
+    g = torch.Generator(device=dev).manual_seed(7)
+    r = lambda *s: torch.randn(s, generator=g, device=dev)
+    kern = OPS.masked_normal_kernel((torch.rand(1, 1, 1, 40, 1, generator=g, device=dev) < 0.4).float())
+    x, s = (r(2, 3, 1, 40, 24), r(2, 3, 1, 40, 24)), (r(1, 1, 3, 40, 24), r(1, 1, 3, 40, 24))
+    cr, ci = r(2, 3, 1, 40, 24), r(2, 3, 1, 40, 24)
+    results = []
+    for backend in ("kernel", "torch"):
+        leaves = [a.clone().requires_grad_(True) for a in (*x, *s)]
+        lam = torch.tensor(0.3, device=dev, requires_grad=True)
+        before = normal_cuda.LAUNCHES
+        try:
+            OPS.set_normal_backend(backend)
+            out = OPS.normal_plus_lambda_kernel(Complex(*leaves[:2]), kern, Complex(*leaves[2:]), lam)
+            ((out.re * cr).sum() + (out.im * ci).sum()).backward()
+        finally:
+            OPS.set_normal_backend("kernel")
+        assert normal_cuda.LAUNCHES - before == (1 if backend == "kernel" else 0)
+        assert leaves[2].grad.shape == (1, 1, 3, 40, 24)
+        results.append((out.re.detach(), out.im.detach(), *(a.grad for a in leaves), lam.grad))
+    got, want = results
+    _close(got[:2], want[:2])
+    _close(got[2:4], want[2:4])
+    _close(got[4:6], want[4:6])
+    torch.testing.assert_close(got[6], want[6], rtol=1e-5, atol=0)
+
+
+def test_small_soft_sense_recon_matches_plain(dev):
+    """The soft-SENSE CG reconstruction through the DFT kernel (2 + 4 x
+    (iters + 1) launches) against the plain versions, to 1e-4 x max |out|."""
+    from cinemri_tpu_torch.ops import fft as F
+    from cinemri_tpu_torch.ops.cplx import Complex
+    from cinemri_tpu_torch.ops.kernels import dft_cuda
+    from cinemri_tpu_torch.physics import operators as OPS
+
+    rng = np.random.default_rng(8)
+    b, t, m, c, h, w = 1, 3, 2, 4, 40, 24
+    f = lambda a: torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)).to(dev)
+    cplx = lambda *shape: rng.standard_normal(shape) + 1j * rng.standard_normal(shape)
+    mask = (rng.random((b, t, 1, h, 1)) < 0.5).astype(np.float32)
+    k, s = cplx(b, t, c, h, w) * mask, cplx(b, m, c, h, w)
+    args = (Complex(f(k.real), f(k.imag)), f(mask), Complex(f(s.real), f(s.imag)))
+    before = dft_cuda.LAUNCHES
+    got = OPS.soft_sense_recon(*args, lam=1e-2, iters=5)
+    assert dft_cuda.LAUNCHES - before == 2 + 4 * 6
+    try:
+        F.set_dft_backend("torch")
+        want = OPS.soft_sense_recon(*args, lam=1e-2, iters=5)
+    finally:
+        F.set_dft_backend("kernel")
+    assert got.shape == (b, t, h, w)
+    assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item()

@@ -1,5 +1,5 @@
-"""The port imports nothing of JAX or of the JAX package, and builds or loads
-no kernel on import."""
+"""The port imports nothing of JAX, of the JAX package or of h5py, and builds
+or loads no kernel or native library on import."""
 
 import json
 import os
@@ -10,22 +10,30 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent.parent
 
 _PROBE = r"""
-import importlib, json, pkgutil, subprocess, sys
-spawned = []
+import ctypes, importlib, json, pkgutil, subprocess, sys
+spawned, dlopened = [], []
 class _Spy(subprocess.Popen):
     def __init__(self, args, *a, **k):
         spawned.append(str(args))
         super().__init__(args, *a, **k)
 subprocess.Popen = _Spy
+class _CDLL(ctypes.CDLL):
+    def __init__(self, name, *a, **k):
+        if "cinemri" in str(name):  # the port's libraries (torch dlopens its own)
+            dlopened.append(str(name))
+        super().__init__(name, *a, **k)
+ctypes.CDLL = _CDLL
 import cinemri_tpu_torch
 from cinemri_tpu_torch.ops.kernels import _build
 mods = []
 for info in pkgutil.walk_packages(cinemri_tpu_torch.__path__, "cinemri_tpu_torch."):
     importlib.import_module(info.name)
     mods.append(info.name)
+import cinemri_tpu_torch.native as native
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "cinemri_tpu"))
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "cinemri_tpu", "h5py"))
 print(json.dumps({"modules": mods, "bad": bad, "loaded": sorted(_build._LIBS),
+                  "native_loaded": native._handle is not None, "dlopened": dlopened,
                   "triton": "triton" in sys.modules, "spawned": spawned}))
 """
 
@@ -49,11 +57,20 @@ def test_port_imports_no_jax_and_builds_nothing():
                  "cinemri_tpu_torch.train.step",
                  "cinemri_tpu_torch.models.cinenet",
                  "cinemri_tpu_torch.physics.cg",
-                 "cinemri_tpu_torch.ops.kernels.fft2_cuda"):
+                 "cinemri_tpu_torch.ops.kernels.fft2_cuda",
+                 "cinemri_tpu_torch.ops.complex",
+                 "cinemri_tpu_torch.native",
+                 "cinemri_tpu_torch.data",
+                 "cinemri_tpu_torch.data.dataset",
+                 "cinemri_tpu_torch.data.espirit",
+                 "cinemri_tpu_torch.data.compress",
+                 "cinemri_tpu_torch.data.synthetic",
+                 "cinemri_tpu_torch.data.sharding"):
         assert name in out["modules"]
-    assert out["bad"] == []
+    assert out["bad"] == []  # no JAX, no JAX package, no h5py
     assert out["loaded"] == []  # no kernel library loaded
-    assert out["spawned"] == []  # no compiler started
+    assert not out["native_loaded"] and out["dlopened"] == []  # no library loaded at all
+    assert out["spawned"] == []  # no compiler started: neither nvcc nor g++
     assert not out["triton"]
 
 

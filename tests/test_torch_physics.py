@@ -17,7 +17,7 @@ from cinemri_tpu.ops.cplx import Complex as JComplex
 from cinemri_tpu.ops.cplx import to_numpy as j_to_numpy
 
 import cinemri_tpu_torch.physics.operators as TO
-from cinemri_tpu_torch.ops.cplx import from_complex, to_numpy
+from cinemri_tpu_torch.ops.cplx import Complex, from_complex, to_numpy
 from cinemri_tpu_torch.ops.kernels import normal_cuda
 
 torch.set_num_threads(2)
@@ -294,3 +294,234 @@ class TestNormalApplyBackward:
         for g_, w_ in zip(got, want):
             np.testing.assert_allclose(g_.numpy(), np.asarray(w_), **self.TOL)
         assert got[5] is None
+
+
+class TestSharedKernelAndMaps:
+    """A K (and maps) of batch 1 shared by b volumes, which the JAX operator
+    broadcasts: the operator copies them to batch b for the normal apply,
+    whose kernel takes one K and one S per volume."""
+
+    def _recording(self, monkeypatch):
+        shapes = []
+        real = normal_cuda.NormalApply.apply
+
+        def record(xr, xi, kr, ki, sr, si, *rest):
+            shapes.append((tuple(kr.shape), tuple(sr.shape)))
+            return real(xr, xi, kr, ki, sr, si, *rest)
+
+        monkeypatch.setattr(normal_cuda.NormalApply, "apply", record)
+        return shapes
+
+    def test_normal_apply_receives_batch_b(self, rng, monkeypatch):
+        shapes = self._recording(monkeypatch)
+        x, s = c64(rng, 2, 3, 1, 16, 12), c64(rng, 1, 1, 4, 16, 12)
+        m = line_mask(rng, 1, 1, 16)
+        want = j_to_numpy(JO.normal_plus_lambda_kernel(jc(x), JO.masked_normal_kernel(jnp.asarray(m)),
+                                                        jc(s), 0.3))
+        got = TO.normal_plus_lambda_kernel(from_complex(x), TO.masked_normal_kernel(torch.from_numpy(m)),
+                                           from_complex(s), 0.3)
+        assert shapes == [((2, 1, 16, 16), (2, 4, 16, 12))]
+        np.testing.assert_allclose(to_numpy(got), want, **TOL)
+
+    def test_shared_maps_grads_sum_over_the_batch(self, rng):
+        """Gradients with respect to a batch-1 S (and x, λ) against
+        ``jax.grad`` of the JAX operator, which broadcasts S."""
+        import jax
+
+        x, s = c64(rng, 2, 3, 1, 16, 12), c64(rng, 1, 1, 3, 16, 12)
+        m = line_mask(rng, 1, 3, 16)
+        gr = rng.standard_normal(x.shape).astype(np.float32)
+        gi = rng.standard_normal(x.shape).astype(np.float32)
+        kern_j = JO.masked_normal_kernel(jnp.asarray(m))
+
+        def loss_j(xre, xim, sre, sim, lam):
+            out = JO.normal_plus_lambda_kernel(JComplex(xre, xim), kern_j, JComplex(sre, sim), lam)
+            return jnp.sum(out.re * gr) + jnp.sum(out.im * gi)
+
+        arrays = [a.astype(np.float32) for a in (x.real, x.imag, s.real, s.imag)]
+        want = jax.grad(loss_j, argnums=(0, 1, 2, 3, 4))(*map(jnp.asarray, arrays), jnp.float32(0.4))
+        leaves = [torch.from_numpy(a).requires_grad_(True) for a in arrays]
+        lam = torch.tensor(0.4, requires_grad=True)
+        out = TO.normal_plus_lambda_kernel(Complex(*leaves[:2]), TO.masked_normal_kernel(torch.from_numpy(m)),
+                                           Complex(*leaves[2:]), lam)
+        loss = (out.re * torch.from_numpy(gr)).sum() + (out.im * torch.from_numpy(gi)).sum()
+        got = torch.autograd.grad(loss, (*leaves, lam))
+        assert got[2].shape == (1, 1, 3, 16, 12)
+        for g_, w_ in zip(got, want):
+            np.testing.assert_allclose(g_.numpy(), np.asarray(w_), rtol=2e-4, atol=2e-4)
+
+    def test_cinenet_with_a_shared_mask_matches_jax(self, monkeypatch):
+        """The case of ROADMAP Queue 3: CineNet-XF (2 cascades, 2 CG
+        iterations, chans 4, pools 2), b = 2, t = 4, c = 3, 16x16, one mask
+        (1, 1, 1, h, 1) for both volumes, data seed 1, against the JAX
+        package at the model tolerance 1e-4 x max |out|; every CG apply gets
+        a batch-2 K and S built once per forward."""
+        import jax
+
+        from cinemri_tpu.data.masks import RandomMask as JRandomMask
+        from cinemri_tpu.models import build_model as j_build_model
+
+        from cinemri_tpu_torch.interop.flax_params import cinenet_state_dict
+        from cinemri_tpu_torch.models import build_model
+
+        rng = np.random.default_rng(1)
+        b, t, c, h, w = 2, 4, 3, 16, 16
+        mask = JRandomMask([4], [2])(1, h, seed=1)[None].astype(np.float32)  # (1, 1, 1, h, 1)
+        k = c64(rng, b, t, c, h, w) * mask
+        s = c64(rng, b, 1, c, h, w)
+        s /= np.sqrt((np.abs(s) ** 2).sum(2, keepdims=True))
+        cfg = dict(num_cascades=2, cg_iters=2, chans=4, pools=2)
+        jm = j_build_model("cinenet", "XF", **cfg)
+        params = jm.init(jax.random.PRNGKey(1), jc(k), jnp.asarray(mask), jc(s))
+        want = np.asarray(jm.apply(params, jc(k), jnp.asarray(mask), jc(s)))
+        model = build_model("cinenet", "XF", device="cpu", **cfg)
+        model.load_state_dict(cinenet_state_dict(jax.tree.map(np.asarray, params)))
+        shapes = self._recording(monkeypatch)
+        data_ptrs = set()
+        real_kernel = TO.normal_plus_lambda_kernel
+
+        def spy(x, kernel, sens_maps, lam):
+            data_ptrs.add((kernel.re.data_ptr(), sens_maps.re.data_ptr()))
+            return real_kernel(x, kernel, sens_maps, lam)
+
+        monkeypatch.setattr("cinemri_tpu_torch.models.cinenet.normal_plus_lambda_kernel", spy)
+        with torch.inference_mode():
+            got = model(from_complex(k), torch.from_numpy(mask), from_complex(s)).numpy()
+        assert got.shape == (b, t, h, w)
+        assert set(shapes) == {((b, 1, h, h), (b, c, h, w))} and len(shapes) == 2 * (1 + 2)
+        assert len(data_ptrs) == 1  # one K and one S for every apply of the forward
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-4 * np.abs(want).max())
+
+
+class TestHostAdapters:
+    """``ops/complex.py``, ``ops/fft.py``'s shifts and
+    ``physics/lowfreq.py::low_frequency_kspace`` against the JAX package."""
+
+    def test_complex_layouts_match_jax(self, rng):
+        from cinemri_tpu.ops import complex as JCX
+
+        from cinemri_tpu_torch.ops import complex as CX
+
+        x = c64(rng, 2, 3, 4)
+        xt = torch.from_numpy(x)
+        np.testing.assert_array_equal(CX.to_real2(xt).numpy(), np.asarray(JCX.to_real2(jnp.asarray(x))))
+        r2 = rng.standard_normal((3, 5, 2))
+        got = CX.from_real2(torch.from_numpy(r2))
+        assert got.dtype == torch.complex64
+        np.testing.assert_array_equal(got.numpy(), np.asarray(JCX.from_real2(jnp.asarray(r2.astype(np.float32)))))
+        np.testing.assert_allclose(CX.complex_abs(xt).numpy(), np.asarray(JCX.complex_abs(jnp.asarray(x))),
+                                   rtol=1e-6)
+        np.testing.assert_array_equal(CX.complex_abs_sq(xt).numpy(),
+                                      np.asarray(JCX.complex_abs_sq(jnp.asarray(x))))
+        for axis in (-1, 1):
+            packed = CX.split_to_real_channels(xt, axis=axis)
+            np.testing.assert_array_equal(
+                packed.numpy(), np.asarray(JCX.split_to_real_channels(jnp.asarray(x), axis=axis)))
+            n = x.shape[axis]
+            np.testing.assert_array_equal(
+                CX.merge_real_channels(packed, n, axis=axis).numpy(),
+                np.asarray(JCX.merge_real_channels(jnp.asarray(packed.numpy()), n, axis=axis)))
+        with pytest.raises(ValueError):
+            CX.from_real2(torch.zeros(3, 3))
+        with pytest.raises(ValueError):
+            CX.merge_real_channels(torch.zeros(2, 5), 2)
+
+    @pytest.mark.parametrize("axes", [None, (-2, -1), 1, (0, 2)])
+    def test_shifts_match_jax(self, rng, axes):
+        from cinemri_tpu.ops import fft as JF
+
+        from cinemri_tpu_torch.ops import fft as F
+
+        x = c64(rng, 5, 4, 7)
+        for ours, theirs in ((F.fftshift, JF.fftshift), (F.ifftshift, JF.ifftshift)):
+            np.testing.assert_array_equal(ours(torch.from_numpy(x), axes=axes).numpy(),
+                                          np.asarray(theirs(jnp.asarray(x), axes=axes)))
+
+    def test_low_frequency_kspace_matches_jax(self, rng):
+        from cinemri_tpu.data.masks import RandomMask as JRandomMask
+        from cinemri_tpu.physics.lowfreq import low_frequency_kspace as j_lowfreq
+
+        from cinemri_tpu_torch.physics import low_frequency_kspace
+
+        """A shared mask (JAX reads sample 0's band), and one mask per sample
+        against JAX's function on each sample (as JAX's VarNet vmaps it)."""
+        k = c64(rng, 2, 4, 3, 24, 20)
+        masks = np.stack([JRandomMask([6], [2])(4, 24, seed=i) for i in (0, 5)]).astype(np.float32)
+        assert not np.array_equal(masks[0, 0], masks[1, 0])
+        for mask, want in (
+                (masks[:1], np.asarray(j_lowfreq(jnp.asarray(k), jnp.asarray(masks[:1])))),
+                (masks, np.concatenate([np.asarray(j_lowfreq(jnp.asarray(k[i:i + 1]),
+                                                             jnp.asarray(masks[i:i + 1])))
+                                        for i in range(2)]))):
+            got = low_frequency_kspace(torch.from_numpy(k), torch.from_numpy(mask))
+            np.testing.assert_allclose(got.numpy(), want, **TOL)
+            got_pair = low_frequency_kspace(from_complex(k), torch.from_numpy(mask))
+            np.testing.assert_allclose(to_numpy(got_pair), want, **TOL)
+        np.testing.assert_allclose(to_numpy(low_frequency_kspace(from_complex(k), torch.from_numpy(masks[:1]))),
+                                   j_to_numpy(j_lowfreq(jc(k), jnp.asarray(masks[:1]))), **TOL)
+
+
+class TestSoftSense:
+    """Soft-SENSE operators and the CG reconstruction against the JAX
+    package, to 1e-5 x max |value| (b = 1, t = 3, m = 2, c = 4, 16x16)."""
+
+    def _inputs(self, rng):
+        b, t, m, c, h, w = 1, 3, 2, 4, 16, 16
+        mask = line_mask(rng, b, t, h)
+        return c64(rng, b, t, m, h, w), c64(rng, b, t, c, h, w) * mask, c64(rng, b, m, c, h, w), mask
+
+    @staticmethod
+    def close(got, want):
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * np.abs(want).max())
+
+    def test_operators_match_jax(self, rng):
+        x, y, s, _ = self._inputs(rng)
+        self.close(to_numpy(TO.soft_sense_expand(from_complex(x), from_complex(s))),
+                   j_to_numpy(JO.soft_sense_expand(jc(x), jc(s))))
+        self.close(to_numpy(TO.soft_sense_reduce(from_complex(y), from_complex(s))),
+                   j_to_numpy(JO.soft_sense_reduce(jc(y), jc(s))))
+        self.close(TO.soft_sense_rss(from_complex(x)).numpy(), np.asarray(JO.soft_sense_rss(jc(x))))
+
+    def test_recon_matches_jax(self, rng):
+        _, y, s, mask = self._inputs(rng)
+        for components in (False, True):
+            want = JO.soft_sense_recon(jc(y), jnp.asarray(mask), jc(s), lam=1e-2, iters=5,
+                                       return_components=components)
+            got = TO.soft_sense_recon(from_complex(y), torch.from_numpy(mask), from_complex(s),
+                                      lam=1e-2, iters=5, return_components=components)
+            if components:
+                self.close(to_numpy(got), j_to_numpy(want))
+            else:
+                assert got.shape == (1, 3, 16, 16)
+                self.close(got.numpy(), np.asarray(want))
+
+    def test_adjoint_identity(self):
+        """⟨A x, y⟩ = ⟨x, Aᴴ y⟩ (tests/test_espirit.py's case)."""
+        rng = np.random.default_rng(7)
+        x, y, s = c64(rng, 1, 3, 2, 16, 16), c64(rng, 1, 3, 4, 16, 16), c64(rng, 1, 2, 4, 16, 16)
+        ax = to_numpy(TO.soft_sense_expand(from_complex(x), from_complex(s)))
+        aty = to_numpy(TO.soft_sense_reduce(from_complex(y), from_complex(s)))
+        np.testing.assert_allclose(np.vdot(ax, y), np.vdot(x, aty), rtol=1e-4)
+
+    def test_one_set_is_hard_sense(self):
+        rng = np.random.default_rng(8)
+        x, s, k = c64(rng, 1, 2, 1, 16, 16), c64(rng, 1, 1, 3, 16, 16), c64(rng, 1, 2, 3, 16, 16)
+        xt, st, kt = from_complex(x), from_complex(s), from_complex(k)
+        np.testing.assert_allclose(to_numpy(TO.soft_sense_expand(xt, st)),
+                                   to_numpy(TO.sens_expand(xt, st)), atol=1e-5)
+        np.testing.assert_allclose(to_numpy(TO.soft_sense_reduce(kt, st)),
+                                   to_numpy(TO.sens_reduce(kt, st)), atol=1e-5)
+
+    def test_recon_dft_launch_count(self, rng, monkeypatch):
+        """2 DFT products for the right-hand side and 4 per operator apply,
+        ``iters + 1`` applies: 46 at 10 iterations."""
+        from cinemri_tpu_torch.ops.kernels import dft_cuda
+
+        calls = []
+        real = dft_cuda.ComplexDFTMatmul.apply
+        monkeypatch.setattr(dft_cuda.ComplexDFTMatmul, "apply",
+                            lambda *a: (calls.append(tuple(a[0].shape)), real(*a))[1])
+        _, y, s, mask = self._inputs(rng)
+        TO.soft_sense_recon(from_complex(y), torch.from_numpy(mask), from_complex(s), iters=10)
+        assert len(calls) == 46
+        assert set(calls) == {(3 * 4, 16, 16), (3 * 4 * 16, 16, 1)}
