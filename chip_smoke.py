@@ -46,18 +46,31 @@ timed and profiled.
 ``[queue3]``: two volumes sharing a batch-1 K and batch-1 maps. The script
 prints whether h5py is importable; nothing here needs it.
 
+Then the training system, ``[loop]``: the flagship VarNet-XF fitted by
+``cinemri_tpu_torch.train.Trainer`` on ``[data]``'s two decoded volumes
+(held by an in-memory dataset, ``MemoryDataset``): 2 epochs of batch 1
+with validation on volume 1 and a checkpoint per epoch, through the
+kernels with the device cache, the plain versions, library calls and the
+kernels without the cache, from the same initial weights; ms per step inside
+the loop beside the bare step of ``[train]``, the host's share around it,
+validation ms per volume, host -> device bytes per step, checkpoint size
+and save time; then the latest checkpoint restored bit-identically into a
+fresh Trainer, ``test()`` (SSIMs.csv) and one ``InferenceRunner`` request
+(the three .npy files). The phase must take under 60 s of wall time.
+
 It checks that each kernel run launched every kernel as many times as the
 path calls it and that the runs agree. Any failure ends the run with a
 non-zero exit code.
 
 Output, last three lines: one JSON object with a row per kernel and run
 (``"serve"``, ``"train"``, ``"cinenet-serve"``, ``"cinenet-train"``,
-``"data-serve"``, ``"soft-sense"`` and, for
+``"data-serve"``, ``"soft-sense"``, ``"loop"`` and, for
 ``fft2_plane``, ``"check"``), the card's name and power limit as nvidia-smi
 reports them, and ``{"ok": true, "device": {...}}``. A row's ``ms``,
 ``plain_ms`` and ``library_ms`` sum CUDA-event times taken around every
 call of that function in its run (the four serve requests, the four train
-steps, or one call at each of the four check shapes); ``bound_ms`` sums the
+steps, the whole ``[loop]`` fit, or one call at each of the four check
+shapes); ``bound_ms`` sums the
 bound of each call of the kernel run. The line before them, ``[details]
 {...}``, holds the per-shape microbenchmarks and every other number.
 
@@ -70,6 +83,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import functools
+import gc
 import json
 import math
 import statistics
@@ -351,6 +365,28 @@ class Timed:
         return total, "operations" if ops >= 0.5 * total else "bytes"
 
 
+class GCTimer:
+    """Milliseconds the garbage collector ran while entered (``gc.callbacks``):
+    a full collection holds the host, and with it the kernel launches, for
+    hundreds of ms."""
+
+    def __init__(self):
+        self.ms, self._t0 = 0.0, 0.0
+
+    def __call__(self, stage, info):
+        if stage == "start":
+            self._t0 = time.perf_counter()
+        else:
+            self.ms += (time.perf_counter() - self._t0) * 1e3
+
+    def __enter__(self):
+        gc.callbacks.append(self)
+        return self
+
+    def __exit__(self, *exc):
+        gc.callbacks.remove(self)
+
+
 def flagship_inputs(torch, mask_func, seed: int, device):
     """One volume (1, 15, 10, 200, 200) from ``default_rng(seed)`` k-space
     under ``mask_func(15, 200, seed=seed)``, as the JAX package's entry
@@ -512,7 +548,8 @@ def host_data_phase():
     print(f"[data] host ms per sample: VarNetDataTransform {[round(x, 3) for x in vms]}, "
           f"CineNetDataTransform (ESPIRiT r=15) {[round(x, 3) for x in cms]}, "
           f"CineNetDataTransform(compress_coils=6) {[round(x, 3) for x in c6ms]}")
-    return dict(varnet_samples=vs, cinenet_samples=cs, cinenet6_sample=c6[0],
+    return dict(decoded=decoded, names=names, varnet_samples=vs, cinenet_samples=cs,
+                cinenet6_sample=c6[0],
                 host_cpu=cpu, h5py_importable=has_h5py, native_build_s=build_s,
                 volume_s=gen_s, preprocess_s=seconds, engines_target_rel_err=target_err,
                 engines_target_rel_err_all=float(err.max()),
@@ -590,6 +627,332 @@ def queue3_phase(torch, dev, set_backends):
     if got.shape != (b, t, h, w) or not err <= MODEL_TOL * scale:
         fail(f"queue3: the small CineNet with a shared mask disagrees: {tuple(got.shape)}, {err}")
     return result
+
+
+class MemoryDataset:
+    """``[loop]``'s dataset: decoded volumes held in memory (the card's host
+    has no h5py, so nothing reads a file), with the interface the Trainer and
+    the Loader use (``examples``, ``transform``, ``load``, ``_load_decoded``).
+    A stand-in for ``SliceDataset`` in this script, not a package feature."""
+
+    Example = collections.namedtuple("Example", "fname slice_num metadata")
+
+    def __init__(self, decoded, names, transform):
+        self.transform = transform
+        self._decoded = {Path(n): d for n, d in zip(names, decoded)}
+        self.examples = [self.Example(Path(n), 0, {"num_frames": T, "encoding_size": (H, W),
+                                                   "num_coils": C}) for n in names]
+
+    def __len__(self):
+        return len(self.examples)
+
+    def __getitem__(self, i):
+        return self.load(i)
+
+    def _load_decoded(self, fname):
+        return self._decoded[fname]
+
+    def load(self, i, mask_seed=None):
+        ex = self.examples[i]
+        d = self._load_decoded(ex.fname)
+        kwargs = {} if mask_seed is None else {"mask_seed": mask_seed}
+        return self.transform(d["kspace"], None, d["target"], {}, ex.fname.name, ex.slice_num,
+                              **kwargs)
+
+
+def loop_phase(torch, dev, data, set_backends, bare_ms, per_step, per_forward, launches):
+    """``[loop]``: the training system at full width. The flagship VarNet-XF
+    (remat on) fitted by ``Trainer.fit`` on ``[data]``'s two decoded volumes
+    (``RandomMask([10], [4])``, batch 1, 2 epochs: 4 train steps, validation
+    on volume 1 after each epoch, a checkpoint per epoch), with the CLI's
+    loader defaults (4 decode threads, prefetch 2). Four fits from the same
+    initial weights: (a) the kernels with the device cache (launches counted,
+    CUDA events around every kernel call, every step and every eval step),
+    (b) the plain versions and (c) one library call each in their slots
+    (timed the same way), (d) the kernels without the cache. Then the
+    latest checkpoint restored into a fresh Trainer (bit-identical weights
+    and Adam state), ``test()`` on volume 0 (SSIMs.csv) and one timed
+    ``InferenceRunner`` request (the three .npy files)."""
+    from cinemri_tpu_torch.cli.inference import InferenceRunner
+    from cinemri_tpu_torch.data import RandomMask, VarNetDataTransform
+    from cinemri_tpu_torch.models import build_model
+    from cinemri_tpu_torch.ops.kernels import dft_cuda, normal_cuda
+    from cinemri_tpu_torch.train import Loader, Trainer, TrainerConfig, metrics_agg
+
+    t_phase = time.perf_counter()
+    decoded, names = data["decoded"], data["names"]
+    transform = VarNetDataTransform(RandomMask([10], [4]), use_seed=False)
+    datasets = {split: MemoryDataset([decoded[i] for i in vols], [names[i] for i in vols], transform)
+                for split, vols in (("train", (0, 1)), ("val", (1,)), ("test", (0,)))}
+
+    def loader(split):
+        # the CLI's defaults: 4 decode threads, prefetch 2; eval volume-aware
+        return Loader(datasets[split], batch_size=1, shuffle=split == "train", seed=42,
+                      prefetch_size=2, num_workers=4, volume_aware=split != "train")
+
+    metric_ms = {"train": [], "val": [], "test": []}
+    phase = ["train"]
+    update = metrics_agg.MetricsAggregator.update
+
+    def timed_update(self, *args, **kwargs):
+        t0 = time.perf_counter()
+        update(self, *args, **kwargs)
+        metric_ms[phase[0]].append((time.perf_counter() - t0) * 1e3)
+
+    gc_timer = GCTimer()
+
+    def instrument(trainer):
+        """Wrap the trainer's step, eval step, placement, evaluation and
+        saves: per step the CUDA-event ms, the host ms until the step's
+        work is enqueued (``dispatch_ms``) and until it is done, the ms the
+        garbage collector ran during it, the device allocator's new
+        segments (cudaMalloc calls), loss, launches and the host ms since
+        the previous step of the epoch; per eval step the CUDA-event ms;
+        per placement the host -> device bytes."""
+        rec = dict(ms=[], host_ms=[], dispatch_ms=[], gc_ms=[], new_segments=[], loss=[],
+                   launches=[], gap_ms=[], eval_ms=[], eval_launches=[], val_wall_ms=[],
+                   h2d_bytes=[], place_ms=[], save_s=[])
+        step, evals, place, run_eval = (trainer._train_step, trainer._eval_step,
+                                        trainer._place_batch, trainer._run_eval)
+        last_end = [None]
+
+        def segments():
+            return torch.cuda.memory_stats().get("segment.all.allocated", 0)
+
+        def train_step(state, batch):
+            t0 = time.perf_counter()
+            if last_end[0] is not None:
+                rec["gap_ms"].append((t0 - last_end[0]) * 1e3)
+            before, seg, gc0 = launches(), segments(), gc_timer.ms
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            state, aux = step(state, batch)
+            e1.record()
+            rec["dispatch_ms"].append((time.perf_counter() - t0) * 1e3)
+            e1.synchronize()  # the loop waits for the loss right after anyway
+            last_end[0] = time.perf_counter()
+            rec["host_ms"].append((last_end[0] - t0) * 1e3)
+            rec["gc_ms"].append(gc_timer.ms - gc0)
+            rec["new_segments"].append(segments() - seg)
+            rec["ms"].append(e0.elapsed_time(e1))
+            rec["loss"].append(aux["loss"].item())
+            rec["launches"].append({n: v - before[n] for n, v in launches().items()})
+            return state, aux
+
+        def eval_step(state, batch):
+            before = launches()
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            aux = evals(state, batch)
+            e1.record()
+            rec["eval_ms"].append((e0, e1))
+            rec["eval_launches"].append({n: v - before[n] for n, v in launches().items()})
+            return aux
+
+        def place_batch(batch, loader_, cache=None):
+            sent, t0 = trainer.h2d_bytes, time.perf_counter()
+            out = place(batch, loader_, cache)
+            rec["place_ms"].append((time.perf_counter() - t0) * 1e3)
+            if loader_ is trainer.train_loader:
+                rec["h2d_bytes"].append(trainer.h2d_bytes - sent)
+            return out
+
+        def eval_run(loader_, epoch, split, ssim_csv=None):
+            phase[0] = split
+            t0 = time.perf_counter()
+            try:
+                return run_eval(loader_, epoch, split, ssim_csv)
+            finally:
+                rec["val_wall_ms"].append((time.perf_counter() - t0) * 1e3)
+                last_end[0] = None  # the next epoch's first step has no gap
+                phase[0] = "train"
+
+        trainer._train_step, trainer._eval_step = train_step, eval_step
+        trainer._place_batch, trainer._run_eval = place_batch, eval_run
+        if trainer.ckpt is not None:
+            save = trainer.ckpt.save
+
+            def timed_save(*args, **kwargs):
+                t0 = time.perf_counter()
+                save(*args, **kwargs)
+                rec["save_s"].append(time.perf_counter() - t0)
+
+            trainer.ckpt.save = timed_save
+        return rec
+
+    def fit(tag, tmp, cache=True, timers=()):
+        cfg = TrainerConfig(epochs=2, log_dir=None, device_data_cache=cache,
+                            ckpt_dir=tmp / "ckpt" if tag == "kernels" else None,
+                            save_path=tmp / "results")
+        trainer = Trainer(build_model("varnet", "XF", device=dev, **FLAGSHIP), cfg,
+                          train_loader=loader("train"), val_loader=loader("val"),
+                          test_loader=loader("test"), device=dev)
+        rec = instrument(trainer)
+        with contextlib.ExitStack() as stack:
+            for timer in timers:
+                stack.enter_context(timer)
+            t0 = time.perf_counter()
+            history = trainer.fit()
+            torch.cuda.synchronize()
+            rec["fit_s"] = time.perf_counter() - t0
+        rec["eval_ms"] = [e0.elapsed_time(e1) for e0, e1 in rec["eval_ms"]]
+        rec["history"] = history
+        if len(rec["loss"]) != 4 or not all(math.isfinite(x) for x in rec["loss"]):
+            fail(f"loop ({tag}): the fit took {len(rec['loss'])} steps with losses {rec['loss']}")
+        return trainer, rec
+
+    def gaps(rec, ref):
+        loss = max(abs(a - b) / abs(b) for a, b in zip(rec["loss"], ref["loss"]))
+        val = {k: max(abs(a[k] - b[k]) / abs(b[k]) for a, b in zip(rec["history"], ref["history"]))
+               for k in ("val_ssim", "val_loss", "val_nmse", "val_psnr", "train_ssim")}
+        return loss, val
+
+    metrics_agg.MetricsAggregator.update = timed_update
+    try:
+        with gc_timer, tempfile.TemporaryDirectory() as tmp:
+            tmp = Path(tmp)
+            tkern = (Timed(torch, dft_cuda, "complex_dft_matmul", dft_cost),
+                     Timed(torch, normal_cuda, "normal_apply", normal_cost),
+                     Timed(torch, normal_cuda, "normal_apply_bwd", normal_bwd_cost))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            dft_cuda.LAUNCHES = normal_cuda.LAUNCHES = normal_cuda.BWD_LAUNCHES = 0
+            trainer, kern = fit("kernels", tmp, timers=tkern)
+            fit_launches = launches()
+            peak = torch.cuda.max_memory_allocated()
+            eval_metric_ms = list(metric_ms["val"])
+            train_metric_ms = list(metric_ms["train"])
+            want_fit = {n: 4 * per_step[n] + 2 * per_forward.get(n, 0) for n in per_step}
+            print(f"[loop] kernels: launches per step {kern['launches']} (the [train] phase's "
+                  f"{per_step}), per eval step {kern['eval_launches']}; fit total {fit_launches} "
+                  f"(expected {want_fit})")
+            if (any(s != per_step for s in kern["launches"]) or fit_launches != want_fit
+                    or not all(fit_launches.values())):
+                fail(f"loop: Trainer.fit did not launch the kernels as the train phase does: "
+                     f"{kern['launches']}, {fit_launches}")
+
+            set_backends("torch")
+            tplain = (Timed(torch, dft_cuda, "complex_dft_matmul_torch", dft_cost),
+                      Timed(torch, normal_cuda, "normal_apply_torch", normal_cost),
+                      Timed(torch, normal_cuda, "normal_apply_bwd_torch", normal_bwd_cost))
+            _, plain = fit("plain", tmp, timers=tplain)
+            tlib = tuple(Timed(torch, mod, attr, cost, fn_[1], fn_[0]) for mod, attr, cost, fn_ in (
+                (dft_cuda, "complex_dft_matmul_torch", dft_cost, dft_library(torch)),
+                (normal_cuda, "normal_apply_torch", normal_cost, normal_library(torch)),
+                (normal_cuda, "normal_apply_bwd_torch", normal_bwd_cost, normal_bwd_library(torch))))
+            _, lib = fit("library", tmp, timers=tlib)
+            set_backends("kernel")
+            _, nocache = fit("no cache", tmp, cache=False)
+            results = {}
+            for label, rec in (("plain versions", plain), ("library calls", lib),
+                               ("kernels, cache off", nocache)):
+                loss_gap, val_gap = gaps(rec, kern)
+                results[label] = dict(loss_rel=loss_gap, val_rel=val_gap)
+                print(f"[loop] {label} vs kernels: per-step loss rel {loss_gap:.3e} (tol "
+                      f"{TRAIN_LOSS_TOL:.0e}); epoch metrics rel " + ", ".join(
+                          f"{k} {v:.3e}" for k, v in val_gap.items()) + " (val_ssim tol 1e-4)")
+                if label != "library calls" and not (loss_gap <= TRAIN_LOSS_TOL
+                                                     and val_gap["val_ssim"] <= 1e-4):
+                    fail(f"loop: the fit through the {label} differs from the kernel fit: "
+                         f"{loss_gap}, {val_gap}")
+
+            # the latest checkpoint into a fresh Trainer: bit-identical
+            fresh = Trainer(build_model("varnet", "XF", device=dev,
+                                        generator=torch.Generator().manual_seed(1), **FLAGSHIP),
+                            TrainerConfig(log_dir=None, ckpt_dir=tmp / "ckpt", save_path=tmp / "results"),
+                            test_loader=loader("test"), device=dev)
+            t0 = time.perf_counter()
+            next_epoch = fresh.restore_latest()
+            restore_s = time.perf_counter() - t0
+            same = [torch.equal(a, b) for a, b in zip(trainer.state.model.state_dict().values(),
+                                                      fresh.state.model.state_dict().values())]
+            for p, q in zip(trainer.state.model.parameters(), fresh.state.model.parameters()):
+                sa, sb = (t.state.optimizer.adam.state[x] for t, x in ((trainer, p), (fresh, q)))
+                same += [torch.equal(sa[k], sb[k]) for k in ("exp_avg", "exp_avg_sq", "step")]
+            same.append(fresh.state.step == trainer.state.step == 4 and next_epoch == 2)
+            ckpt_files = sorted((tmp / "ckpt").glob("*.pt"))
+            ckpt_mib = [f.stat().st_size / 2**20 for f in ckpt_files]
+            print(f"[loop] restore_latest into a fresh Trainer: {restore_s:.3f} s; {sum(same)} of "
+                  f"{len(same)} tensors and counters bit-identical; checkpoints "
+                  f"{[f.name for f in ckpt_files]}, {[round(x, 3) for x in ckpt_mib]} MiB, save s "
+                  f"{[round(x, 3) for x in kern['save_s']]}")
+            if not all(same):
+                fail("loop: the restored weights or optimizer state differ from the trained ones")
+
+            phase[0] = "test"
+            dft_cuda.LAUNCHES = normal_cuda.LAUNCHES = normal_cuda.BWD_LAUNCHES = 0
+            t0 = time.perf_counter()
+            test_metrics = fresh.test()
+            torch.cuda.synchronize()
+            test_ms = (time.perf_counter() - t0) * 1e3
+            test_launches = launches()
+            rows = (tmp / "results" / "SSIMs.csv").read_text().splitlines()
+            runner = InferenceRunner(fresh.model, None, "varnet", tmp / "results", device=dev)
+            batch = loader("test").first_batch()
+            dft_cuda.LAUNCHES = normal_cuda.LAUNCHES = normal_cuda.BWD_LAUNCHES = 0
+            runner(batch)  # warm: the serving path's first call
+            request_s = runner(batch)
+            infer_launches = launches()
+            npys = sorted(f.name for f in (tmp / "results").glob("*.npy"))
+            print(f"[loop] test(): {test_ms:.1f} ms for 1 volume, metrics {test_metrics}, launches "
+                  f"{test_launches}; SSIMs.csv rows {len(rows)}; InferenceRunner request "
+                  f"{request_s * 1e3:.3f} ms (host clock up to a synchronize), launches for two "
+                  f"requests {infer_launches}, wrote {npys}")
+            want_npys = sorted(f"{k}_{names[0]}.npy" for k in ("target", "output_varnet", "zero_filled"))
+            if (len(rows) != 1 or npys != want_npys or not 0 < test_metrics["ssim"] <= 1
+                    or test_launches != {n: per_forward.get(n, 0) for n in per_step}):
+                fail(f"loop: test/inference artifacts or launches are wrong: {rows}, {npys}, "
+                     f"{test_metrics}, {test_launches}")
+            del trainer, fresh, runner
+            torch.cuda.empty_cache()
+    finally:
+        metrics_agg.MetricsAggregator.update = update
+
+    ms_step = statistics.median(kern["ms"][1:])
+    # what a user of fit pays per train step: the fit's wall time less its
+    # validation passes, over its 4 steps (loader, placement, metrics and
+    # checkpoint saves included)
+    wall_step = (kern["fit_s"] - sum(kern["val_wall_ms"]) / 1e3) * 1e3 / 4
+    steady = kern["h2d_bytes"][2:]  # epoch 1: every sample already on the device
+    wall = time.perf_counter() - t_phase
+    out = dict(
+        kernels=kern, plain=plain, library=lib, no_cache=nocache, gaps=results,
+        ms_per_step=ms_step, bare_ms_per_step=bare_ms, overhead_ms=ms_step - bare_ms,
+        wall_ms_per_step=wall_step, wall_overhead_ms=wall_step - bare_ms,
+        host_gap_ms=kern["gap_ms"], place_ms=kern["place_ms"],
+        val_wall_ms_per_volume=kern["val_wall_ms"], val_device_ms=kern["eval_ms"],
+        val_metrics_host_ms=eval_metric_ms, train_metrics_host_ms=train_metric_ms,
+        h2d_bytes_per_step_cache=kern["h2d_bytes"], h2d_bytes_per_step_no_cache=nocache["h2d_bytes"],
+        checkpoint_save_s=kern["save_s"], checkpoint_mib=ckpt_mib, restore_s=restore_s,
+        peak_memory_bytes=peak, launches=fit_launches, test_ms=test_ms,
+        test_metrics=test_metrics, inference_request_ms=request_s * 1e3, wall_s=wall,
+        timers=(tkern, tplain, tlib))
+    print(f"[loop] kernels, cache on: {wall_step:.3f} wall ms per train step of Trainer.fit "
+          f"((fit {kern['fit_s']:.3f} s - validation {sum(kern['val_wall_ms']) / 1e3:.3f} s) / 4) vs "
+          f"the [train] phase's bare step {bare_ms:.3f} ms: {wall_step - bare_ms:+.3f} ms of loop "
+          f"overhead; the train step alone {ms_step:.3f} ms (CUDA events, median of steps 2-4; "
+          f"{[round(x, 3) for x in kern['ms']]}, {ms_step - bare_ms:+.3f} ms); host ms per step outside the step "
+          f"(metrics, loader, placement) {[round(x, 3) for x in kern['gap_ms']]}, of which placement "
+          f"{[round(x, 3) for x in kern['place_ms']]}; peak memory {peak / 2**20:.1f} MiB")
+    for label, rec in (("kernels", kern), ("plain versions", plain), ("library calls", lib),
+                       ("kernels, cache off", nocache)):
+        print(f"[loop] {label}: per step CUDA-event ms {[round(x, 3) for x in rec['ms']]}, host ms "
+              f"to enqueue {[round(x, 3) for x in rec['dispatch_ms']]} and to finish "
+              f"{[round(x, 3) for x in rec['host_ms']]}, garbage collector ms "
+              f"{[round(x, 3) for x in rec['gc_ms']]}, new allocator segments {rec['new_segments']}")
+    print(f"[loop] validation: {[round(x, 3) for x in kern['val_wall_ms']]} ms per volume (host "
+          f"clock), eval step {[round(x, 3) for x in kern['eval_ms']]} device ms; ops/metrics host "
+          f"ms per volume: validation {[round(x, 3) for x in eval_metric_ms]}, train "
+          f"{[round(x, 3) for x in train_metric_ms]}")
+    print(f"[loop] host -> device bytes per step: cache on {kern['h2d_bytes']} (epoch 1: "
+          f"{steady}), cache off {nocache['h2d_bytes']}; fits s: kernels {kern['fit_s']:.2f}, plain "
+          f"{plain['fit_s']:.2f}, library {lib['fit_s']:.2f}, cache off {nocache['fit_s']:.2f}")
+    print(f"[loop] phase wall time {wall:.1f} s (limit 60 s)")
+    if not wall < 60:
+        fail(f"loop: the phase took {wall:.1f} s of wall time, not under 60 s")
+    return out
 
 
 def main() -> int:
@@ -1060,13 +1423,14 @@ def main() -> int:
         the gradients of the first step."""
         model.load_state_dict(init)
         state = create_train_state(model, device=dev)
-        rec = dict(ms=[], loss=[], grad_norm=[], launches=[])
+        rec = dict(ms=[], loss=[], grad_norm=[], launches=[], gc_ms=[])
         grads = None
         with contextlib.ExitStack() as stack:
             for timer in timers:
                 stack.enter_context(timer)
+            gct = stack.enter_context(GCTimer())
             for i in range(steps):
-                before = launches()
+                before, gc0 = launches(), gct.ms
                 e0 = torch.cuda.Event(enable_timing=True)
                 e1 = torch.cuda.Event(enable_timing=True)
                 e0.record()
@@ -1074,6 +1438,7 @@ def main() -> int:
                 e1.record()
                 e1.synchronize()
                 rec["ms"].append(e0.elapsed_time(e1))
+                rec["gc_ms"].append(gct.ms - gc0)
                 rec["loss"].append(aux["loss"].item())
                 rec["grad_norm"].append(aux["grad_norm"].item())
                 rec["launches"].append({n: v - before[n] for n, v in launches().items()})
@@ -1204,7 +1569,8 @@ def main() -> int:
         for label, rec in (("kernels", kern_rec), ("plain versions", plain_rec),
                            ("plain versions, again", plain2_rec), ("library calls", lib_rec)):
             print(f"[{tag}] {label}: ms/step {[round(x, 3) for x in rec['ms']]}, "
-                  f"loss {rec['loss']}, grad_norm {rec['grad_norm']}")
+                  f"loss {rec['loss']}, grad_norm {rec['grad_norm']}, garbage collector ms "
+                  f"{[round(x, 3) for x in rec['gc_ms']]}")
         print(f"[{tag}] kernels, remat on: {ms_step:.3f} ms/step (median of steps 2-{TRAIN_STEPS}), "
               f"{1e3 / ms_step:.3f} volumes/s, peak memory {peak / 2**20:.1f} MiB")
 
@@ -1523,7 +1889,12 @@ def main() -> int:
     data_wall = time.perf_counter() - t_data
     print(f"[data] phases 8-11 took {data_wall:.1f} s of wall time")
 
-    # -- 12. report -------------------------------------------------------------------
+    # -- 12. the training system: Trainer.fit / restore / test / inference -------------
+    loop = loop_phase(torch, dev, data, set_backends, vtrain["ms_per_step"],
+                      vtrain["launches_per_step"], expected, launches)
+    del data["decoded"]
+
+    # -- 13. report -------------------------------------------------------------------
     def row(kernel, source, replaces, run, launches, timed, plain, library):
         b_ms, b_by = timed.bound(peak_flops, peak_bw)
         return dict(name=kernel, route="cuda", source=source, replaces=replaces, run=run,
@@ -1545,7 +1916,7 @@ def main() -> int:
         rows += [row(*dft_src, run, srv["launches"]["dft"], srv["kern"][0], srv["plain"][0], srv["lib"][0]),
                  row(*fwd_src, run, srv["launches"]["normal"], srv["kern"][1], srv["plain"][1],
                      srv["lib"][1])]
-    for run, tr in (("train", vtrain), ("cinenet-train", ctrain)):
+    for run, tr in (("train", vtrain), ("cinenet-train", ctrain), ("loop", loop)):
         tkern, tplain, tlib = tr.pop("timers")
         rows += [row(*src, run, tr["launches"][key], tkern[i], tplain[i], tlib[i])
                  for i, (src, key) in enumerate(((dft_src, "dft"), (fwd_src, "normal"),
@@ -1559,7 +1930,7 @@ def main() -> int:
         cases=cases, forward=vfwd, serve=vserve, train=vtrain,
         cinenet=dict(config=CINENET, forward=cfwd, serve=cserve, train=ctrain),
         data=data, data_serve=dserve, soft_sense=soft_sense, queue3=queue3,
-        data_phases_wall_s=data_wall)))
+        data_phases_wall_s=data_wall, loop=loop)))
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

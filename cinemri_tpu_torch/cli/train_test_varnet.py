@@ -1,0 +1,14 @@
+"""VarNet train/test entry point (reference traintest_scripts/varnet/train_test_varnet.py).
+
+    python -m cinemri_tpu_torch.cli.train_test_varnet --mode train --device cpu ...
+"""
+
+from cinemri_tpu_torch.cli.common import train_test_main
+
+
+def run_main(argv=None):
+    return train_test_main("varnet", argv)
+
+
+if __name__ == "__main__":
+    run_main()

@@ -118,6 +118,20 @@ class _BaseTransform:
         self.use_seed = use_seed
         self.compress_coils = int(compress_coils)
 
+    @property
+    def kspace_is_raw_times_mask(self) -> bool:
+        """The contract the Trainer's device cache (``train/device_cache.py``)
+        relies on: a sample's ``masked_kspace`` is its decoded volume's raw
+        k-space times its ``mask`` and nothing else, so it can be rebuilt on
+        the device from cached raw k-space and this step's mask. It holds
+        when this transform draws the mask and compresses no coils. A
+        transform without this attribute takes the host path."""
+        return self.mask_func is not None and not self.compress_coils
+
+    # the sample's maps are the same every epoch (CineNet sets it when it
+    # caches them), so the device cache may keep them
+    sens_maps_are_stable = False
+
     def _mask(self, kspace: np.ndarray, mask, fname: str, mask_seed=None):
         if self.mask_func is not None:
             if mask_seed is not None:  # parallel-decode deterministic draw
@@ -207,6 +221,10 @@ class CineNetDataTransform(_BaseTransform):
 
         self.maps_cache_dir = Path(maps_cache_dir) if maps_cache_dir else None
         self._maps_cache: Dict[str, np.ndarray] = {}
+
+    @property
+    def sens_maps_are_stable(self) -> bool:
+        return self.cache_maps
 
     def _mask_tag(self) -> str:
         """Mask-config fingerprint for the on-disk key: maps computed under

@@ -1,6 +1,7 @@
-"""Training (counterpart of ``cinemri_tpu/train``): the optimizer and the
-single-device train and eval steps. The loop, checkpoints, metrics and
-loaders come with ROADMAP Queue 1, item 9."""
+"""Training (counterpart of ``cinemri_tpu/train``): the optimizer, the
+single-device train and eval steps, the metrics aggregator, checkpoints,
+the logger, the loader and the Trainer, with the JAX package's export list
+(plus ``Optimizer``)."""
 
 from cinemri_tpu_torch.train.optim import Optimizer, make_optimizer, step_decay_schedule
 from cinemri_tpu_torch.train.step import (
@@ -9,6 +10,11 @@ from cinemri_tpu_torch.train.step import (
     make_eval_step,
     make_train_step,
 )
+from cinemri_tpu_torch.train.metrics_agg import MetricsAggregator
+from cinemri_tpu_torch.train.checkpoint import CheckpointManager
+from cinemri_tpu_torch.train.logging import TrainLogger
+from cinemri_tpu_torch.train.loader import Loader, collate
+from cinemri_tpu_torch.train.loop import Trainer, TrainerConfig
 
 __all__ = [
     "make_optimizer",
@@ -18,4 +24,11 @@ __all__ = [
     "create_train_state",
     "make_train_step",
     "make_eval_step",
+    "MetricsAggregator",
+    "CheckpointManager",
+    "TrainLogger",
+    "Loader",
+    "collate",
+    "Trainer",
+    "TrainerConfig",
 ]

@@ -1,0 +1,164 @@
+"""The port's VarNet CLI (cinemri_tpu_torch.cli) against the JAX package's on
+the CPU: the parser, the config fingerprint, the artifact names of the
+train -> test (with inference) -> visualize flow, the inference helpers,
+and the options whose path is not ported yet.
+"""
+
+import warnings
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+import yaml
+
+from cinemri_tpu.cli import common as JC
+from cinemri_tpu.cli import inference as JI
+from cinemri_tpu.cli import visualize as JV
+
+from cinemri_tpu_torch.cli import common as TC
+from cinemri_tpu_torch.cli import inference as TI
+from cinemri_tpu_torch.cli import visualize as TV
+from cinemri_tpu_torch.data.synthetic import make_synthetic_dataset
+from cinemri_tpu_torch.utils.paths import DEFAULT_CONFIG, fetch_dir
+
+torch.set_num_threads(2)
+
+TINY = ["--num_cascades", "1", "--chans", "4", "--pools", "2", "--sens_chans", "4",
+        "--sens_pools", "2", "--center_fractions", "6", "--accelerations", "2"]
+
+
+@pytest.fixture(scope="module")
+def workdir(tmp_path_factory):
+    """The JAX CLI test's tree: one 4-frame, 3-coil, 32x32 volume per split."""
+    root = tmp_path_factory.mktemp("torchcli")
+    make_synthetic_dataset(root / "data", splits=("train", "valid", "test", "inference"),
+                           volumes_per_split=1, num_frames=4, num_coils=3, h=32, w=32)
+    with open(root / "dirs_path.yaml", "w") as f:
+        yaml.dump({"data_path": str(root / "data"), "log_path": str(root / "logs"),
+                   "save_path": str(root / "results")}, f)
+    return root
+
+
+class TestParser:
+    def test_defaults_match_jax(self):
+        """Every flag of the JAX parser is kept, with its default; the port
+        adds --device (cuda)."""
+        want = vars(JC.build_parser("varnet").parse_args([]))
+        got = vars(TC.build_parser("varnet").parse_args([]))
+        assert set(got) - set(want) == {"device"}
+        assert {k: got[k] for k in want} == want
+        assert got["device"] == "cuda"
+
+    @pytest.mark.parametrize("argv", [
+        [], TINY, ["--dynamic_type", "XT"], ["--compress_coils", "6"],
+        ["--weight_sharing", "1", "--chans", "8"], ["--bf16", "1", "--lr", "3e-4"],
+    ])
+    def test_config_fingerprint_matches_jax(self, argv):
+        """The same argv names the same checkpoint directory in both packages."""
+        want = JC.config_fingerprint("varnet", JC.build_parser("varnet").parse_args(argv))
+        got = TC.config_fingerprint("varnet", TC.build_parser("varnet").parse_args(argv))
+        assert got == want and len(got) == 8
+
+    def test_num_devices_0_resolves_and_skips_the_lr_notice(self):
+        """--num_devices 0 counts the visible devices (one CPU device here):
+        the run is not refused as parallel and gets no notice."""
+        args = TC.build_parser("varnet").parse_args(["--num_devices", "0", "--device", "cpu"])
+        assert TC._resolved_devices(args) == 1
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            TC._envelope_notices("varnet", args)
+        assert not caught
+
+
+@pytest.mark.parametrize("family, argv, item", [
+    ("varnet", ["--dynamic_type", "2D"], "items 5/6"),
+    ("varnet", ["--dynamic_type", "3D"], "items 5/6"),
+    ("varnet", ["--dynamic_type", "CRNN"], "item 12"),
+    ("varnet", ["--num_devices", "2"], "item 13"),
+    ("varnet", ["--coil_devices", "2"], "item 13"),
+    ("varnet", ["--plane_devices", "2"], "item 13"),
+    ("varnet", ["--num_processes", "2"], "item 13"),
+    ("varnet", ["--coordinator_address", "localhost:1234"], "item 13"),
+    ("varnet", ["--mode", "export"], "item 14"),
+    ("varnet", ["--from_torch_ckpt", "model.ckpt"], "item 14"),
+    ("varnet", ["--bf16", "1"], "item 14"),
+    ("varnet", ["--packed", "1"], "item 14"),
+    ("varnet", ["--profile_steps", "2"], "item 14"),
+    ("cinenet", [], "item 10"),
+    ("xpdnet", [], "item 11"),
+])
+def test_unported_options_raise_naming_their_item(family, argv, item):
+    with pytest.raises(NotImplementedError, match=item):
+        TC.train_test_main(family, argv + ["--device", "cpu"])
+
+
+def test_fetch_dir_reads_and_writes_template(tmp_path):
+    cfg = tmp_path / "dirs.yaml"
+    with pytest.warns(UserWarning, match="template"):
+        assert str(fetch_dir("save_path", cfg)) == DEFAULT_CONFIG["save_path"]
+    assert yaml.safe_load(cfg.read_text()) == DEFAULT_CONFIG
+    cfg.write_text(yaml.dump({"save_path": "/x/y"}))
+    assert str(fetch_dir("save_path", cfg)) == "/x/y"
+
+
+class TestInferenceHelpers:
+    def test_zero_filled_recon_matches_jax(self, rng):
+        k = (rng.standard_normal((1, 4, 3, 16, 12)) + 1j * rng.standard_normal((1, 4, 3, 16, 12)))
+        np.testing.assert_array_equal(TI.zero_filled_recon(k), JI.zero_filled_recon(k))
+
+    @pytest.mark.parametrize("t, static_mask", [(37, False), (37, True), (10, False)])
+    def test_long_clip_matches_jax(self, rng, t, static_mask):
+        """Chunks of 15 frames, the last left-extended: a linear 'model'
+        reproduces the unchunked result, as in the JAX package."""
+        k = rng.standard_normal((1, t, 2, 8, 8)).astype(np.complex64)
+        mask = np.ones((1, 1 if static_mask else t, 1, 8, 1), np.float32)
+        forward = lambda kc, mc: np.abs(kc).sum(axis=2) * mc[:, :, 0, :, :]
+        got = TI.reconstruct_long_clip(forward, k, mask)
+        np.testing.assert_array_equal(got, JI.reconstruct_long_clip(forward, k, mask))
+        np.testing.assert_allclose(got, forward(k, mask), rtol=1e-6)
+
+
+def test_cli_flow_leaves_the_jax_flow_artifact_names(workdir, tmp_path):
+    """train (2 epochs, final checkpoint) -> test --load_model 1 --inference 1
+    -> visualize, all with --device cpu. The checkpoint directory is named
+    as the JAX flow names it (its fingerprint), and the results hold the
+    names the JAX package's InferenceRunner and visualize write for the
+    same batch (run on a stand-in model) plus SSIMs.csv."""
+    common = TINY + ["--path_config", str(workdir / "dirs_path.yaml"),
+                     "--maps_cache_dir", str(workdir / "maps"), "--device", "cpu"]
+    out = TC.train_test_main("varnet", common + ["--mode", "train", "--epochs", "2",
+                                                 "--save_checkpoint", "1"])
+    assert len(out["history"]) == 2 and np.isfinite(out["history"][-1]["train_loss"])
+    fp = JC.config_fingerprint("varnet", JC.build_parser("varnet").parse_args(TINY))
+    ckpt = workdir / "logs" / "varnet" / "varnet_logs" / "checkpoints" / f"varnet_XF_acc2_{fp}"
+    assert sorted(p.name for p in ckpt.iterdir()) == ["0.pt", "1.pt", "2.pt", "best_steps.json"]
+
+    out = TC.train_test_main("varnet", common + ["--mode", "test", "--load_model", "1",
+                                                 "--inference", "1"])
+    m = out["test_metrics"]
+    assert set(m) >= {"nmse", "ssim", "psnr", "loss"} and 0 < m["ssim"] <= 1
+    assert out["inference_seconds"] > 0
+    results = workdir / "results"
+    assert len(TV.main(["--save_path", str(results)])) == 1
+    got = sorted(str(p.relative_to(results)) for p in results.rglob("*") if p.is_file())
+
+    # the JAX package's names for the same inference batch
+    trainer = out["trainer"]
+    from cinemri_tpu_torch.data import SliceDataset
+    from cinemri_tpu_torch.train import Loader
+
+    inf = SliceDataset(workdir / "data" / "inference", transform=trainer.test_loader.dataset.transform,
+                       maps_cache_dir=workdir / "maps")
+    batch = Loader(inf, batch_size=1).first_batch()
+
+    class StandIn:  # returns the target's shape; only the names matter here
+        def apply(self, params, k, mask):
+            return jnp.zeros(k.re.shape[:2] + k.re.shape[-2:], jnp.float32)
+
+    jroot = tmp_path / "jax_results"
+    JI.InferenceRunner(StandIn(), {}, "varnet", jroot)(batch)
+    JV.main(["--save_path", str(jroot)])
+    want = sorted(str(p.relative_to(jroot)) for p in jroot.rglob("*") if p.is_file())
+    assert got == sorted(want + ["SSIMs.csv"])
+    assert len((results / "SSIMs.csv").read_text().splitlines()) == 1  # one test volume

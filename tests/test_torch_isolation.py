@@ -1,5 +1,6 @@
-"""The port imports nothing of JAX, of the JAX package or of h5py, and builds
-or loads no kernel or native library on import."""
+"""The port imports nothing of JAX, of the JAX package, of h5py, tensorboardX,
+yaml or matplotlib (the card's host has none of the last four), and builds or
+loads no kernel or native library on import."""
 
 import json
 import os
@@ -31,7 +32,8 @@ for info in pkgutil.walk_packages(cinemri_tpu_torch.__path__, "cinemri_tpu_torch
     mods.append(info.name)
 import cinemri_tpu_torch.native as native
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "cinemri_tpu", "h5py"))
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax", "cinemri_tpu", "h5py",
+                                    "tensorboardX", "yaml", "matplotlib"))
 print(json.dumps({"modules": mods, "bad": bad, "loaded": sorted(_build._LIBS),
                   "native_loaded": native._handle is not None, "dlopened": dlopened,
                   "triton": "triton" in sys.modules, "spawned": spawned}))
@@ -65,9 +67,21 @@ def test_port_imports_no_jax_and_builds_nothing():
                  "cinemri_tpu_torch.data.espirit",
                  "cinemri_tpu_torch.data.compress",
                  "cinemri_tpu_torch.data.synthetic",
-                 "cinemri_tpu_torch.data.sharding"):
+                 "cinemri_tpu_torch.data.sharding",
+                 "cinemri_tpu_torch.ops.metrics",
+                 "cinemri_tpu_torch.train.metrics_agg",
+                 "cinemri_tpu_torch.train.loader",
+                 "cinemri_tpu_torch.train.checkpoint",
+                 "cinemri_tpu_torch.train.logging",
+                 "cinemri_tpu_torch.train.device_cache",
+                 "cinemri_tpu_torch.train.loop",
+                 "cinemri_tpu_torch.utils.paths",
+                 "cinemri_tpu_torch.cli.common",
+                 "cinemri_tpu_torch.cli.train_test_varnet",
+                 "cinemri_tpu_torch.cli.inference",
+                 "cinemri_tpu_torch.cli.visualize"):
         assert name in out["modules"]
-    assert out["bad"] == []  # no JAX, no JAX package, no h5py
+    assert out["bad"] == []  # no JAX, no JAX package, no h5py/tensorboardX/yaml/matplotlib
     assert out["loaded"] == []  # no kernel library loaded
     assert not out["native_loaded"] and out["dlopened"] == []  # no library loaded at all
     assert out["spawned"] == []  # no compiler started: neither nvcc nor g++
@@ -107,3 +121,30 @@ def test_kernel_ab_imports_no_jax():
     assert out["code"] not in (0, None)
     assert out["bad"] == []
     assert "[ab]" not in stdout
+
+
+_NO_OPTIONAL = r"""
+import importlib.abc, runpy, sys
+class _Absent(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("h5py", "tensorboardX", "yaml", "matplotlib", "jax", "cinemri_tpu"):
+            raise ImportError(f"{name} is absent on this host")
+sys.meta_path.insert(0, _Absent())
+import cinemri_tpu_torch.train, cinemri_tpu_torch.cli, cinemri_tpu_torch.utils
+sys.argv = ["train_test_varnet", "--help"]
+try:
+    runpy.run_module("cinemri_tpu_torch.cli.train_test_varnet", run_name="__main__")
+except SystemExit as e:
+    print("exit", e.code)
+"""
+
+
+def test_training_slice_runs_without_the_optional_libraries():
+    """As on the card's host (no h5py, tensorboardX, yaml or matplotlib):
+    the Trainer, the CLI and the utils import, and the VarNet entry point
+    prints its help."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", _NO_OPTIONAL], capture_output=True, text=True,
+                          env=env, cwd=str(ROOT), timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert "--device" in proc.stdout and proc.stdout.strip().endswith("exit 0")
