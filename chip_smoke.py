@@ -31,6 +31,18 @@ iterations, chans 16, pools 3, with RSS-normalized sensitivity maps as
 input): the same forward, profile and serving runs, one warm forward under
 ``torch.cuda.set_sync_debug_mode("error")`` (λ stays on the device), the same
 four train runs, one profiled step and the host syncs of one step.
+XPDNet-XF (9 cascades, MWCNN 16/32/64, n_primal 5, kernel DC): the kernels
+first on its new operands (the DFT on the alt matrices at (1, 15, 240000)
+and its backward, the inverse at (1, 15, 200000), the normal apply with
+λ = 0.0 on the strided head of its channel-last buffer, and its backward),
+then the same forward (its input copies counted), profile, serving and four
+train runs, with the host syncs of one step; its forwards and its
+gradients are held against float64, as it amplifies f32 rounding (the
+sensitivity to a 1e-7 perturbation is printed). XPDNet-2D, XT and the
+``primal_only=False`` XF: one request each three ways (``[xpdnet-variants]``).
+VarNet and CineNet 2D and 3D: one request each three ways and five timed
+forwards (``[cascades-2d3d]``), and two train steps of each 3D model
+through the plain versions, library calls and kernels.
 
 Then the host data path feeds the card. ``[data]``: two raw volumes in the
 on-disk layout (18 frames x 10 coils x 224x224) through ``preprocess_volume``
@@ -64,8 +76,10 @@ non-zero exit code.
 
 Output, last three lines: one JSON object with a row per kernel and run
 (``"serve"``, ``"train"``, ``"cinenet-serve"``, ``"cinenet-train"``,
-``"data-serve"``, ``"soft-sense"``, ``"loop"`` and, for
-``fft2_plane``, ``"check"``), the card's name and power limit as nvidia-smi
+``"xpdnet-serve"``, ``"xpdnet-train"``, ``"xpdnet-variants"``,
+``"cascades-2d3d"``, ``"varnet-3d-train"``, ``"cinenet-3d-train"``,
+``"data-serve"``, ``"soft-sense"``, ``"loop"`` and, for ``fft2_plane``,
+``"check"``), the card's name and power limit as nvidia-smi
 reports them, and ``{"ok": true, "device": {...}}``. A row's ``ms``,
 ``plain_ms`` and ``library_ms`` sum CUDA-event times taken around every
 call of that function in its run (the four serve requests, the four train
@@ -110,6 +124,12 @@ PEAKS = (
 FLAGSHIP = dict(num_cascades=10, sens_chans=8, sens_pools=3, chans=16, pools=3)
 # the JAX package's protocol CineNet (bench/_protocol.py CONFIGS["cinenet"])
 CINENET = dict(num_cascades=10, cg_iters=6, chans=16, pools=3)
+# the JAX package's protocol XPDNet (bench/_protocol.py CONFIGS["xpdnet"]),
+# with its defaults: one first conv of 16, (2, 2, 2) convs, primal only,
+# kernel DC
+XPDNET = dict(num_cascades=9, sens_chans=8, sens_pools=3, n_scales=3,
+              n_filters_per_scale=(16, 32, 64), n_convs_per_scale=(2, 2, 2), n_first_convs=1,
+              first_conv_n_filters=16, n_primal=5, primal_only=True, kernel_dc=True)
 T, C, H, W = 15, 10, 200, 200
 
 # Tolerances, relative to the largest magnitude of the plain result. Both
@@ -1260,7 +1280,8 @@ def main() -> int:
 
     def dft_layouts(fn):
         """The distinct (O, N, I) of the DFT launches in one call of ``fn``,
-        with their counts, and the copies ``_apply_dft`` made."""
+        with their counts, the copies ``_apply_dft`` made and those
+        ``normal_plus_lambda_kernel`` made of a strided x."""
         seen = collections.Counter()
         saved = dft_cuda.complex_dft_matmul
 
@@ -1269,18 +1290,21 @@ def main() -> int:
             return saved(xr, xi, wr, wi)
 
         dft_cuda.complex_dft_matmul = record
-        FFT.COPIES = 0
+        FFT.COPIES = OPS.COPIES = 0
         try:
             fn()
         finally:
             dft_cuda.complex_dft_matmul = saved
-        return {str(k): v for k, v in seen.items()}, FFT.COPIES
+        return {str(k): v for k, v in seen.items()}, FFT.COPIES, OPS.COPIES
 
-    def forward_phase(tag, forward, expected, max_copies):
+    def forward_phase(tag, forward, expected, max_copies, copies=None, reference=None):
         """The forward through the kernels (launches counted) and through the
-        plain versions, checked against each other; the DFT layouts and
-        copies of one more forward (fewer than ``max_copies``); then 12 timed
-        warm forwards."""
+        plain versions, checked against each other to MODEL_TOL, or, given
+        ``reference`` (the plain versions in float64), each against it: the
+        kernels no farther (relative L2) than F64_RATIO times the plain
+        versions; the DFT layouts and copies of one more forward (fewer than
+        ``max_copies``; or exactly ``copies`` = (DFT, normal apply) input
+        copies); then 12 timed warm forwards."""
         dft_cuda.LAUNCHES = normal_cuda.LAUNCHES = 0
         out_kernel = forward()
         torch.cuda.synchronize()
@@ -1296,22 +1320,40 @@ def main() -> int:
         err = (out_kernel - out_plain).abs().max().item()
         scale = out_plain.abs().max().item()
         print(f"[{tag}] kernels vs plain versions: max_abs_err {err:.3e} "
-              f"(tol {MODEL_TOL * scale:.3e}, max |out| {scale:.4f})")
-        if not err <= MODEL_TOL * scale:
+              f"({'tol ' + format(MODEL_TOL * scale, '.3e') if reference is None else 'held against float64'}"
+              f", max |out| {scale:.4f})")
+        f64 = None
+        if reference is not None:
+            f64 = {label: dict(l2=(torch.linalg.vector_norm(o - reference)
+                                   / torch.linalg.vector_norm(reference)).item(),
+                               max=((o - reference).abs().max() / reference.abs().max()).item())
+                   for label, o in (("plain", out_plain), ("kernels", out_kernel))}
+            print(f"[{tag}] against the plain versions in float64, relative L2 / max |diff| over "
+                  f"max |out|: " + ", ".join(f"{k_} {v['l2']:.3e} / {v['max']:.3e}"
+                                             for k_, v in f64.items()))
+            if not f64["kernels"]["l2"] <= F64_RATIO * f64["plain"]["l2"]:
+                fail(f"{tag}: the kernels' forward is more than {F64_RATIO}x as far from float64 "
+                     f"as the plain versions'")
+        elif not err <= MODEL_TOL * scale:
             fail(f"{tag}: the forward through the kernels disagrees with the plain forward: {err}")
-        layouts, copies = dft_layouts(forward)
+        layouts, dft_copies, normal_copies = dft_layouts(forward)
         print(f"[{tag}] DFT launches by (O, N, I): {layouts}; _apply_dft copies per forward: "
-              f"{copies} (PR 3: {max_copies})")
-        if not copies < max_copies:
-            fail(f"{tag}: _apply_dft made {copies} copies in a forward, not fewer than {max_copies}")
+              f"{dft_copies} ({'limit ' + str(max_copies) if copies is None else 'expected ' + str(copies[0])}); "
+              f"normal_plus_lambda_kernel copies of a strided x: {normal_copies}")
+        if copies is None and not dft_copies < max_copies:
+            fail(f"{tag}: _apply_dft made {dft_copies} copies in a forward, not fewer than {max_copies}")
+        if copies is not None and (dft_copies, normal_copies) != copies:
+            fail(f"{tag}: {(dft_copies, normal_copies)} input copies per forward, not {copies}")
         torch.cuda.reset_peak_memory_stats()
         times = [cuda_ms(torch, forward, iters=1, warmup=1 if i == 0 else 0) for i in range(12)]
         peak = torch.cuda.max_memory_allocated()
         ms_vol = statistics.median(times)
         print(f"[{tag}] kernels: {ms_vol:.3f} ms/volume (median of {len(times)}, min {min(times):.3f}), "
               f"{T / ms_vol * 1e3:.2f} frames/s, peak memory {peak / 2**20:.1f} MiB")
-        return dict(out=out_kernel, scale=scale, max_abs_err=err, launches_per_forward=per_forward,
-                    dft_layouts=layouts, dft_copies=copies, forward_ms=times, ms_per_volume=ms_vol, frames_per_s=T / ms_vol * 1e3,
+        return dict(out=out_kernel, scale=scale, max_abs_err=err, float64_distance=f64,
+                    launches_per_forward=per_forward,
+                    dft_layouts=layouts, dft_copies=dft_copies, normal_copies=normal_copies,
+                    forward_ms=times, ms_per_volume=ms_vol, frames_per_s=T / ms_vol * 1e3,
                     peak_memory_bytes=peak)
 
     def serve_phase(tag, serve, inputs, expected, direct_out=None, scale=None, references=None):
@@ -1471,10 +1513,15 @@ def main() -> int:
                  normal_cuda.lambda_tensor)
 
         @functools.lru_cache(maxsize=None)
-        def mats(n, inverse, device):
+        def mats(n, inverse, alt, device):
             f = np.fft.ifft if inverse else np.fft.fft
             eye = np.eye(n, dtype=np.complex128)
-            m = np.fft.fftshift(f(np.fft.ifftshift(eye, axes=0), axis=0, norm="ortho"), axes=0)
+            if not alt:
+                m = np.fft.fftshift(f(np.fft.ifftshift(eye, axes=0), axis=0, norm="ortho"), axes=0)
+            else:  # XPDNet's opposite shift order; its inverse is the inverted matrix
+                m = np.fft.ifftshift(np.fft.fft(np.fft.fftshift(eye, axes=0), axis=0, norm="ortho"),
+                                     axes=0)
+                m = np.linalg.inv(m) if inverse else m
             return (torch.from_numpy(m.real.copy()).to(device),
                     torch.from_numpy(m.imag.copy()).to(device),
                     torch.from_numpy(m.real.T.copy()).to(device),
@@ -1485,8 +1532,8 @@ def main() -> int:
                 return lam.detach().reshape(1)
             return torch.full((1,), lam, dtype=torch.float64, device=device)
 
-        FFT._dft_tensors = OPS._dft_tensors = lambda n, inv, alt, norm, d: mats(n, inv, d)[:2]
-        FFT._dft_adjoint_tensors = lambda n, inv, alt, norm, d: mats(n, inv, d)[2:]
+        FFT._dft_tensors = OPS._dft_tensors = lambda n, inv, alt, norm, d: mats(n, inv, alt, d)[:2]
+        FFT._dft_adjoint_tensors = lambda n, inv, alt, norm, d: mats(n, inv, alt, d)[2:]
         normal_cuda.lambda_tensor = lam64
         set_backends("torch")
         try:
@@ -1496,13 +1543,26 @@ def main() -> int:
             (FFT._dft_tensors, FFT._dft_adjoint_tensors, OPS._dft_tensors,
              normal_cuda.lambda_tensor) = saved
 
+    def float64_forward(model, req):
+        """``model`` on the request ``(k_re, k_im, mask[, s_re, s_im])``
+        through the plain versions in float64 (as float32)."""
+        model.to(torch.float64)
+        try:
+            with float64_plain(), torch.inference_mode():
+                k_re, k_im, m, *maps = (a.double() for a in req)
+                args = (Complex(k_re, k_im), m) + ((Complex(*maps),) if maps else ())
+                return model(*args).float()
+        finally:
+            model.to(torch.float32)
+
     def train_phase(tag, model, batch, per_step, loss_tol=TRAIN_LOSS_TOL, grad_tol=TRAIN_GRAD_TOL,
-                    f64_reference=False):
-        """TRAIN_STEPS steps from the same weights four times: (a) through the
-        plain versions twice (their run-to-run gap), (b) through one library
-        call each in the plain versions' slots, (c) through the kernels, whose
-        launches are counted per step; the gaps against the plain run, and
-        one profiled warm step. With ``f64_reference``, also one step of the
+                    f64_reference=False, steps=TRAIN_STEPS, plain_twice=True, profile_step=True):
+        """``steps`` steps from the same weights four times: (a) through the
+        plain versions twice (their run-to-run gap; once without
+        ``plain_twice``), (b) through one library call each in the plain
+        versions' slots, (c) through the kernels, whose launches are counted
+        per step; the gaps against the plain run, and one profiled warm step
+        (with ``profile_step``). With ``f64_reference``, also one step of the
         plain versions in float64, and each run's first-step gradient
         against it."""
         init = {n: v.detach().clone() for n, v in model.state_dict().items()}
@@ -1510,13 +1570,14 @@ def main() -> int:
         tplain = (Timed(torch, dft_cuda, "complex_dft_matmul_torch", dft_cost),
                   Timed(torch, normal_cuda, "normal_apply_torch", normal_cost),
                   Timed(torch, normal_cuda, "normal_apply_bwd_torch", normal_bwd_cost))
-        plain_rec, plain_grads = train_run(model, init, batch, TRAIN_STEPS, *tplain)
-        plain2_rec, plain2_grads = train_run(model, init, batch, TRAIN_STEPS)
+        plain_rec, plain_grads = train_run(model, init, batch, steps, *tplain)
+        plain2_rec, plain2_grads = (train_run(model, init, batch, steps) if plain_twice
+                                    else (plain_rec, plain_grads))
         tlib = tuple(Timed(torch, mod, attr, cost, fn_[1], fn_[0]) for mod, attr, cost, fn_ in (
             (dft_cuda, "complex_dft_matmul_torch", dft_cost, dft_library(torch)),
             (normal_cuda, "normal_apply_torch", normal_cost, normal_library(torch)),
             (normal_cuda, "normal_apply_bwd_torch", normal_bwd_cost, normal_bwd_library(torch))))
-        lib_rec, lib_grads = train_run(model, init, batch, TRAIN_STEPS, *tlib)
+        lib_rec, lib_grads = train_run(model, init, batch, steps, *tlib)
         set_backends("kernel")
 
         tkern = (Timed(torch, dft_cuda, "complex_dft_matmul", dft_cost),
@@ -1525,17 +1586,18 @@ def main() -> int:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         dft_cuda.LAUNCHES = normal_cuda.LAUNCHES = normal_cuda.BWD_LAUNCHES = 0
-        kern_rec, kern_grads = train_run(model, init, batch, TRAIN_STEPS, *tkern)
+        kern_rec, kern_grads = train_run(model, init, batch, steps, *tkern)
         trained = launches()
         peak = torch.cuda.max_memory_allocated()
         print(f"[{tag}] launches per step: {kern_rec['launches']} (expected {per_step}); "
               f"run total {trained}")
         if any(step_launches != per_step for step_launches in kern_rec["launches"]):
             fail(f"{tag}: train steps did not launch the kernels as expected: {kern_rec['launches']}")
-        if trained != {n: v * TRAIN_STEPS for n, v in per_step.items()}:
+        if trained != {n: v * steps for n, v in per_step.items()}:
             fail(f"{tag}: the train run counted {trained} launches")
 
-        gaps = dict(plain_gap=gap(plain2_rec, plain2_grads, plain_rec, plain_grads),
+        gaps = dict(plain_gap=(gap(plain2_rec, plain2_grads, plain_rec, plain_grads) if plain_twice
+                               else (0.0, 0.0, [])),
                     kernel_gap=gap(kern_rec, kern_grads, plain_rec, plain_grads),
                     library_gap=gap(lib_rec, lib_grads, plain_rec, plain_grads))
         labels = ("plain vs plain", "kernels vs plain", "library vs plain")
@@ -1568,22 +1630,58 @@ def main() -> int:
         ms_step = statistics.median(kern_rec["ms"][1:])
         for label, rec in (("kernels", kern_rec), ("plain versions", plain_rec),
                            ("plain versions, again", plain2_rec), ("library calls", lib_rec)):
+            if label.endswith("again") and not plain_twice:
+                continue
             print(f"[{tag}] {label}: ms/step {[round(x, 3) for x in rec['ms']]}, "
                   f"loss {rec['loss']}, grad_norm {rec['grad_norm']}, garbage collector ms "
                   f"{[round(x, 3) for x in rec['gc_ms']]}")
-        print(f"[{tag}] kernels, remat on: {ms_step:.3f} ms/step (median of steps 2-{TRAIN_STEPS}), "
+        print(f"[{tag}] kernels, remat on: {ms_step:.3f} ms/step (median of steps 2-{steps}), "
               f"{1e3 / ms_step:.3f} volumes/s, peak memory {peak / 2**20:.1f} MiB")
 
-        model.load_state_dict(init)
-        pstate = create_train_state(model, device=dev)
-        pstate, _ = train_step(pstate, batch)
-        profile_ = profiled(lambda: train_step(pstate, batch))
-        print(f"[{tag}-profile] " + json.dumps(profile_))
+        profile_ = None
+        if profile_step:
+            model.load_state_dict(init)
+            pstate = create_train_state(model, device=dev)
+            pstate, _ = train_step(pstate, batch)
+            profile_ = profiled(lambda: train_step(pstate, batch))
+            print(f"[{tag}-profile] " + json.dumps(profile_))
         return dict(init=init, batch=batch, kernels=kern_rec, plain=plain_rec,
                     plain_again=plain2_rec, library=lib_rec, ms_per_step=ms_step,
                     volumes_per_s=1e3 / ms_step, peak_memory_bytes=peak, launches=trained,
                     launches_per_step=per_step, profile=profile_, timers=(tkern, tplain, tlib),
                     **gaps)
+
+    def step_host_syncs(tag, model, init, batch):
+        """The host syncs of one warm train step from ``init`` (sync debug
+        mode 'warn'), each named by the port's frame that made it."""
+        model.load_state_dict(init)
+        sstate = create_train_state(model, device=dev)
+        sstate, _ = train_step(sstate, batch)
+        torch.cuda.synchronize()
+        syncs = []
+
+        def record_sync(message, category, filename, lineno, file=None, line=None):
+            if "synchroniz" not in str(message):
+                return
+            frames = [f for f in traceback.extract_stack()[:-1]
+                      if "warnings" not in f.filename]
+            ours = [f for f in frames if "cinemri_tpu_torch" in f.filename]
+            at = ours[-1] if ours else frames[-1]
+            syncs.append(f"{Path(at.filename).name}:{at.lineno} {at.name}: {str(message)[:120]}")
+
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = record_sync
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                train_step(sstate, batch)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        sync_names = sorted(set(syncs))
+        print(f"[{tag}] host syncs in one warm step (sync debug mode 'warn'): {len(syncs)}; "
+              f"{[(n, syncs.count(n)) for n in sync_names]}")
+        return dict(host_syncs_per_step=len(syncs), host_syncs=sync_names)
 
     # -- 3. main path: the full-width VarNet-XF forward ---------------------------
     model = build_model("varnet", "XF", device=dev,
@@ -1702,37 +1800,231 @@ def main() -> int:
                           "normal": 2 * cnc * (1 + cgi), "normal_bwd": cnc * (1 + cgi)},
                          CINENET_TRAIN_LOSS_TOL, CINENET_TRAIN_GRAD_TOL, f64_reference=True)
 
-    # the host syncs of one warm step, each named by the port's frame that made it
-    ctmodel.load_state_dict(ctrain.pop("init"))
-    sstate = create_train_state(ctmodel, device=dev)
-    sstate, _ = train_step(sstate, cbatch)
-    torch.cuda.synchronize()
-    syncs = []
-
-    def record_sync(message, category, filename, lineno, file=None, line=None):
-        if "synchroniz" not in str(message):
-            return
-        frames = [f for f in traceback.extract_stack()[:-1]
-                  if "warnings" not in f.filename]
-        ours = [f for f in frames if "cinemri_tpu_torch" in f.filename]
-        at = ours[-1] if ours else frames[-1]
-        syncs.append(f"{Path(at.filename).name}:{at.lineno} {at.name}: {str(message)[:120]}")
-
-    with warnings.catch_warnings():
-        warnings.simplefilter("always")
-        warnings.showwarning = record_sync
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            train_step(sstate, cbatch)
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
-    torch.cuda.synchronize()
-    sync_names = sorted(set(syncs))
-    print(f"[cinenet-train] host syncs in one warm step (sync debug mode 'warn'): {len(syncs)}; "
-          f"{[(n, syncs.count(n)) for n in sync_names]}")
-    ctrain.update(host_syncs_per_step=len(syncs), host_syncs=sync_names)
-    del ctmodel, sstate, cbatch, ctrain["batch"]
+    ctrain.update(step_host_syncs("cinenet-train", ctmodel, ctrain.pop("init"), cbatch))
+    del ctmodel, cbatch, ctrain["batch"]
     torch.cuda.empty_cache()
+
+    # -- 7b. XPDNet-XF at full width: its new operands, forward, serving, training ---
+    # the kernels on the operands XPDNet gives them: the alt-matrix DFT along
+    # t of the channel-last buffer (1, 15, 200, 200, 6) and its backward (the
+    # kernel on the alt matrix's Wᴴ, and autograd through both against the
+    # plain version's), the standard inverse on the (1, 15, 200, 200, 5) sum;
+    # the normal apply with λ = 0.0 on the buffer's strided head, and its
+    # backward
+    xn = XPDNET["n_primal"]
+    for (o, n, i), inverse, alt in (((1, T, H * W * (xn + 1)), False, True),
+                                    ((1, T, H * W * xn), True, False)):
+        mats = FFT._dft_tensors(n, inverse, alt, "ortho", dev)
+        x_ = (randn(o, n, i), randn(o, n, i))
+        label = "alt forward" if alt else "standard inverse"
+        check_case("complex_dft_matmul", dict(O=o, N=n, I=i, matrix=label), x_ + mats,
+                   dft_cuda.complex_dft_matmul, dft_cuda.complex_dft_matmul_torch,
+                   dft_library(torch), dft_cost, DFT_TOL, graph=True)
+        if not alt:
+            continue
+        check_case("complex_dft_matmul", dict(O=o, N=n, I=i, matrix="alt forward, Wᴴ (backward)"),
+                   x_ + FFT._dft_adjoint_tensors(n, inverse, alt, "ortho", dev),
+                   dft_cuda.complex_dft_matmul, dft_cuda.complex_dft_matmul_torch,
+                   dft_library(torch), dft_cost, DFT_TOL, graph=True)
+        # autograd through the kernel against autograd through the plain version
+        g_ = (randn(o, n, i), randn(o, n, i))
+        grads = []
+        for plain in (False, True):
+            xr_, xi_ = (a.detach().requires_grad_(True) for a in x_)
+            y_ = dft_cuda.ComplexDFTMatmul.apply(
+                xr_, xi_, *mats, *FFT._dft_adjoint_tensors(n, inverse, alt, "ortho", dev), plain)
+            grads.append(torch.autograd.grad(y_, (xr_, xi_), g_))
+        scale = max(a.abs().max().item() for a in grads[1])
+        err = max((a - b_).abs().max().item() for a, b_ in zip(*grads))
+        print(f"[kernel] complex_dft_matmul {(o, n, i)} alt: autograd through the kernel vs the "
+              f"plain version: max_abs_err {err:.3e} (tol {DFT_TOL * scale:.3e})")
+        if not err <= DFT_TOL * scale:
+            fail(f"the alt-matrix DFT's backward disagrees with autograd of the plain version: {err}")
+    del x_, g_, grads, y_, xr_, xi_
+
+    xmask = torch.from_numpy(RandomMask([10], [4])(T, H, seed=5)[None].astype(np.float32)).to(dev)
+    xkern = OPS.masked_normal_kernel(xmask)
+    sr, si = randn(1, C, H, W), randn(1, C, H, W)
+    rss = torch.sqrt((sr * sr + si * si).sum(1, keepdim=True))
+    sr, si = sr / rss, si / rss
+    xbuf = (randn(1, T, H, W, xn + 1), randn(1, T, H, W, xn + 1))
+    head = (xbuf[0][..., 0], xbuf[1][..., 0])  # strided views, as XPDNet's head
+
+    def head_apply(xr_, xi_, kr, ki, sr_, si_, lam):
+        """normal_plus_lambda_kernel on a strided head, as XPDNet calls it."""
+        out = OPS.normal_plus_lambda_kernel(Complex(xr_[:, :, None], xi_[:, :, None]),
+                                            Complex(kr, ki), Complex(sr_[:, None], si_[:, None]), lam)
+        return out.re[:, :, 0], out.im[:, :, 0]
+
+    def head_apply_plain(*args):
+        OPS.set_normal_backend("torch")
+        try:
+            return head_apply(*args)
+        finally:
+            OPS.set_normal_backend("kernel")
+
+    OPS.COPIES = 0
+    head_args = head + (xkern.re, xkern.im, sr, si, 0.0)
+    check_case("normal_apply", dict(b=1, t=T, c=C, h=H, w=W, kt=T, lam=0.0, x="strided head"),
+               head_args, head_apply, head_apply_plain, normal_library(torch), normal_cost,
+               NORMAL_TOL, graph=True)
+    if not OPS.COPIES:
+        fail("normal_plus_lambda_kernel copied no strided head")
+    hr, hi = head[0].contiguous(), head[1].contiguous()  # what the operator hands the kernel
+    check_bwd_case(dict(b=1, t=T, c=C, h=H, w=W, kt=T, lam=0.0, x="strided head"),
+                   (hr, hi, hr + randn(1, T, H, W), hi + randn(1, T, H, W), xkern.re, xkern.im,
+                    sr, si, 0.0))
+    del xbuf, head, head_args, hr, hi, sr, si, rss, xkern
+    torch.cuda.empty_cache()
+
+    xmodel = build_model("xpdnet", "XF", device=dev,
+                         generator=torch.Generator().manual_seed(0), **XPDNET).eval()
+    kre, kim, mask = flagship_inputs(torch, RandomMask([10], [4]), 0, dev)
+    xk = Complex(kre, kim)
+
+    def xforward():
+        with torch.inference_mode():
+            return xmodel(xk, mask)
+
+    # per forward: the sens net's and x_ref's ifft2c (2 + 2 DFTs); per
+    # cascade fft1c_alt and ifft1c over t and one normal apply (λ = 0)
+    xnc = XPDNET["num_cascades"]
+    x_expected = {"dft": 4 + 2 * xnc, "normal": xnc}
+    # per forward, per cascade: the plane sum before ifft1c ((b, h, n, w, t)
+    # in memory, from the NCHW MWCNN) and the strided head are copied once
+    # XPDNet at random weights amplifies an f32 rounding difference cascade
+    # by cascade (its MWCNNs see raw buffers): any two f32 orders end ~1e-4
+    # of max |out| apart, so its forwards are held against float64 and
+    # the sensitivity itself is measured: the plain forward of the k-space
+    # times (1 + 1e-7 noise) against the plain forward
+    xin = (kre, kim, mask)
+    xfwd = forward_phase("xpdnet-forward", xforward, x_expected, None, copies=(xnc, xnc),
+                         reference=float64_forward(xmodel, xin))
+    noise = 1 + 1e-7 * torch.randn(kre.shape, generator=gen, device=dev)
+    set_backends("torch")
+    with torch.inference_mode():
+        moved = xmodel(Complex(kre * noise, kim * noise), mask)
+        base = xmodel(xk, mask)
+    set_backends("kernel")
+    xfwd["perturbation_1e-7"] = dict(
+        max=((moved - base).abs().max() / base.abs().max()).item(),
+        l2=(torch.linalg.vector_norm(moved - base) / torch.linalg.vector_norm(base)).item())
+    print(f"[xpdnet-forward] the plain forward of the k-space x (1 + 1e-7 noise) against the plain "
+          f"forward: max |diff| / max |out| {xfwd['perturbation_1e-7']['max']:.3e}, relative L2 "
+          f"{xfwd['perturbation_1e-7']['l2']:.3e}")
+    del noise, moved, base
+    xfwd.pop("out")
+    print("[xpdnet-profile] " + json.dumps(profiled(xforward)))
+    xreqs = [flagship_inputs(torch, mf, s_, dev) for mf, s_ in requests]
+    xserve = serve_phase("xpdnet-serve", bind_model(xmodel, device=dev), xreqs, x_expected,
+                         references=[float64_forward(xmodel, r) for r in xreqs])
+    del xmodel, xk, xreqs
+    torch.cuda.empty_cache()
+
+    xtmodel = build_model("xpdnet", "XF", device=dev, generator=torch.Generator().manual_seed(0),
+                          **XPDNET)  # remat on
+    xbatch = train_batch(torch, dev)
+    # per step, with remat: the forward's 22 DFTs and 9 normal applies; the
+    # replay of each cascade (its 2 DFTs and its normal apply); the backward
+    # of every cascade DFT (the sens net's and x_ref's 4 act on data) and of
+    # every normal apply
+    # XPDNet's full-width first-step gradient is as ill-conditioned in f32 as
+    # CineNet's (every order 3.6-3.8% from float64 on the H100; two plain
+    # runs' losses 3.5e-4 apart from cuDNN's nondeterministic backward), so
+    # its train runs are held as CineNet's: against float64 and to its gaps
+    xtrain = train_phase("xpdnet-train", xtmodel, xbatch,
+                         {"dft": x_expected["dft"] + 2 * xnc + 2 * xnc, "normal": 2 * xnc,
+                          "normal_bwd": xnc},
+                         CINENET_TRAIN_LOSS_TOL, CINENET_TRAIN_GRAD_TOL, f64_reference=True)
+    xtrain.update(step_host_syncs("xpdnet-train", xtmodel, xtrain.pop("init"), xbatch))
+    del xtmodel, xbatch, xtrain["batch"]
+    torch.cuda.empty_cache()
+
+    # -- 7c. XPDNet-2D and XT, and XF with primal_only=False (KSpaceCNN, the direct
+    # k-step: fft2c and ifft2c per cascade): one forward each ---------------------------
+    variants = (("2D", {}), ("XT", {}), ("XF", dict(primal_only=False)))
+    vmodels = [build_model("xpdnet", dyn, device=dev, generator=torch.Generator().manual_seed(0),
+                           **dict(XPDNET, **kw)).eval() for dyn, kw in variants]
+    vin = flagship_inputs(torch, RandomMask([10], [4]), 0, dev)
+    # 2D / XT: the 4 sens-net and x_ref DFTs, a normal apply per cascade;
+    # the direct XF: per cascade fft2c, ifft2c, fft1c_alt, ifft1c and no
+    # normal apply
+    v_expected = [{"dft": 4, "normal": xnc}, {"dft": 4, "normal": xnc},
+                  {"dft": 4 + 6 * xnc, "normal": 0}]
+    xvariants = serve_phase("xpdnet-variants", [bind_model(m_, device=dev) for m_ in vmodels],
+                            [vin] * 3, v_expected,
+                            references=[float64_forward(m_, vin) for m_ in vmodels])
+    xvariants["variants"] = [f"xpdnet-{dyn} {kw}" for dyn, kw in variants]
+    xvariants["forward"] = {}
+    for (dyn, kw), m_ in zip(variants, vmodels):
+        torch.cuda.reset_peak_memory_stats()
+        fwd = lambda: m_(Complex(vin[0], vin[1]), vin[2])
+        with torch.inference_mode():
+            times = [cuda_ms(torch, fwd, iters=1, warmup=1 if i == 0 else 0) for i in range(5)]
+        xvariants["forward"][f"xpdnet-{dyn} {kw}"] = dict(
+            ms=times, ms_per_volume=statistics.median(times),
+            peak_memory_bytes=torch.cuda.max_memory_allocated())
+        print(f"[xpdnet-variants] xpdnet-{dyn} {kw}: {statistics.median(times):.3f} ms/volume "
+              f"(median of 5, {[round(x, 3) for x in times]}), peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+    del vmodels, m_, fwd
+    torch.cuda.empty_cache()
+
+    # -- 7d. VarNet and CineNet 2D / 3D at full width: forwards, and the 3D train steps --
+    cascades = (("varnet", "2D"), ("varnet", "3D"), ("cinenet", "2D"), ("cinenet", "3D"))
+    cmodels = [build_model(fam, dyn, device=dev, generator=torch.Generator().manual_seed(0),
+                           **(FLAGSHIP if fam == "varnet" else CINENET)).eval()
+               for fam, dyn in cascades]
+    cin_v = flagship_inputs(torch, RandomMask([10], [4]), 0, dev)
+    cin_c = cin_v + rss_maps(torch, 0, dev)
+    # 2D / 3D: VarNet's 4 sens-net and x_ref DFTs and a normal apply per
+    # cascade; CineNet's 2 image_ref DFTs and its CG's normal applies
+    c3_expected = ([{"dft": 4, "normal": nc}] * 2
+                   + [{"dft": 2, "normal": cnc * (1 + cgi)}] * 2)
+    # CineNet-2D and 3D (U-Nets on raw channels) are order-sensitive in f32
+    # at random weights as CineNet's data-fed requests are (kernels vs plain
+    # 5.1e-4 and 8.1e-5 of max |out| on the H100): held against float64
+    c2d3d = serve_phase("cascades-2d3d", [bind_model(m_, device=dev) for m_ in cmodels],
+                        [cin_v, cin_v, cin_c, cin_c], c3_expected,
+                        references=[None, None] + [float64_forward(m_, cin_c) for m_ in cmodels[2:]])
+    c2d3d["models"] = [f"{fam}-{dyn}" for fam, dyn in cascades]
+    c2d3d["forward"] = {}
+    for (fam, dyn), m_ in zip(cascades, cmodels):
+        args_ = (Complex(cin_c[0], cin_c[1]), cin_c[2]) + (
+            (Complex(cin_c[3], cin_c[4]),) if fam == "cinenet" else ())
+        fwd = lambda: m_(*args_)
+        FFT.COPIES = OPS.COPIES = 0
+        with torch.inference_mode():
+            fwd()
+        copies = (FFT.COPIES, OPS.COPIES)
+        torch.cuda.reset_peak_memory_stats()
+        with torch.inference_mode():
+            times = [cuda_ms(torch, fwd, iters=1, warmup=1 if i == 0 else 0) for i in range(5)]
+        c2d3d["forward"][f"{fam}-{dyn}"] = dict(
+            ms=times, ms_per_volume=statistics.median(times), input_copies=copies,
+            peak_memory_bytes=torch.cuda.max_memory_allocated())
+        print(f"[cascades-2d3d] {fam}-{dyn}: {statistics.median(times):.3f} ms/volume (median of 5, "
+              f"{[round(x, 3) for x in times]}), peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB; (DFT, normal apply) input "
+              f"copies per forward {copies}")
+    del cmodels, m_, fwd, args_
+    torch.cuda.empty_cache()
+    # two train steps of VarNet-3D and CineNet-3D through the plain versions,
+    # the library calls and the kernels, at their family's tolerances
+    c3train = {}
+    for fam, cfg in (("varnet", FLAGSHIP), ("cinenet", CINENET)):
+        m_ = build_model(fam, "3D", device=dev, generator=torch.Generator().manual_seed(0), **cfg)
+        cb = train_batch(torch, dev, sens_maps=fam == "cinenet")
+        per = ({"dft": 4, "normal": 2 * nc, "normal_bwd": nc} if fam == "varnet" else
+               {"dft": 2, "normal": 2 * cnc * (1 + cgi), "normal_bwd": cnc * (1 + cgi)})
+        tols = ((TRAIN_LOSS_TOL, TRAIN_GRAD_TOL) if fam == "varnet"
+                else (CINENET_TRAIN_LOSS_TOL, CINENET_TRAIN_GRAD_TOL))
+        c3train[fam] = train_phase(f"cascades-3d-train {fam}-3D", m_, cb, per, *tols,
+                                   f64_reference=fam == "cinenet", steps=2, plain_twice=False,
+                                   profile_step=False)
+        c3train[fam].pop("init"), c3train[fam].pop("batch")
+        del m_, cb
+        torch.cuda.empty_cache()
 
     # -- 8. the host data path: two volumes preprocessed, samples built ---------------
     t_data = time.perf_counter()
@@ -1766,15 +2058,6 @@ def main() -> int:
     # 1.3-1.6%, the kernels and the library calls 1.8-2.2% from float64 on
     # the H100). Its requests are held against a float64 evaluation of the
     # plain versions; VarNet's (NormUnet) to MODEL_TOL.
-    def float64_forward(model, req):
-        model.to(torch.float64)
-        try:
-            with float64_plain(), torch.inference_mode():
-                k_re, k_im, m, s_re, s_im = (a.double() for a in req)
-                return model(Complex(k_re, k_im), m, Complex(s_re, s_im)).float()
-        finally:
-            model.to(torch.float32)
-
     drefs = [None, None] + [float64_forward(cserve_model, r) for r in dinputs[2:]]
     dserve = serve_phase("data-serve", dserves, dinputs, [expected] * 2 + [c_expected] * 3,
                          references=drefs)
@@ -1863,7 +2146,7 @@ def main() -> int:
         y = OPS.apply_mask(sk, smask)
         resid = OPS.apply_mask(OPS.soft_sense_expand(x_kern, smaps), smask) - y
         rel_resid = math.sqrt(resid.abs_sq().sum().item() / y.abs_sq().sum().item())
-    ss_layouts, _ = dft_layouts(recon)
+    ss_layouts, *_ = dft_layouts(recon)
     ss_times = [cuda_ms(torch, recon, iters=1, warmup=1 if i == 0 else 0) for i in range(5)]
     ss_profile = profiled(recon)
     print("[soft-sense-profile] " + json.dumps(ss_profile))
@@ -1912,23 +2195,29 @@ def main() -> int:
     fft2_src = ("fft2_plane", "cinemri_tpu_torch/csrc/fft2_plane.cu",
                 "cinemri_tpu/ops/kernels/fft2_pallas.py:45")
     rows = []
-    for run, srv in (("serve", vserve), ("cinenet-serve", cserve), ("data-serve", dserve)):
+    for run, srv in (("serve", vserve), ("cinenet-serve", cserve), ("xpdnet-serve", xserve),
+                     ("xpdnet-variants", xvariants), ("cascades-2d3d", c2d3d),
+                     ("data-serve", dserve)):
         rows += [row(*dft_src, run, srv["launches"]["dft"], srv["kern"][0], srv["plain"][0], srv["lib"][0]),
                  row(*fwd_src, run, srv["launches"]["normal"], srv["kern"][1], srv["plain"][1],
                      srv["lib"][1])]
-    for run, tr in (("train", vtrain), ("cinenet-train", ctrain), ("loop", loop)):
+    for run, tr in (("train", vtrain), ("cinenet-train", ctrain), ("xpdnet-train", xtrain),
+                    ("varnet-3d-train", c3train["varnet"]), ("cinenet-3d-train", c3train["cinenet"]),
+                    ("loop", loop)):
         tkern, tplain, tlib = tr.pop("timers")
         rows += [row(*src, run, tr["launches"][key], tkern[i], tplain[i], tlib[i])
                  for i, (src, key) in enumerate(((dft_src, "dft"), (fwd_src, "normal"),
                                                  (bwd_src, "normal_bwd")))]
     rows.append(row(*dft_src, "soft-sense", ss_launches, skern, splain, slib))
     rows.append(row(*fft2_src, "check", fft2_launches, *fft2_runs))
-    for srv in (vserve, cserve, dserve):
+    for srv in (vserve, cserve, xserve, xvariants, c2d3d, dserve):
         for key in ("kern", "plain", "lib"):
             srv.pop(key)
     print("[details] " + json.dumps(dict(
         cases=cases, forward=vfwd, serve=vserve, train=vtrain,
         cinenet=dict(config=CINENET, forward=cfwd, serve=cserve, train=ctrain),
+        xpdnet=dict(config=XPDNET, forward=xfwd, serve=xserve, train=xtrain, variants=xvariants),
+        cascades_2d3d=dict(forward=c2d3d, train_3d=c3train),
         data=data, data_serve=dserve, soft_sense=soft_sense, queue3=queue3,
         data_phases_wall_s=data_wall, loop=loop)))
     print(json.dumps({"kernels": rows}))

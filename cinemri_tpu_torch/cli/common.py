@@ -1,20 +1,22 @@
-"""Shared CLI plumbing of the train/test entry points.
+"""Shared CLI plumbing of the three train/test entry points.
 
-Counterpart of ``cinemri_tpu/cli/common.py`` for the VarNet family.
-Parity target: reference traintest_scripts/varnet/train_test_varnet.py —
-argument surface, per-model defaults (SURVEY Appendix B), mode dispatch
-(train / test with inference), checkpoint resume semantics. The parser
-keeps every flag and default of the JAX package's, so a run's checkpoint
-directory (named by :func:`config_fingerprint`) is the same in both
-packages; ``--device`` (default ``cuda``) picks the device, the
-counterpart of ``JAX_PLATFORMS``.
+Counterpart of ``cinemri_tpu/cli/common.py`` for the VarNet, CineNet and
+XPDNet families. Parity target: reference
+traintest_scripts/{varnet,cinenet,xpdnet}/train_test_*.py — argument
+surface, per-model defaults (SURVEY Appendix B), mode dispatch (train /
+test with inference), checkpoint resume semantics. The parser keeps every
+flag and default of the JAX package's, so a run's checkpoint directory
+(named by :func:`config_fingerprint`) is the same in both packages;
+``--device`` (default ``cuda``) picks the device, the counterpart of
+``JAX_PLATFORMS``. Every dynamic type but CRNN runs; ``--packed`` left at
+its default runs the dense conv stacks (the JAX package's packed layout is
+numerically the same and not ported).
 
 What is not ported raises ``NotImplementedError`` naming its ROADMAP item
-(Queue 1): the cinenet family (item 10) and xpdnet (11); dynamic types 2D
-and 3D (items 5/6) and CRNN (12); more than one device, ``--coil_devices``,
-``--plane_devices``, more than one process and ``--coordinator_address``
-(13); ``--mode export``, ``--from_torch_ckpt``, ``--bf16``, ``--packed 1``
-and ``--profile_steps`` (14).
+(Queue 1): ``--dynamic_type CRNN`` (12); more than one device,
+``--coil_devices``, ``--plane_devices``, more than one process and
+``--coordinator_address`` (13); ``--mode export``, ``--from_torch_ckpt``,
+``--bf16``, ``--packed 1`` and ``--profile_steps`` (14).
 """
 
 from __future__ import annotations
@@ -30,10 +32,12 @@ from typing import Dict
 import torch
 
 from cinemri_tpu_torch.data import (
+    CineNetDataTransform,
     CombinedSliceDataset,
     PreprocessConfig,
     SliceDataset,
     VarNetDataTransform,
+    XPDNetDataTransform,
     create_mask_for_mask_type,
 )
 from cinemri_tpu_torch.models import build_model
@@ -42,27 +46,42 @@ from cinemri_tpu_torch.utils.paths import fetch_dir
 
 __all__ = ["build_parser", "train_test_main", "config_fingerprint"]
 
-MODEL_DEFAULTS: Dict[str, Dict] = {
-    # reference per-script set_defaults (train_test_varnet.py:249-262)
-    "varnet": dict(num_cascades=10, pools=3, chans=16, sens_pools=3, sens_chans=8),
+TRANSFORMS = {
+    "varnet": VarNetDataTransform,
+    "cinenet": CineNetDataTransform,
+    "xpdnet": XPDNetDataTransform,
 }
 
-_FAMILY_ITEMS = {
-    "cinenet": "ROADMAP Queue 1, item 10: the CineNet CLI",
-    "xpdnet": "ROADMAP Queue 1, item 11: XPDNet",
+MODEL_DEFAULTS: Dict[str, Dict] = {
+    # reference per-script set_defaults (train_test_varnet.py:249-262 etc.)
+    "varnet": dict(num_cascades=10, pools=3, chans=16, sens_pools=3, sens_chans=8),
+    "cinenet": dict(num_cascades=10, CG_iters=6, chans=16, pools=3),
+    "xpdnet": dict(
+        num_cascades=9,
+        sens_chans=8,
+        sens_pools=3,
+        crnn_chans=18,
+        n_scales=3,
+        n_filters_per_scale=[16, 32, 64],
+        n_convs_per_scale=[2, 2, 2],
+        n_first_convs=1,
+        first_conv_n_filters=16,
+        res=False,
+        primal_only=True,
+        n_primal=5,
+        n_dual=1,
+    ),
 }
 
 
 def _family(family: str) -> str:
-    if family in _FAMILY_ITEMS:
-        raise NotImplementedError(f"the {family} family is not ported yet ({_FAMILY_ITEMS[family]})")
     if family not in MODEL_DEFAULTS:
         raise ValueError(f"unknown model family {family!r}")
     return family
 
 
 def build_parser(family: str) -> argparse.ArgumentParser:
-    """The JAX package's parser for ``family`` (varnet), plus ``--device``."""
+    """The JAX package's parser for ``family``, plus ``--device``."""
     family = _family(family)
     p = argparse.ArgumentParser(description=f"Train/test dynamic {family} on a GPU")
 
@@ -86,10 +105,17 @@ def build_parser(family: str) -> argparse.ArgumentParser:
                    help="precomputed-kernel data consistency (the normal-apply "
                         "kernel); 0 = the reference's direct k-space formulation")
     p.add_argument("--packed", default=None, choices=(0, 1), type=int,
-                   help="space-to-depth lane packing of the conv stacks; default off "
-                        "for XF/XT (1 is not ported yet: item 14)")
+                   help="space-to-depth lane packing of the conv stacks; the default "
+                        "runs the dense stacks for every dynamic type (numerically the "
+                        "same; 1 is not ported yet: item 14)")
     p.add_argument("--bf16", default=0, choices=(0, 1), type=int,
                    help="bfloat16 denoiser activations (not ported yet: item 14)")
+    if family == "xpdnet":
+        p.add_argument(
+            "--norm_buffers", default=-1, choices=(-1, 0, 1), type=int,
+            help="per-channel normalization of the MWCNN buffer inputs "
+                 "(XPDNetBlock._apply_net); -1 = auto: on exactly under --bf16, "
+                 "so off here. Forcing 0/1 selects a different trained function")
 
     # mask args (train_test_varnet.py:208-229)
     p.add_argument("--mask_type", default="random", choices=("random", "equispaced"))
@@ -171,7 +197,12 @@ def build_parser(family: str) -> argparse.ArgumentParser:
 
     # model args (varnet_module.py:161-239 etc.)
     for k, v in MODEL_DEFAULTS[family].items():
-        p.add_argument(f"--{k}", default=v, type=type(v))
+        if isinstance(v, list):
+            p.add_argument(f"--{k}", nargs="+", default=v, type=type(v[0]))
+        elif isinstance(v, bool):
+            p.add_argument(f"--{k}", default=v, type=lambda s: s in ("1", "true", "True"))
+        else:
+            p.add_argument(f"--{k}", default=v, type=type(v))
     p.add_argument("--dynamic_type", default="XF", choices=("XF", "XT", "2D", "3D", "CRNN"))
     p.add_argument("--weight_sharing", default=False,
                    type=lambda s: s in ("1", "true", "True"))
@@ -232,8 +263,6 @@ def _check_ported(args) -> None:
     """Raise ``NotImplementedError`` naming the ROADMAP item (Queue 1) of
     the first option whose path the port does not have yet."""
     unported = [
-        (args.dynamic_type in ("2D", "3D"), f"--dynamic_type {args.dynamic_type}",
-         "ROADMAP Queue 1, items 5/6: the 2-D and 3-D cascades"),
         (args.dynamic_type == "CRNN", "--dynamic_type CRNN", "ROADMAP Queue 1, item 12: CRNN"),
         (_resolved_devices(args) > 1, f"--num_devices {args.num_devices}",
          "ROADMAP Queue 1, item 13: parallelism"),
@@ -259,7 +288,8 @@ def _envelope_notices(family: str, args) -> None:
     envelope (PARITY.md "Parity envelope notes"): warnings, not errors.
     The JAX package's data-parallel lr notice comes back with data
     parallelism (ROADMAP Queue 1, item 13): until then ``_check_ported``
-    refuses any run on more than one device."""
+    refuses any run on more than one device; its bf16 notices come back
+    with bf16 (item 14)."""
     if args.batch_size > 1:
         warnings.warn(
             f"batch_size={args.batch_size} (PER-DEVICE) is outside the "
@@ -275,12 +305,34 @@ def _envelope_notices(family: str, args) -> None:
             "construction (BASELINE.md 'SVD coil compression quality')",
             stacklevel=2,
         )
+    if family == "xpdnet" and args.norm_buffers != -1 and bool(args.norm_buffers) != bool(args.bf16):
+        warnings.warn(
+            f"--norm_buffers {args.norm_buffers} overrides the certified pairing "
+            "(normalization on exactly under --bf16): f32 with normalized buffers is a "
+            "function change against the reference's raw-buffer semantics — intended "
+            "only for evaluating a checkpoint trained with this setting",
+            stacklevel=2,
+        )
 
 
 def _build_model_from_args(family: str, args):
-    kwargs = dict(num_cascades=args.num_cascades, sens_chans=args.sens_chans,
-                  sens_pools=args.sens_pools, chans=args.chans, pools=args.pools,
-                  weight_sharing=args.weight_sharing, kernel_dc=bool(args.kernel_dc))
+    if family == "varnet":
+        kwargs = dict(num_cascades=args.num_cascades, sens_chans=args.sens_chans,
+                      sens_pools=args.sens_pools, chans=args.chans, pools=args.pools)
+    elif family == "cinenet":
+        kwargs = dict(num_cascades=args.num_cascades, cg_iters=args.CG_iters,
+                      chans=args.chans, pools=args.pools)
+    else:  # xpdnet
+        kwargs = dict(num_cascades=args.num_cascades, sens_chans=args.sens_chans,
+                      sens_pools=args.sens_pools, n_scales=args.n_scales,
+                      n_filters_per_scale=tuple(args.n_filters_per_scale),
+                      n_convs_per_scale=tuple(args.n_convs_per_scale),
+                      n_first_convs=args.n_first_convs,
+                      first_conv_n_filters=args.first_conv_n_filters, res=args.res,
+                      primal_only=args.primal_only, n_primal=args.n_primal,
+                      n_dual=args.n_dual,
+                      norm_buffers=None if args.norm_buffers == -1 else bool(args.norm_buffers))
+    kwargs.update(weight_sharing=args.weight_sharing, kernel_dc=bool(args.kernel_dc))
     return build_model(family, args.dynamic_type, device=args.device, **kwargs)
 
 
@@ -292,6 +344,11 @@ def config_fingerprint(family: str, args) -> str:
     # physical coil inputs), not the tree shape — still scope by it
     keys = sorted(MODEL_DEFAULTS[family]) + ["dynamic_type", "weight_sharing", "compress_coils"]
     src = [(k, getattr(args, k)) for k in keys]
+    if family == "xpdnet" and args.dynamic_type != "CRNN":
+        # norm_buffers selects another trained function on the same tree;
+        # appended only when on, as the JAX package does
+        if bool(args.bf16) if args.norm_buffers == -1 else bool(args.norm_buffers):
+            src.append(("norm_buffers", True))
     return hashlib.sha1(repr(src).encode()).hexdigest()[:8]
 
 
@@ -314,8 +371,12 @@ def train_test_main(family: str, argv=None) -> Dict:
     )
 
     mask_func = create_mask_for_mask_type(args.mask_type, args.center_fractions, args.accelerations)
-    transform = VarNetDataTransform(mask_func=mask_func, use_seed=bool(args.use_seed),
-                                    compress_coils=args.compress_coils)
+    transform_kwargs = dict(mask_func=mask_func, use_seed=bool(args.use_seed),
+                            compress_coils=args.compress_coils)
+    if family == "cinenet":
+        transform_kwargs.update(cache_maps=bool(args.cache_sens_maps),
+                                maps_cache_dir=args.maps_cache_dir)
+    transform = TRANSFORMS[family](**transform_kwargs)
 
     preprocess = PreprocessConfig()
     if args.crop_shape:

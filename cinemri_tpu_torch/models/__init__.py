@@ -1,8 +1,8 @@
 """Model layer of the port (counterpart of ``cinemri_tpu/models``).
 
-The VarNet and CineNet families, XF and XT, are ported so far; the other
-families and dynamic types raise ``NotImplementedError`` naming their
-ROADMAP item.
+Every non-recurrent variant of the three families is ported: VarNet and
+CineNet 2D / 3D / XT / XF, XPDNet 2D / XT / XF. The CRNN variants raise
+``NotImplementedError`` naming their ROADMAP item (Queue 1, item 12).
 """
 
 from __future__ import annotations
@@ -16,6 +16,7 @@ from cinemri_tpu_torch.models import denoisers
 from cinemri_tpu_torch.models.cinenet import CineNet, CineNetCascade
 from cinemri_tpu_torch.models.init import torch_style_init
 from cinemri_tpu_torch.models.varnet import SensitivityModel, VarNet, VarNetCascade
+from cinemri_tpu_torch.models.xpdnet import XPDNet, XPDNetBlock, XPDNetSensitivityModel
 
 __all__ = [
     "VarNet",
@@ -23,15 +24,15 @@ __all__ = [
     "SensitivityModel",
     "CineNet",
     "CineNetCascade",
+    "XPDNet",
+    "XPDNetBlock",
+    "XPDNetSensitivityModel",
     "denoisers",
     "build_model",
     "torch_style_init",
 ]
 
-_NOT_PORTED = {
-    "xpdnet": "ROADMAP Queue 1, item 11: XPDNet",
-}
-_MODELS = {"varnet": VarNet, "cinenet": CineNet}
+_MODELS = {"varnet": VarNet, "cinenet": CineNet, "xpdnet": XPDNet}
 
 
 def build_model(
@@ -50,7 +51,11 @@ def build_model(
     (VarNet: ``num_cascades``, ``sens_chans``, ``sens_pools``, ``chans``,
     ``pools``, ...; CineNet: ``num_cascades``, ``cg_iters``, ``chans``,
     ``pools``, ``weight_sharing``, ``kernel_dc``, ``remat``,
-    ``remat_policy``); unknown keys raise.
+    ``remat_policy``; XPDNet: ``num_cascades``, ``sens_chans``,
+    ``sens_pools``, ``n_scales``, ``n_filters_per_scale``,
+    ``n_convs_per_scale``, ``n_first_convs``, ``first_conv_n_filters``,
+    ``res``, ``primal_only``, ``n_primal``, ``n_dual``, ``norm_buffers``,
+    ...); unknown keys raise.
     """
     dev = resolve_device(device)
     family = family.lower()
@@ -65,8 +70,6 @@ def build_model(
         raise ValueError(
             f"dynamic_type {dynamic_type!r} not supported for {family}: {allowed[family]}"
         )
-    if family in _NOT_PORTED:
-        raise NotImplementedError(f"{family} is not ported yet ({_NOT_PORTED[family]})")
     if dynamic_type == "CRNN":
         raise NotImplementedError(
             f"{family} CRNN is not ported yet (ROADMAP Queue 1, item 12: CRNN)")

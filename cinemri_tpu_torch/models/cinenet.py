@@ -1,10 +1,11 @@
 """CineNet: alternating U-Net denoising and conjugate-gradient data
 consistency in image space.
 
-Counterpart of ``cinemri_tpu/models/cinenet.py`` for the XF and XT dynamic
-types. CineNet takes precomputed sensitivity maps as an input, its
+Counterpart of ``cinemri_tpu/models/cinenet.py`` for the 2D, 3D, XT and XF
+dynamic types (CRNN is a separate model, not ported yet). CineNet takes precomputed sensitivity maps as an input, its
 denoisers are plain U-Nets on raw ``[re, im]`` channels (no normalizing
-wrapper), and each cascade ends with a CG solve of
+wrapper: XT / XF over the rotated planes, 2D per frame, 3D a 3-D U-Net
+over ``(t, h, w)`` without padding), and each cascade ends with a CG solve of
 ``(AᴴMA + v·I) x = x_ref + v·x_den`` with ``v = softplus(λᵢ)`` a learned
 weight per cascade (:func:`~cinemri_tpu_torch.physics.cg.conj_grad`), whose
 step sizes and ``v`` stay on the device.
@@ -29,7 +30,7 @@ from torch import nn
 
 from cinemri_tpu_torch.models.denoisers.unet import Unet
 from cinemri_tpu_torch.models.remat import call_remat, check_remat_policy
-from cinemri_tpu_torch.models.varnet import DYNAMIC_TYPES, LAMBDA_INIT, PORTED_TYPES
+from cinemri_tpu_torch.models.varnet import DYNAMIC_TYPES, LAMBDA_INIT
 from cinemri_tpu_torch.ops.cplx import Complex, cmean, from_channels, to_channels
 from cinemri_tpu_torch.ops.fft import fft1c, ifft1c
 from cinemri_tpu_torch.physics.cg import conj_grad
@@ -50,15 +51,14 @@ class CineNetCascade(nn.Module):
     def __init__(self, chans: int, pools: int, cg_iters: int = 4, dynamic_type: str = "XF",
                  weight_sharing: bool = False):
         super().__init__()
-        if dynamic_type not in PORTED_TYPES:
-            raise NotImplementedError(
-                f"CineNet dynamic_type {dynamic_type!r} is not ported yet "
-                "(ROADMAP Queue 1, item 10: CineNet 2D/3D cascades)"
-            )
+        if dynamic_type not in DYNAMIC_TYPES:
+            raise ValueError(f"unknown dynamic_type {dynamic_type!r}")
         self.cg_iters = cg_iters
         self.dynamic_type = dynamic_type
         self.weight_sharing = weight_sharing
-        if weight_sharing:
+        if dynamic_type in ("2D", "3D"):
+            self.net = Unet(chans, pools, dims=3 if dynamic_type == "3D" else 2)
+        elif weight_sharing:
             self.plane_net = Unet(chans, pools)
         else:
             self.net_xf = Unet(chans, pools)
@@ -87,7 +87,16 @@ class CineNetCascade(nn.Module):
 
     def forward(self, image_pred: Complex, lam: torch.Tensor, image_ref: Complex,
                 mask: torch.Tensor, sens_maps: Complex, dc_kernel) -> Complex:
-        model_out = self._xfyf(image_pred[:, :, 0])[:, :, None]  # (b, t, 1, h, w)
+        x = image_pred[:, :, 0]  # (b, t, h, w)
+        b, t, h, w = x.shape
+        if self.dynamic_type == "2D":
+            out = self.net(to_channels(x.reshape(b * t, h, w), axis=1))  # (b·t, 2, h, w)
+            model_out = from_channels(out, axis=1).reshape(b, t, h, w)
+        elif self.dynamic_type == "3D":
+            model_out = from_channels(self.net(to_channels(x, axis=1)), axis=1)  # (b, 2, t, h, w)
+        else:
+            model_out = self._xfyf(x)
+        model_out = model_out[:, :, None]  # (b, t, 1, h, w)
         v = F.softplus(lam)  # a 0-d tensor on the device
         rhs = image_ref + v * model_out
         if dc_kernel is None:
@@ -100,7 +109,7 @@ class CineNetCascade(nn.Module):
 
 
 class CineNet(nn.Module):
-    """Full dynamic CineNet (XF / XT)."""
+    """Full dynamic CineNet (2D / 3D / XT / XF)."""
 
     def __init__(
         self,

@@ -1,0 +1,140 @@
+"""Multi-scale Wavelet CNN (MWCNN) in NCHW layout.
+
+Counterpart of ``cinemri_tpu/models/denoisers/mwcnn.py`` (unpacked): a
+U-Net-shaped denoiser whose pooling and unpooling are the Haar DWT / IWT
+of :mod:`cinemri_tpu_torch.ops.wavelet`, with per-scale conv stacks,
+additive skips, optional first convs (and their skip around the whole
+net), and an optional global residual. XPDNet's image-space denoiser.
+Convolutions and instance norm are PyTorch/cuDNN ops, as the JAX package
+wrote no Pallas kernel for them.
+
+Module names map onto the flax tree (``interop/flax_params.py``):
+``blocks[i]`` = ``MWConvBlock_i`` in call order, ``final`` = ``Conv_0``
+(the last conv with a bias: after the first-conv skip, or, with
+``n_first_convs < 1``, the plain conv to ``4 * out_chans`` before the
+last IWT).
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from cinemri_tpu_torch.ops.wavelet import dwt2, iwt2
+
+__all__ = ["MWCNN", "MWConvBlock"]
+
+
+class MWConvBlock(nn.Module):
+    """conv3x3 (no bias) -> InstanceNorm (eps 1e-5, no affine; flax's
+    GroupNorm with one group per channel) -> LeakyReLU(0.2)."""
+
+    def __init__(self, in_chans: int, n_filters: int):
+        super().__init__()
+        self.conv = nn.Conv2d(in_chans, n_filters, 3, padding=1, bias=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.leaky_relu(F.instance_norm(self.conv(x), eps=1e-5), 0.2)
+
+
+class MWCNN(nn.Module):
+    """Input/output ``(n, chans, h, w)``; ``h`` and ``w`` divisible by
+    ``2**n_scales`` (callers pad with ``ops.pad.pad_for_mwcnn``)."""
+
+    def __init__(
+        self,
+        in_chans: int,
+        out_chans: int,
+        n_scales: int = 3,
+        n_filters_per_scale: Sequence[int] = (16, 32, 64),
+        n_convs_per_scale: Sequence[int] = (2, 2, 2),
+        n_first_convs: int = 1,
+        first_conv_n_filters: int = 16,
+        res: bool = False,
+        packed: bool = False,
+    ):
+        super().__init__()
+        if packed:
+            raise NotImplementedError(
+                "packed MWCNN is not ported (ROADMAP Queue 1, item 14: "
+                "models/denoisers/packed_unet.py)"
+            )
+        self.n_scales = n_scales
+        self.n_convs = tuple(n_convs_per_scale)
+        self.n_first_convs = n_first_convs
+        self.res = res
+        nf, f0 = tuple(n_filters_per_scale), first_conv_n_filters
+
+        def chans_for(i_scale: int, i_conv: int) -> int:
+            if i_conv == self.n_convs[i_scale] * 2 - 1:
+                if i_scale == 0:
+                    return max(4 * f0, 4 * out_chans)
+                return 4 * nf[i_scale - 1]
+            return nf[i_scale]
+
+        blocks = []
+
+        def block(cin: int, cout: int) -> int:
+            blocks.append(MWConvBlock(cin, cout))
+            return cout
+
+        # the blocks in call order, tracking the channels between them
+        ch = in_chans
+        for _ in range(n_first_convs):
+            ch = block(ch, f0)
+        for i_scale in range(n_scales):
+            ch *= 4  # dwt2
+            for i_conv in range(self.n_convs[i_scale]):
+                ch = block(ch, chans_for(i_scale, i_conv))
+        for i_scale in range(n_scales - 1, -1, -1):
+            if i_scale != n_scales - 1:
+                ch //= 4  # iwt2, then the additive skip
+            n = self.n_convs[i_scale]
+            for i_conv in range(n, 2 * n):
+                if i_scale == 0 and i_conv == 2 * n - 1 and n_first_convs < 1:
+                    self.final = nn.Conv2d(ch, 4 * out_chans, 3, padding=1)
+                    ch = 4 * out_chans
+                else:
+                    ch = block(ch, chans_for(i_scale, i_conv))
+        ch //= 4  # iwt2
+        if n_first_convs > 0:
+            for _ in range(n_first_convs - 1):
+                ch = block(ch, f0)
+            self.final = nn.Conv2d(ch, out_chans, 3, padding=1)
+        self.blocks = nn.ModuleList(blocks)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        block = 2 ** self.n_scales
+        if x.ndim != 4 or x.shape[2] % block or x.shape[3] % block:
+            raise ValueError(f"MWCNN needs (n, c, h, w) with h, w divisible by {block}, "
+                             f"got {tuple(x.shape)}")
+        blocks = iter(self.blocks)
+        cur = x
+        for _ in range(self.n_first_convs):
+            cur = next(blocks)(cur)
+        first_conv_feature = cur
+        skips = []
+        for i_scale in range(self.n_scales):
+            cur = dwt2(cur, channel_axis=1)
+            for _ in range(self.n_convs[i_scale]):
+                cur = next(blocks)(cur)
+            skips.append(cur)
+        for i_scale in range(self.n_scales - 1, -1, -1):
+            if i_scale != self.n_scales - 1:
+                cur = iwt2(cur, channel_axis=1) + skips[i_scale]
+            n = self.n_convs[i_scale]
+            for i_conv in range(n, 2 * n):
+                if i_scale == 0 and i_conv == 2 * n - 1 and self.n_first_convs < 1:
+                    cur = self.final(cur)  # plain conv straight to 4 * out_chans
+                else:
+                    cur = next(blocks)(cur)
+        cur = iwt2(cur, channel_axis=1)
+        if self.n_first_convs > 0:
+            cur = cur + first_conv_feature
+            for _ in range(self.n_first_convs - 1):
+                cur = next(blocks)(cur)
+            cur = self.final(cur)
+        return x + cur if self.res else cur

@@ -1,11 +1,11 @@
-"""2-D U-Net denoiser in NCHW layout.
+"""2-D / 3-D U-Net denoiser in channels-first layout (NCHW / NCDHW).
 
-Counterpart of ``cinemri_tpu/models/denoisers/unet.py`` (``dims=2``,
+Counterpart of ``cinemri_tpu/models/denoisers/unet.py`` (``dims`` 2 and 3,
 unpacked): encoder/decoder with 2x average-pool downsampling (floor crop on
 odd sizes), transpose-conv upsampling, skip concatenation, and blocks of
-conv3x3 (no bias) -> InstanceNorm (eps 1e-5, no affine) -> LeakyReLU(0.2).
-The decoder pads odd sizes at the trailing edge; the final 1x1 conv has a
-bias. Convolutions, instance norm and pooling are PyTorch/cuDNN ops: the
+conv3 (no bias) -> InstanceNorm (eps 1e-5, no affine) -> LeakyReLU(0.2).
+The decoder pads odd sizes at the trailing edge of every spatial axis
+(t = 15 goes 15 -> 7 -> 3 -> 1 and back); the final 1x1 conv has a bias. Convolutions, instance norm and pooling are PyTorch/cuDNN ops: the
 JAX package wrote no Pallas kernel for them.
 
 Module names map one to one onto the flax tree (see
@@ -23,13 +23,18 @@ from torch import nn
 __all__ = ["Unet", "ConvBlock", "TransposeConvBlock"]
 
 
-class ConvBlock(nn.Module):
-    """Two (conv3x3 -> InstanceNorm -> LeakyReLU(0.2)) stages."""
+_CONV = {2: nn.Conv2d, 3: nn.Conv3d}
+_CONV_T = {2: nn.ConvTranspose2d, 3: nn.ConvTranspose3d}
+_POOL = {2: F.avg_pool2d, 3: F.avg_pool3d}
 
-    def __init__(self, in_chans: int, out_chans: int):
+
+class ConvBlock(nn.Module):
+    """Two (conv3 -> InstanceNorm -> LeakyReLU(0.2)) stages."""
+
+    def __init__(self, in_chans: int, out_chans: int, dims: int = 2):
         super().__init__()
-        self.conv0 = nn.Conv2d(in_chans, out_chans, 3, padding=1, bias=False)
-        self.conv1 = nn.Conv2d(out_chans, out_chans, 3, padding=1, bias=False)
+        self.conv0 = _CONV[dims](in_chans, out_chans, 3, padding=1, bias=False)
+        self.conv1 = _CONV[dims](out_chans, out_chans, 3, padding=1, bias=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for conv in (self.conv0, self.conv1):
@@ -40,16 +45,17 @@ class ConvBlock(nn.Module):
 class TransposeConvBlock(nn.Module):
     """convT(k=2, s=2, no bias) -> InstanceNorm -> LeakyReLU(0.2)."""
 
-    def __init__(self, in_chans: int, out_chans: int):
+    def __init__(self, in_chans: int, out_chans: int, dims: int = 2):
         super().__init__()
-        self.conv = nn.ConvTranspose2d(in_chans, out_chans, 2, stride=2, bias=False)
+        self.conv = _CONV_T[dims](in_chans, out_chans, 2, stride=2, bias=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.leaky_relu(F.instance_norm(self.conv(x), eps=1e-5), 0.2)
 
 
 class Unet(nn.Module):
-    """Input/output ``(n, chans, h, w)``."""
+    """Input/output ``(n, chans, h, w)``, or ``(n, chans, t, h, w)`` with
+    ``dims=3``."""
 
     def __init__(
         self,
@@ -61,49 +67,49 @@ class Unet(nn.Module):
         packed: bool = False,
     ):
         super().__init__()
-        if dims != 2:
-            raise NotImplementedError(
-                "Unet(dims=3) is not ported yet (ROADMAP Queue 1, item 5: "
-                "3-D U-Net / NormUnet3D)"
-            )
+        if dims not in (2, 3):
+            raise ValueError(f"Unet dims must be 2 or 3, got {dims}")
         if packed:
             raise NotImplementedError(
                 "packed Unet is not ported (ROADMAP Queue 1, item 14: "
                 "models/denoisers/packed_unet.py)"
             )
+        self.dims = dims
         self.num_pool_layers = num_pool_layers
         ch = chans
-        self.down = nn.ModuleList([ConvBlock(in_chans, ch)])
+        self.down = nn.ModuleList([ConvBlock(in_chans, ch, dims)])
         for _ in range(num_pool_layers - 1):
-            self.down.append(ConvBlock(ch, ch * 2))
+            self.down.append(ConvBlock(ch, ch * 2, dims))
             ch *= 2
-        self.bottom = ConvBlock(ch, ch * 2)
+        self.bottom = ConvBlock(ch, ch * 2, dims)
         self.up_transpose = nn.ModuleList()
         self.up_conv = nn.ModuleList()
         for _ in range(num_pool_layers - 1):
-            self.up_transpose.append(TransposeConvBlock(ch * 2, ch))
-            self.up_conv.append(ConvBlock(ch * 2, ch))
+            self.up_transpose.append(TransposeConvBlock(ch * 2, ch, dims))
+            self.up_conv.append(ConvBlock(ch * 2, ch, dims))
             ch //= 2
-        self.up_transpose.append(TransposeConvBlock(ch * 2, ch))
-        self.up_conv.append(ConvBlock(ch * 2, ch))
-        self.final = nn.Conv2d(ch, out_chans, 1)
+        self.up_transpose.append(TransposeConvBlock(ch * 2, ch, dims))
+        self.up_conv.append(ConvBlock(ch * 2, ch, dims))
+        self.final = _CONV[dims](ch, out_chans, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if x.ndim != 4:
-            raise ValueError(f"Unet expects (n, c, h, w), got {tuple(x.shape)}")
+        if x.ndim != self.dims + 2:
+            raise ValueError(f"Unet(dims={self.dims}) expects rank {self.dims + 2}, "
+                             f"got {tuple(x.shape)}")
         stack = []
         out = x
         for block in self.down:
             out = block(out)
             stack.append(out)
-            out = F.avg_pool2d(out, 2)  # floor crop on odd sizes
+            out = _POOL[self.dims](out, 2)  # floor crop on odd sizes
         out = self.bottom(out)
         for tconv, conv in zip(self.up_transpose, self.up_conv):
             skip = stack.pop()
             out = tconv(out)
-            dh = skip.shape[-2] - out.shape[-2]
-            dw = skip.shape[-1] - out.shape[-1]
-            if dh or dw:  # trailing-edge pad where the encoder level was odd
-                out = F.pad(out, (0, dw, 0, dh))
+            # trailing-edge pad where the encoder level was odd (F.pad: last axis first)
+            pads = [p for a in range(-1, -self.dims - 1, -1)
+                    for p in (0, skip.shape[a] - out.shape[a])]
+            if any(pads):
+                out = F.pad(out, pads)
             out = conv(torch.cat([out, skip], dim=1))
         return self.final(out)

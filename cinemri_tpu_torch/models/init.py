@@ -1,10 +1,10 @@
 """Torch-style parameter initialization from an explicit generator.
 
 Counterpart of ``cinemri_tpu/models/init.py``: every conv kernel is drawn
-uniform in ±1/sqrt(fan_in), with fan_in = in_channels x prod(kernel dims),
-and every conv bias with its kernel's bound. For a transpose conv the
+uniform in ±1/sqrt(fan_in), with fan_in = in_channels x prod(kernel dims)
+(2-D and 3-D convolutions, transposed or not), and every conv bias with its kernel's bound. For a transpose conv the
 in_channels are its input channels, as in the JAX package (weight
-``(in, out, kh, kw)``). Other parameters (``lambda_reg``) keep their
+``(in, out, k...)``). Other parameters (``lambda_reg``) keep their
 explicit initial values. :func:`lecun_normal_init` draws flax's default
 instead (``lecun_normal``: truncated normal at ±2σ, σ = 1/sqrt(fan_in)
 corrected for the truncation; biases 0), the JAX package's init with
@@ -22,11 +22,12 @@ __all__ = ["torch_style_init", "lecun_normal_init"]
 
 
 def _convs(model: nn.Module):
-    """(module, fan_in) of every conv in module order."""
+    """(module, fan_in) of every conv (2-D and 3-D, transposed or not) in
+    module order."""
     for module in model.modules():
-        if isinstance(module, nn.ConvTranspose2d):
+        if isinstance(module, (nn.ConvTranspose2d, nn.ConvTranspose3d)):
             yield module, module.weight.shape[0] * math.prod(module.weight.shape[2:])
-        elif isinstance(module, nn.Conv2d):
+        elif isinstance(module, (nn.Conv2d, nn.Conv3d)):
             yield module, module.weight.shape[1] * math.prod(module.weight.shape[2:])
 
 

@@ -1,4 +1,4 @@
-"""Rematerialization of the VarNet and CineNet cascades.
+"""Rematerialization of the VarNet, CineNet and XPDNet cascades.
 
 Counterpart of ``cinemri_tpu/models/remat.py``. With ``remat`` on, each
 cascade call runs under ``torch.utils.checkpoint`` (non-reentrant): the

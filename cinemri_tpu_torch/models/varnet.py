@@ -1,7 +1,7 @@
 """Dynamic End-to-End Variational Network (VarNet), forward pass.
 
-Counterpart of ``cinemri_tpu/models/varnet.py`` for the XF and XT dynamic
-types: unrolled cascades with a learned-λ soft data-consistency step, a
+Counterpart of ``cinemri_tpu/models/varnet.py`` for the 2D, 3D, XT and XF
+dynamic types (CRNN is a separate model, not ported yet): unrolled cascades with a learned-λ soft data-consistency step, a
 learned sensitivity-map U-Net, and a regularizer shared by every cascade
 (one :class:`VarNetCascade` module called ``num_cascades`` times, as the
 flax ``nn.scan`` broadcasts its params). The cascade loop is a Python loop.
@@ -9,7 +9,9 @@ flax ``nn.scan`` broadcasts its params). The cascade loop is a Python loop.
 With ``kernel_dc`` and a line mask, cascades run in image space through the
 precomputed h-axis normal kernel (``physics.soft_dc_image_kernel``);
 otherwise they run the direct k-space form through ``sens_expand`` /
-``soft_dc``. With ``remat`` (the default, as in the JAX package) each
+``soft_dc``. The regularizer: XT / XF, NormUnets over the rotated (w, t)
+and (h, t) planes; 2D, a NormUnet per frame (frames folded into the
+batch); 3D, a NormUnet3D over ``(t, h, w)``. With ``remat`` (the default, as in the JAX package) each
 cascade is checkpointed when autograd records (``models/remat.py``).
 
 I/O: ``masked_kspace (b, t, c, h, w)`` Complex, ``mask (b, t|1, 1, h, 1)``
@@ -24,7 +26,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from cinemri_tpu_torch.models.denoisers.norm_unet import NormUnet
+from cinemri_tpu_torch.models.denoisers.norm_unet import NormUnet, NormUnet3D
 from cinemri_tpu_torch.models.remat import call_remat, check_remat_policy
 from cinemri_tpu_torch.ops.coil import rss_complex
 from cinemri_tpu_torch.ops.cplx import Complex, cmean
@@ -46,7 +48,6 @@ __all__ = ["VarNet", "VarNetCascade", "SensitivityModel", "LAMBDA_INIT", "DYNAMI
 LAMBDA_INIT = math.log(math.e - 1.0)
 
 DYNAMIC_TYPES = ("2D", "3D", "XT", "XF")
-PORTED_TYPES = ("XT", "XF")
 
 
 class SensitivityModel(nn.Module):
@@ -72,14 +73,13 @@ class VarNetCascade(nn.Module):
     def __init__(self, chans: int, pools: int, dynamic_type: str = "XF",
                  weight_sharing: bool = False, packed: bool = False):
         super().__init__()
-        if dynamic_type not in PORTED_TYPES:
-            raise NotImplementedError(
-                f"VarNet dynamic_type {dynamic_type!r} is not ported yet "
-                "(ROADMAP Queue 1, item 6: 2D/3D cascades)"
-            )
+        if dynamic_type not in DYNAMIC_TYPES:
+            raise ValueError(f"unknown dynamic_type {dynamic_type!r}")
         self.dynamic_type = dynamic_type
         self.weight_sharing = weight_sharing
-        if weight_sharing:
+        if dynamic_type in ("2D", "3D"):
+            self.net = (NormUnet if dynamic_type == "2D" else NormUnet3D)(chans, pools, packed=packed)
+        elif weight_sharing:
             self.plane_net = NormUnet(chans, pools, packed=packed)
         else:
             self.net_xf = NormUnet(chans, pools, packed=packed)
@@ -112,7 +112,14 @@ class VarNetCascade(nn.Module):
             image = sens_reduce(carry, sens_maps)[:, :, 0]  # (b, t, h, w)
         else:
             image = carry[:, :, 0]
-        model_out = self._xfyf(image)[:, :, None]
+        b, t, h, w = image.shape
+        if self.dynamic_type == "2D":  # per-frame static reconstruction
+            model_out = self.net(image.reshape(b * t, h, w)).reshape(b, t, h, w)
+        elif self.dynamic_type == "3D":
+            model_out = self.net(image)
+        else:
+            model_out = self._xfyf(image)
+        model_out = model_out[:, :, None]
         v = F.softplus(lam)
         if dc_kernel is None:
             return soft_dc(sens_expand(model_out, sens_maps), ref, mask, v)
@@ -120,7 +127,7 @@ class VarNetCascade(nn.Module):
 
 
 class VarNet(nn.Module):
-    """Full dynamic VarNet (XF / XT)."""
+    """Full dynamic VarNet (2D / 3D / XT / XF)."""
 
     def __init__(
         self,

@@ -9,6 +9,8 @@ names (``axis``, ``keepdims``) so call sites read the same in both packages.
 
 from __future__ import annotations
 
+from typing import Sequence
+
 import numpy as np
 import torch
 
@@ -20,6 +22,10 @@ __all__ = [
     "cmean",
     "to_channels",
     "from_channels",
+    "to_multi_channels",
+    "from_multi_channels",
+    "concat",
+    "crepeat",
     "real_dot",
 ]
 
@@ -159,6 +165,28 @@ def to_channels(x: Complex, axis: int = -1) -> torch.Tensor:
 def from_channels(r: torch.Tensor, axis: int = -1) -> Complex:
     re, im = r.unbind(dim=axis)
     return Complex(re, im)
+
+
+def to_multi_channels(x: Complex, axis: int = -1) -> torch.Tensor:
+    """Complex ``(..., n, ...)`` -> real ``(..., 2n, ...)`` along ``axis``:
+    the first n re, the last n im (the reference's complex_to_real_multi_ch
+    packing). ``axis=-1`` is the JAX package's channels-last layout."""
+    return torch.cat([x.re, x.im], dim=axis)
+
+
+def from_multi_channels(r: torch.Tensor, axis: int = -1) -> Complex:
+    """Inverse of :func:`to_multi_channels`: views of the two halves of ``axis``."""
+    re, im = r.chunk(2, dim=axis)
+    return Complex(re, im)
+
+
+def concat(xs: Sequence[Complex], axis: int = -1) -> Complex:
+    return Complex(torch.cat([x.re for x in xs], dim=axis), torch.cat([x.im for x in xs], dim=axis))
+
+
+def crepeat(x: Complex, n: int, axis: int) -> Complex:
+    """Each element repeated ``n`` times along ``axis`` (``jnp.repeat``)."""
+    return Complex(x.re.repeat_interleave(n, dim=axis), x.im.repeat_interleave(n, dim=axis))
 
 
 def real_dot(u: Complex, v: Complex) -> torch.Tensor:

@@ -19,7 +19,10 @@ Counterpart of ``cinemri_tpu/ops/fft.py``. Two dispatch paths behind one API:
     preprocessing and test oracles only).
 
 Conventions: ``fft2c``/``ifft2c`` shift over the last two axes with ortho
-norm; ``fft1c``/``ifft1c`` are the centered 1-D transforms along ``axis``.
+norm; ``fft1c``/``ifft1c`` are the centered 1-D transforms along ``axis``;
+``fft1c_alt`` shifts in the opposite order (XPDNet's temporal transform) and
+``ifft1c_alt`` is its exact inverse, a dense matrix (for odd lengths the
+standard ``ifft1c`` is not its inverse).
 """
 
 from __future__ import annotations
@@ -37,6 +40,8 @@ __all__ = [
     "set_dft_backend",
     "fft1c",
     "ifft1c",
+    "fft1c_alt",
+    "ifft1c_alt",
     "fft2c",
     "ifft2c",
     "fftshift",
@@ -150,19 +155,27 @@ def _apply_dft(x: Complex, axis: int, inverse: bool, alt: bool, norm: str) -> Co
     return Complex(yr.view(x.shape), yi.view(x.shape))
 
 
-def _native(x, axis: int, inverse: bool, norm: str):
-    """Centered 1-D transform of a complex tensor / numpy array with torch.fft."""
+def _native(x, axis: int, inverse: bool, alt: bool, norm: str):
+    """Centered 1-D transform of a complex tensor / numpy array with torch.fft
+    (``ifft1c_alt``, ``inverse`` and ``alt``, by its dense matrix)."""
     as_numpy = isinstance(x, np.ndarray)
     t = torch.from_numpy(x) if as_numpy else x
-    f = torch.fft.ifft if inverse else torch.fft.fft
-    y = torch.fft.fftshift(f(torch.fft.ifftshift(t, dim=axis), dim=axis, norm=norm), dim=axis)
+    if inverse and alt:
+        wr, wi = _dft_matrix(t.shape[axis], True, True, norm)
+        w = torch.complex(torch.from_numpy(wr), torch.from_numpy(wi)).to(t.device, t.dtype)
+        y = torch.movedim(torch.tensordot(t, w, dims=([axis], [1])), -1, axis)
+    else:
+        f = torch.fft.ifft if inverse else torch.fft.fft
+        first, last = ((torch.fft.fftshift, torch.fft.ifftshift) if alt
+                       else (torch.fft.ifftshift, torch.fft.fftshift))
+        y = last(f(first(t, dim=axis), dim=axis, norm=norm), dim=axis)
     return y.numpy() if as_numpy else y
 
 
-def _centered(x, axis: int, inverse: bool, norm: str):
+def _centered(x, axis: int, inverse: bool, norm: str, alt: bool = False):
     if isinstance(x, Complex):
-        return _apply_dft(x, axis, inverse, alt=False, norm=norm)
-    return _native(x, axis, inverse, norm)
+        return _apply_dft(x, axis, inverse, alt, norm)
+    return _native(x, axis, inverse, alt, norm)
 
 
 def fft1c(x, axis: int = -1, norm: str = "ortho"):
@@ -173,6 +186,17 @@ def fft1c(x, axis: int = -1, norm: str = "ortho"):
 def ifft1c(x, axis: int = -1, norm: str = "ortho"):
     """Centered 1-D inverse FFT along ``axis``."""
     return _centered(x, axis, inverse=True, norm=norm)
+
+
+def fft1c_alt(x, axis: int = -1, norm: str = "ortho"):
+    """Centered 1-D FFT along ``axis`` with the opposite shift order
+    (``ifftshift ∘ F ∘ fftshift``), as XPDNet's reference applies it."""
+    return _centered(x, axis, inverse=False, norm=norm, alt=True)
+
+
+def ifft1c_alt(x, axis: int = -1, norm: str = "ortho"):
+    """Exact inverse of :func:`fft1c_alt`."""
+    return _centered(x, axis, inverse=True, norm=norm, alt=True)
 
 
 def fft2c(x, norm: str = "ortho"):

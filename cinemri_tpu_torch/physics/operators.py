@@ -45,6 +45,11 @@ __all__ = [
 
 COIL_AXIS = 2
 
+# Copies of x made by normal_plus_lambda_kernel (one per call that copies):
+# the kernel takes contiguous planes, and XPDNet's head is a strided slice of
+# its channel-last buffer.
+COPIES = 0
+
 # "kernel": CUDA tensors take the CUDA kernel, CPU tensors its plain version;
 # "torch": every tensor takes the plain version.
 _NORMAL_BACKEND = "kernel"
@@ -139,12 +144,19 @@ def normal_plus_lambda_kernel(x: Complex, kernel: Complex, sens_maps: Complex, l
     for the call (the CUDA kernel takes one K and one S per volume), and
     the gradient of shared maps sums over the batch. Callers that apply
     the operator many times (CineNet's CG) expand them once beforehand.
+    An ``x`` that is not contiguous (XPDNet's head, a slice of its buffer)
+    is copied for the kernel, and counted in :data:`COPIES`.
     """
+    global COPIES
     b = x.shape[0]
     batched = lambda a: a.expand(b, *a.shape[1:]).contiguous()  # no copy at batch b
+    xr, xi = x.re[:, :, 0], x.im[:, :, 0]
+    if not (xr.is_contiguous() and xi.is_contiguous()):
+        xr, xi = xr.contiguous(), xi.contiguous()
+        COPIES += 1
     outr, outi = normal_cuda.NormalApply.apply(
-        x.re[:, :, 0].contiguous(),
-        x.im[:, :, 0].contiguous(),
+        xr,
+        xi,
         batched(kernel.re.detach()),
         batched(kernel.im.detach()),
         batched(sens_maps.re[:, 0]),

@@ -229,8 +229,8 @@ class TestCineNet:
         assert_model_close(outs[0], outs[1])
 
     def test_build_options(self):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            CineNet(dynamic_type="3D")
+        with pytest.raises(NotImplementedError, match="item 14"):
+            CineNet(dynamic_type="3D", remat_policy="dots")
         with pytest.raises(NotImplementedError, match="Queue 1, item 12"):
             build_model("cinenet", "CRNN", device="cpu")
         with pytest.raises(TypeError):

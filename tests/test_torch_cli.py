@@ -72,8 +72,8 @@ class TestParser:
 
 
 @pytest.mark.parametrize("family, argv, item", [
-    ("varnet", ["--dynamic_type", "2D"], "items 5/6"),
-    ("varnet", ["--dynamic_type", "3D"], "items 5/6"),
+    ("cinenet", ["--dynamic_type", "CRNN"], "item 12"),
+    ("xpdnet", ["--dynamic_type", "CRNN"], "item 12"),
     ("varnet", ["--dynamic_type", "CRNN"], "item 12"),
     ("varnet", ["--num_devices", "2"], "item 13"),
     ("varnet", ["--coil_devices", "2"], "item 13"),
@@ -85,8 +85,8 @@ class TestParser:
     ("varnet", ["--bf16", "1"], "item 14"),
     ("varnet", ["--packed", "1"], "item 14"),
     ("varnet", ["--profile_steps", "2"], "item 14"),
-    ("cinenet", [], "item 10"),
-    ("xpdnet", [], "item 11"),
+    ("cinenet", ["--bf16", "1"], "item 14"),
+    ("xpdnet", ["--packed", "1", "--dynamic_type", "2D"], "item 14"),
 ])
 def test_unported_options_raise_naming_their_item(family, argv, item):
     with pytest.raises(NotImplementedError, match=item):
@@ -162,3 +162,70 @@ def test_cli_flow_leaves_the_jax_flow_artifact_names(workdir, tmp_path):
     want = sorted(str(p.relative_to(jroot)) for p in jroot.rglob("*") if p.is_file())
     assert got == sorted(want + ["SSIMs.csv"])
     assert len((results / "SSIMs.csv").read_text().splitlines()) == 1  # one test volume
+
+
+FAMILY_TINY = {
+    "cinenet": ["--num_cascades", "1", "--chans", "4", "--pools", "2", "--CG_iters", "2",
+                "--dynamic_type", "2D"],
+    "xpdnet": ["--num_cascades", "1", "--sens_chans", "4", "--sens_pools", "2", "--n_scales", "2",
+               "--first_conv_n_filters", "4", "--n_filters_per_scale", "4", "8", "--n_primal", "2"],
+}
+
+
+@pytest.mark.parametrize("family", ["cinenet", "xpdnet"])
+def test_family_parser_and_fingerprint_match_jax(family):
+    """Every flag of the JAX parser with its default (the port adds
+    --device), and the same checkpoint fingerprint for the same argv,
+    norm_buffers included."""
+    want = vars(JC.build_parser(family).parse_args([]))
+    got = vars(TC.build_parser(family).parse_args([]))
+    assert set(got) - set(want) == {"device"}
+    assert {k: got[k] for k in want} == want
+    argvs = [[], FAMILY_TINY[family], ["--dynamic_type", "3D" if family == "cinenet" else "2D"]]
+    if family == "xpdnet":
+        argvs += [["--norm_buffers", "1"], ["--norm_buffers", "0"], ["--primal_only", "0"]]
+    for argv in argvs:
+        fp = JC.config_fingerprint(family, JC.build_parser(family).parse_args(argv))
+        assert TC.config_fingerprint(family, TC.build_parser(family).parse_args(argv)) == fp
+
+
+@pytest.mark.parametrize("family", ["cinenet", "xpdnet"])
+def test_family_cli_flow_leaves_the_jax_flow_artifact_names(family, workdir, tmp_path):
+    """train (1 epoch, final checkpoint) -> test --load_model 1 --inference 1
+    with --device cpu: the checkpoint directory the JAX flow names and the
+    inference artifacts the JAX package's InferenceRunner writes for the
+    same batch (run on a stand-in model)."""
+    common = FAMILY_TINY[family] + [
+        "--center_fractions", "6", "--accelerations", "2", "--path_config",
+        str(workdir / "dirs_path.yaml"), "--maps_cache_dir", str(workdir / "maps"),
+        "--device", "cpu"]
+    out = TC.train_test_main(family, common + ["--mode", "train", "--epochs", "1",
+                                               "--save_checkpoint", "1"])
+    assert np.isfinite(out["history"][-1]["train_loss"])
+    fp = JC.config_fingerprint(family, JC.build_parser(family).parse_args(common[:-6]))
+    dyn = "2D" if family == "cinenet" else "XF"
+    ckpt = workdir / "logs" / family / f"{family}_logs" / "checkpoints" / f"{family}_{dyn}_acc2_{fp}"
+    assert sorted(p.name for p in ckpt.iterdir()) == ["0.pt", "1.pt", "best_steps.json"]
+
+    out = TC.train_test_main(family, common + ["--mode", "test", "--load_model", "1",
+                                               "--inference", "1"])
+    assert 0 < out["test_metrics"]["ssim"] <= 1 and out["inference_seconds"] > 0
+    results = workdir / "results"
+    got = {str(p.relative_to(results)) for p in results.rglob("*.npy")}
+
+    trainer = out["trainer"]
+    from cinemri_tpu_torch.data import SliceDataset
+    from cinemri_tpu_torch.train import Loader
+
+    inf = SliceDataset(workdir / "data" / "inference", transform=trainer.test_loader.dataset.transform,
+                       maps_cache_dir=workdir / "maps")
+    batch = Loader(inf, batch_size=1).first_batch()
+
+    class StandIn:  # returns the target's shape; only the names matter here
+        def apply(self, params, k, mask, *maps):
+            return jnp.zeros(k.re.shape[:2] + k.re.shape[-2:], jnp.float32)
+
+    jroot = tmp_path / "jax_results"
+    JI.InferenceRunner(StandIn(), {}, family, jroot)(batch)
+    want = {str(p.relative_to(jroot)) for p in jroot.rglob("*") if p.is_file()}
+    assert len(want) == 3 and want <= got  # target, output_<family>, zero_filled

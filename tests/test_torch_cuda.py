@@ -19,6 +19,7 @@ def dev():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False  # TF32 convs round inputs to 10 mantissa bits
     return torch.device("cuda", 0)
 
 
@@ -432,3 +433,101 @@ def test_small_trainer_fit_launches_the_kernels(dev, tmp_path):
     assert fresh.restore_latest() == 2
     for a, b in zip(trainer.state.model.state_dict().values(), fresh.state.model.state_dict().values()):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("o,n,i,inverse,alt", [(1, 15, 240000, False, True),
+                                               (1, 15, 200000, True, False),
+                                               (2, 5, 3 * 24 * 4, False, True)])
+def test_dft_xpdnet_layouts_match_plain(dev, o, n, i, inverse, alt):
+    """XPDNet's temporal DFTs on its channel-last buffer: fft1c_alt at
+    (1, 15, 240000) (the buffer (1, 15, 200, 200, 6)) and ifft1c at
+    (1, 15, 200000); forward and autograd (the kernel on the alt matrix's
+    Wᴴ) against the plain version."""
+    from cinemri_tpu_torch.ops import fft as F
+    from cinemri_tpu_torch.ops.kernels import dft_cuda
+
+    g = torch.Generator(device=dev).manual_seed(o + n + i)
+    r = lambda: torch.randn(o, n, i, generator=g, device=dev)
+    mats = (F._dft_tensors(n, inverse, alt, "ortho", dev)
+            + F._dft_adjoint_tensors(n, inverse, alt, "ortho", dev))
+    inputs, cot = (r(), r()), (r(), r())
+    outs = []
+    for plain in (False, True):
+        xr, xi = (a.clone().requires_grad_(True) for a in inputs)
+        before = dft_cuda.LAUNCHES
+        y = dft_cuda.ComplexDFTMatmul.apply(xr, xi, *mats, plain)
+        grads = torch.autograd.grad(y, (xr, xi), cot)
+        assert dft_cuda.LAUNCHES - before == (0 if plain else 2)
+        outs.append((y, grads))
+    _close(outs[0][0], outs[1][0])
+    _close(outs[0][1], outs[1][1])
+
+
+def test_normal_apply_on_a_strided_head_matches_plain(dev):
+    """normal_plus_lambda_kernel with XPDNet's λ = 0.0 on the strided head
+    of a channel-last buffer (copied once for the kernel, counted), forward
+    and gradient, against the plain versions."""
+    from cinemri_tpu_torch.ops.cplx import Complex
+    from cinemri_tpu_torch.physics import operators as OPS
+
+    g = torch.Generator(device=dev).manual_seed(8)
+    r = lambda *s: torch.randn(s, generator=g, device=dev)
+    b, t, c, h, w = 1, 4, 3, 40, 24
+    k = OPS.masked_normal_kernel((torch.rand(b, t, 1, h, 1, generator=g, device=dev) < 0.4).float())
+    s = Complex(r(b, 1, c, h, w), r(b, 1, c, h, w))
+    buf = (r(b, t, h, w, 4), r(b, t, h, w, 4))
+    cot = (r(b, t, 1, h, w), r(b, t, 1, h, w))
+    outs = []
+    for backend in ("kernel", "torch"):
+        leaves = [a.clone().requires_grad_(True) for a in buf]
+        head = Complex(leaves[0][..., 0][:, :, None], leaves[1][..., 0][:, :, None])
+        OPS.set_normal_backend(backend)
+        try:
+            before = OPS.COPIES
+            y = OPS.normal_plus_lambda_kernel(head, k, s, 0.0)
+            assert OPS.COPIES == before + 1
+            grads = torch.autograd.grad((y.re, y.im), leaves, cot)
+        finally:
+            OPS.set_normal_backend("kernel")
+        outs.append(((y.re, y.im), grads))
+    _close(outs[0][0], outs[1][0])
+    _close(outs[0][1], outs[1][1])
+
+
+@pytest.mark.parametrize("family,dyn", [("xpdnet", "XF"), ("xpdnet", "2D"), ("varnet", "3D"),
+                                        ("cinenet", "3D")])
+def test_small_new_variants_match_plain(dev, family, dyn):
+    """Small XPDNet / 2-D / 3-D models through the kernels against the plain
+    versions."""
+    from cinemri_tpu_torch.models import build_model
+    from cinemri_tpu_torch.ops import fft as F
+    from cinemri_tpu_torch.ops.cplx import Complex
+    from cinemri_tpu_torch.physics import operators as OPS
+
+    rng = np.random.default_rng(9)
+    b, t, c, h, w = 1, 5, 3, 40, 24
+    f = lambda a: torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)).to(dev)
+    mask = (rng.random((b, t, 1, h, 1)) < 0.4).astype(np.float32)
+    mask[:, :, :, h // 2 - 3:h // 2 + 3] = 1
+    k = (rng.standard_normal((b, t, c, h, w)) + 1j * rng.standard_normal((b, t, c, h, w))) * mask
+    args = (Complex(f(k.real), f(k.imag)), f(mask))
+    if family == "cinenet":
+        s = rng.standard_normal((b, 1, c, h, w)) + 1j * rng.standard_normal((b, 1, c, h, w))
+        s /= np.sqrt((np.abs(s) ** 2).sum(2, keepdims=True))
+        args += (Complex(f(s.real), f(s.imag)),)
+    kw = {"xpdnet": dict(num_cascades=2, sens_chans=4, sens_pools=2, n_scales=2,
+                         n_filters_per_scale=(4, 8), n_convs_per_scale=(2, 2), n_primal=3),
+          "varnet": dict(num_cascades=2, sens_chans=4, sens_pools=2, chans=4, pools=2),
+          "cinenet": dict(num_cascades=2, cg_iters=2, chans=4, pools=2)}[family]
+    model = build_model(family, dyn, device=dev, **kw)
+    with torch.inference_mode():
+        got = model(*args)
+    try:
+        F.set_dft_backend("torch")
+        OPS.set_normal_backend("torch")
+        with torch.inference_mode():
+            want = model(*args)
+    finally:
+        F.set_dft_backend("kernel")
+        OPS.set_normal_backend("kernel")
+    assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item()

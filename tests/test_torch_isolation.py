@@ -78,6 +78,12 @@ def test_port_imports_no_jax_and_builds_nothing():
                  "cinemri_tpu_torch.utils.paths",
                  "cinemri_tpu_torch.cli.common",
                  "cinemri_tpu_torch.cli.train_test_varnet",
+                 "cinemri_tpu_torch.cli.train_test_cinenet",
+                 "cinemri_tpu_torch.cli.train_test_xpdnet",
+                 "cinemri_tpu_torch.models.xpdnet",
+                 "cinemri_tpu_torch.models.denoisers.mwcnn",
+                 "cinemri_tpu_torch.models.denoisers.kspace_cnn",
+                 "cinemri_tpu_torch.ops.wavelet",
                  "cinemri_tpu_torch.cli.inference",
                  "cinemri_tpu_torch.cli.visualize"):
         assert name in out["modules"]

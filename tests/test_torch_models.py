@@ -101,10 +101,15 @@ class TestDenoisers:
         assert_model_close(got, want)
 
     def test_unsupported_options_raise(self):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Unet(dims=3)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        """The packed (space-to-depth) layouts are not ported (item 14)."""
+        from cinemri_tpu_torch.models.denoisers import MWCNN
+
+        with pytest.raises(NotImplementedError, match="item 14"):
+            Unet(dims=3, packed=True)
+        with pytest.raises(NotImplementedError, match="item 14"):
             NormUnet(4, 2, packed=True)
+        with pytest.raises(NotImplementedError, match="item 14"):
+            MWCNN(4, 4, packed=True)
 
 
 class TestSensitivityModel:
@@ -175,12 +180,13 @@ class TestBuildModel:
             build_model("varnet", "XF", **SMALL)
 
     def test_not_ported_raise(self):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build_model("varnet", "2D", device="cpu", **SMALL)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build_model("cinenet", "2D", device="cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build_model("varnet", "CRNN", device="cpu")
+        """CRNN (item 12) and the packed layouts (item 14) are all that is
+        left unported of the three families."""
+        for family in ("varnet", "cinenet", "xpdnet"):
+            with pytest.raises(NotImplementedError, match="item 12"):
+                build_model(family, "CRNN", device="cpu")
+        with pytest.raises(NotImplementedError, match="item 14"):
+            build_model("varnet", "2D", device="cpu", packed=True, **SMALL)
         with pytest.raises(ValueError):
             build_model("xpdnet", "3D", device="cpu")
         with pytest.raises(ValueError):
