@@ -42,7 +42,18 @@ sensitivity to a 1e-7 perturbation is printed). XPDNet-2D, XT and the
 ``primal_only=False`` XF: one request each three ways (``[xpdnet-variants]``).
 VarNet and CineNet 2D and 3D: one request each three ways and five timed
 forwards (``[cascades-2d3d]``), and two train steps of each 3D model
-through the plain versions, library calls and kernels.
+through the plain versions, library calls and kernels. The CRNN variants at
+the JAX package's protocol widths (VarNet-CRNN 10 iterations, chans 16, sens
+net 8/3; CineNet-CRNN 10 iterations, 6 CG iterations, chans 16, with maps;
+XPDNet-CRNN 9 iterations, chans 18, n_primal 5, kernel DC): for each, how
+far a 1e-7 perturbation of the k-space moves the output, the forward
+(launches, copies, ms per volume, peak memory, one warm forward under
+``set_sync_debug_mode("error")``), one profiled forward, four requests
+three ways, and train runs (4 steps for VarNet-CRNN, 3 for the others) four
+times with one profiled step and the host syncs of a step
+(``[varnet-crnn-*]``, ``[cinenet-crnn-*]``, ``[xpdnet-crnn-*]``);
+XPDNet-CRNN with ``primal_only=False`` one request three ways
+(``[xpdnet-crnn-dual]``).
 
 Then the host data path feeds the card. ``[data]``: two raw volumes in the
 on-disk layout (18 frames x 10 coils x 224x224) through ``preprocess_volume``
@@ -78,6 +89,8 @@ Output, last three lines: one JSON object with a row per kernel and run
 (``"serve"``, ``"train"``, ``"cinenet-serve"``, ``"cinenet-train"``,
 ``"xpdnet-serve"``, ``"xpdnet-train"``, ``"xpdnet-variants"``,
 ``"cascades-2d3d"``, ``"varnet-3d-train"``, ``"cinenet-3d-train"``,
+``"varnet-crnn-serve"``, ``"varnet-crnn-train"``, the same two for
+``cinenet-crnn`` and ``xpdnet-crnn``, ``"xpdnet-crnn-dual"`` (its DFT only),
 ``"data-serve"``, ``"soft-sense"``, ``"loop"`` and, for ``fft2_plane``,
 ``"check"``), the card's name and power limit as nvidia-smi
 reports them, and ``{"ok": true, "device": {...}}``. A row's ``ms``,
@@ -130,6 +143,11 @@ CINENET = dict(num_cascades=10, cg_iters=6, chans=16, pools=3)
 XPDNET = dict(num_cascades=9, sens_chans=8, sens_pools=3, n_scales=3,
               n_filters_per_scale=(16, 32, 64), n_convs_per_scale=(2, 2, 2), n_first_convs=1,
               first_conv_n_filters=16, n_primal=5, primal_only=True, kernel_dc=True)
+# the JAX package's protocol CRNN models (bench/_protocol.py CRNN_CONFIGS, the
+# CLI defaults), kernel DC on
+VARNET_CRNN = dict(num_cascades=10, sens_chans=8, sens_pools=3, chans=16)
+CINENET_CRNN = dict(num_cascades=10, cg_iters=6, chans=16)
+XPDNET_CRNN = dict(num_cascades=9, sens_chans=8, sens_pools=3, chans=18, n_primal=5)
 T, C, H, W = 15, 10, 200, 200
 
 # Tolerances, relative to the largest magnitude of the plain result. Both
@@ -1651,6 +1669,37 @@ def main() -> int:
                     launches_per_step=per_step, profile=profile_, timers=(tkern, tplain, tlib),
                     **gaps)
 
+    def perturbation(model, args):
+        """How far the plain forward of the k-space x (1 + 1e-7 noise) moves
+        from the plain forward on ``args`` (k-space first): max |diff| / max
+        |out| and relative L2."""
+        k_, rest = args[0], args[1:]
+        noise = 1 + 1e-7 * torch.randn(k_.re.shape, generator=gen, device=dev)
+        set_backends("torch")
+        try:
+            with torch.inference_mode():
+                moved = model(Complex(k_.re * noise, k_.im * noise), *rest)
+                base = model(*args)
+        finally:
+            set_backends("kernel")
+        return dict(max=((moved - base).abs().max() / base.abs().max()).item(),
+                    l2=(torch.linalg.vector_norm(moved - base) / torch.linalg.vector_norm(base)).item())
+
+    def forward_host_syncs(tag, forward):
+        """One warm forward under set_sync_debug_mode('error'), which fails on
+        a host sync; returns its output."""
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = forward()
+        except RuntimeError as e:
+            fail(f"{tag}: a warm forward synchronized with the host: {e}")
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        print(f"[{tag}] one warm forward under set_sync_debug_mode('error'): 0 host syncs")
+        return out
+
     def step_host_syncs(tag, model, init, batch):
         """The host syncs of one warm train step from ``init`` (sync debug
         mode 'warn'), each named by the port's frame that made it."""
@@ -1761,18 +1810,9 @@ def main() -> int:
 
     # a warm forward (DFT-matrix and λ caches built) makes no host sync: λ
     # = softplus(λᵢ) reaches the kernels on the device
-    torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        sync_out = cforward()
-    except RuntimeError as e:
-        fail(f"a warm CineNet forward synchronized with the host: {e}")
-    finally:
-        torch.cuda.set_sync_debug_mode(0)
-    torch.cuda.synchronize()
+    sync_out = forward_host_syncs("cinenet-forward", cforward)
     sync_err = (sync_out - cfwd["out"]).abs().max().item()
-    print(f"[cinenet-forward] one warm forward under set_sync_debug_mode('error'): no sync; "
-          f"max_abs_err vs the first forward {sync_err:.3e}")
+    print(f"[cinenet-forward] that forward against the first: max_abs_err {sync_err:.3e}")
     if not sync_err <= MODEL_TOL * cfwd["scale"]:
         fail(f"the forward under sync debug mode differs from the first: {sync_err}")
     del sync_out
@@ -1900,19 +1940,10 @@ def main() -> int:
     xin = (kre, kim, mask)
     xfwd = forward_phase("xpdnet-forward", xforward, x_expected, None, copies=(xnc, xnc),
                          reference=float64_forward(xmodel, xin))
-    noise = 1 + 1e-7 * torch.randn(kre.shape, generator=gen, device=dev)
-    set_backends("torch")
-    with torch.inference_mode():
-        moved = xmodel(Complex(kre * noise, kim * noise), mask)
-        base = xmodel(xk, mask)
-    set_backends("kernel")
-    xfwd["perturbation_1e-7"] = dict(
-        max=((moved - base).abs().max() / base.abs().max()).item(),
-        l2=(torch.linalg.vector_norm(moved - base) / torch.linalg.vector_norm(base)).item())
+    xfwd["perturbation_1e-7"] = perturbation(xmodel, (xk, mask))
     print(f"[xpdnet-forward] the plain forward of the k-space x (1 + 1e-7 noise) against the plain "
           f"forward: max |diff| / max |out| {xfwd['perturbation_1e-7']['max']:.3e}, relative L2 "
           f"{xfwd['perturbation_1e-7']['l2']:.3e}")
-    del noise, moved, base
     xfwd.pop("out")
     print("[xpdnet-profile] " + json.dumps(profiled(xforward)))
     xreqs = [flagship_inputs(torch, mf, s_, dev) for mf, s_ in requests]
@@ -2025,6 +2056,97 @@ def main() -> int:
         c3train[fam].pop("init"), c3train[fam].pop("batch")
         del m_, cb
         torch.cuda.empty_cache()
+
+    # -- 7e. the CRNN variants at full width: VarNet-, CineNet- and XPDNet-CRNN ------------
+    t_crnn = time.perf_counter()
+
+    # per forward (kernel DC): VarNet-CRNN's sens-net and x_ref DFTs (4) and one
+    # normal apply per iteration (soft_dc_image_kernel); CineNet-CRNN's image_ref
+    # DFTs (2) and its CG's 1 + cg_iters normal applies per iteration;
+    # XPDNet-CRNN's 4 DFTs and one normal apply per iteration (N(head) − x_ref,
+    # λ = 0), each on a copy of the buffer's strided head. Per train step, with
+    # remat: the forward's launches, the replay of every iteration's normal
+    # applies (its last op needs their outputs) and their backward; the DFTs act
+    # on data and have no backward.
+    vcn = VARNET_CRNN["num_cascades"]
+    ccn, ccg = CINENET_CRNN["num_cascades"], CINENET_CRNN["cg_iters"]
+    xcn = XPDNET_CRNN["num_cascades"]
+    crnn_cases = (
+        ("varnet", VARNET_CRNN, {"dft": 4, "normal": vcn}, (0, 0), TRAIN_STEPS),
+        ("cinenet", CINENET_CRNN, {"dft": 2, "normal": ccn * (1 + ccg)}, (0, 0), 3),
+        ("xpdnet", XPDNET_CRNN, {"dft": 4, "normal": xcn}, (0, xcn), 3),
+    )
+    crnn = {}
+    for fam, cfg, expected_, copies_, steps_ in crnn_cases:
+        tag = f"{fam}-crnn"
+        maps = fam == "cinenet"
+        m_ = build_model(fam, "CRNN", device=dev, generator=torch.Generator().manual_seed(0),
+                         **cfg).eval()
+        req = flagship_inputs(torch, RandomMask([10], [4]), 0, dev) + (
+            rss_maps(torch, 0, dev) if maps else ())
+        args_ = (Complex(req[0], req[1]), req[2]) + ((Complex(req[3], req[4]),) if maps else ())
+
+        def fwd_():
+            with torch.inference_mode():
+                return m_(*args_)
+
+        # order sensitivity, measured each run: a 1e-7 relative perturbation of
+        # the k-space moved the CRNN outputs by 4.2e-7 to 2.6e-6 of max |out| on
+        # the H100 (XPDNet-XF's by 1.24e-4, so that one is held against
+        # float64), so the CRNN forwards are held to MODEL_TOL and their train
+        # runs to VarNet's tolerances (first-step grads 4.8e-4 to 1.5e-3 apart)
+        sens = perturbation(m_, args_)
+        print(f"[{tag}-forward] the plain forward of the k-space x (1 + 1e-7 noise) against the "
+              f"plain forward: max |diff| / max |out| {sens['max']:.3e}, relative L2 "
+              f"{sens['l2']:.3e}")
+        fw = forward_phase(f"{tag}-forward", fwd_, expected_, None, copies=copies_)
+        forward_host_syncs(f"{tag}-forward", fwd_)
+        fw.update({"perturbation_1e-7": sens, "host_syncs_per_forward": 0})
+        prof = profiled(fwd_)
+        print(f"[{tag}-profile] " + json.dumps(prof))
+        print(f"[{tag}-profile] host {prof['host_ms']:.3f} ms, device busy "
+              f"{prof['device_busy_ms']:.3f} ms, idle share {prof['idle_share_of_host_time']:.3f}")
+        reqs = [flagship_inputs(torch, mf, s_, dev) + (rss_maps(torch, s_, dev) if maps else ())
+                for mf, s_ in requests]
+        sv = serve_phase(f"{tag}-serve", bind_model(m_, device=dev), reqs, expected_,
+                         fw.pop("out"), fw["scale"])
+        del m_, args_, req, reqs
+        torch.cuda.empty_cache()
+
+        tm_ = build_model(fam, "CRNN", device=dev, generator=torch.Generator().manual_seed(0),
+                          **cfg)  # remat on
+        tb_ = train_batch(torch, dev, sens_maps=maps)
+        per_step = {"dft": expected_["dft"], "normal": 2 * expected_["normal"],
+                    "normal_bwd": expected_["normal"]}
+        tr = train_phase(f"{tag}-train", tm_, tb_, per_step, steps=steps_)
+        tr.update(step_host_syncs(f"{tag}-train", tm_, tr.pop("init"), tb_))
+        if tr["host_syncs_per_step"]:
+            fail(f"{tag}-train: a warm train step synchronized with the host "
+                 f"{tr['host_syncs_per_step']} times")
+        tr.pop("batch")
+        crnn[fam] = dict(config=cfg, forward=fw, profile=prof, serve=sv, train=tr)
+        del tm_, tb_
+        torch.cuda.empty_cache()
+
+    # XPDNet-CRNN with primal_only=False: a KSpaceCNN per iteration, the direct
+    # k-step (fft2c and ifft2c per iteration, no normal apply); one request
+    dcfg = dict(XPDNET_CRNN, primal_only=False)
+    dm = build_model("xpdnet", "CRNN", device=dev, generator=torch.Generator().manual_seed(0),
+                     **dcfg).eval()
+    dreq = flagship_inputs(torch, RandomMask([10], [4]), 0, dev)
+    dsens = perturbation(dm, (Complex(dreq[0], dreq[1]), dreq[2]))
+    print(f"[xpdnet-crnn-dual] primal_only=False: the plain forward of the k-space x (1 + 1e-7 "
+          f"noise) against the plain forward: max |diff| / max |out| {dsens['max']:.3e}, "
+          f"relative L2 {dsens['l2']:.3e}")
+    dual = serve_phase("xpdnet-crnn-dual", bind_model(dm, device=dev), [dreq],
+                       {"dft": 4 + 4 * xcn, "normal": 0})
+    dual.update({"config": dcfg, "perturbation_1e-7": dsens})
+    print(f"[xpdnet-crnn-dual] kernels: {dual['latency_ms'][0]:.3f} ms for the request")
+    crnn["xpdnet_dual"] = dual
+    del dm, dreq
+    torch.cuda.empty_cache()
+    crnn_wall = time.perf_counter() - t_crnn
+    print(f"[crnn] the CRNN phases took {crnn_wall:.1f} s of wall time")
 
     # -- 8. the host data path: two volumes preprocessed, samples built ---------------
     t_data = time.perf_counter()
@@ -2195,22 +2317,29 @@ def main() -> int:
     fft2_src = ("fft2_plane", "cinemri_tpu_torch/csrc/fft2_plane.cu",
                 "cinemri_tpu/ops/kernels/fft2_pallas.py:45")
     rows = []
+    crnn_serves = [(f"{fam}-crnn-serve", crnn[fam]["serve"]) for fam in ("varnet", "cinenet", "xpdnet")]
     for run, srv in (("serve", vserve), ("cinenet-serve", cserve), ("xpdnet-serve", xserve),
                      ("xpdnet-variants", xvariants), ("cascades-2d3d", c2d3d),
-                     ("data-serve", dserve)):
+                     *crnn_serves, ("data-serve", dserve)):
         rows += [row(*dft_src, run, srv["launches"]["dft"], srv["kern"][0], srv["plain"][0], srv["lib"][0]),
                  row(*fwd_src, run, srv["launches"]["normal"], srv["kern"][1], srv["plain"][1],
                      srv["lib"][1])]
     for run, tr in (("train", vtrain), ("cinenet-train", ctrain), ("xpdnet-train", xtrain),
                     ("varnet-3d-train", c3train["varnet"]), ("cinenet-3d-train", c3train["cinenet"]),
+                    *[(f"{fam}-crnn-train", crnn[fam]["train"]) for fam in ("varnet", "cinenet", "xpdnet")],
                     ("loop", loop)):
         tkern, tplain, tlib = tr.pop("timers")
         rows += [row(*src, run, tr["launches"][key], tkern[i], tplain[i], tlib[i])
                  for i, (src, key) in enumerate(((dft_src, "dft"), (fwd_src, "normal"),
                                                  (bwd_src, "normal_bwd")))]
+    # the primal_only=False request runs no normal apply: its DFT row only
+    rows.append(row(*dft_src, "xpdnet-crnn-dual", crnn["xpdnet_dual"]["launches"]["dft"],
+                    crnn["xpdnet_dual"]["kern"][0], crnn["xpdnet_dual"]["plain"][0],
+                    crnn["xpdnet_dual"]["lib"][0]))
     rows.append(row(*dft_src, "soft-sense", ss_launches, skern, splain, slib))
     rows.append(row(*fft2_src, "check", fft2_launches, *fft2_runs))
-    for srv in (vserve, cserve, xserve, xvariants, c2d3d, dserve):
+    for srv in (vserve, cserve, xserve, xvariants, c2d3d, dserve, crnn["xpdnet_dual"],
+                *(crnn[fam]["serve"] for fam in ("varnet", "cinenet", "xpdnet"))):
         for key in ("kern", "plain", "lib"):
             srv.pop(key)
     print("[details] " + json.dumps(dict(
@@ -2218,6 +2347,7 @@ def main() -> int:
         cinenet=dict(config=CINENET, forward=cfwd, serve=cserve, train=ctrain),
         xpdnet=dict(config=XPDNET, forward=xfwd, serve=xserve, train=xtrain, variants=xvariants),
         cascades_2d3d=dict(forward=c2d3d, train_3d=c3train),
+        crnn=dict(crnn, wall_s=crnn_wall),
         data=data, data_serve=dserve, soft_sense=soft_sense, queue3=queue3,
         data_phases_wall_s=data_wall, loop=loop)))
     print(json.dumps({"kernels": rows}))

@@ -8,12 +8,12 @@ test with inference), checkpoint resume semantics. The parser keeps every
 flag and default of the JAX package's, so a run's checkpoint directory
 (named by :func:`config_fingerprint`) is the same in both packages;
 ``--device`` (default ``cuda``) picks the device, the counterpart of
-``JAX_PLATFORMS``. Every dynamic type but CRNN runs; ``--packed`` left at
-its default runs the dense conv stacks (the JAX package's packed layout is
-numerically the same and not ported).
+``JAX_PLATFORMS``. Every dynamic type runs, CRNN included; ``--packed`` left
+at its default runs the dense conv stacks (the JAX package's packed layout,
+its default for 2D, 3D and CRNN, is numerically the same and not ported).
 
 What is not ported raises ``NotImplementedError`` naming its ROADMAP item
-(Queue 1): ``--dynamic_type CRNN`` (12); more than one device,
+(Queue 1): more than one device,
 ``--coil_devices``, ``--plane_devices``, more than one process and
 ``--coordinator_address`` (13); ``--mode export``, ``--from_torch_ckpt``,
 ``--bf16``, ``--packed 1`` and ``--profile_steps`` (14).
@@ -263,7 +263,6 @@ def _check_ported(args) -> None:
     """Raise ``NotImplementedError`` naming the ROADMAP item (Queue 1) of
     the first option whose path the port does not have yet."""
     unported = [
-        (args.dynamic_type == "CRNN", "--dynamic_type CRNN", "ROADMAP Queue 1, item 12: CRNN"),
         (_resolved_devices(args) > 1, f"--num_devices {args.num_devices}",
          "ROADMAP Queue 1, item 13: parallelism"),
         (args.coil_devices > 1, "--coil_devices", "ROADMAP Queue 1, item 13: parallelism"),
@@ -305,7 +304,15 @@ def _envelope_notices(family: str, args) -> None:
             "construction (BASELINE.md 'SVD coil compression quality')",
             stacklevel=2,
         )
-    if family == "xpdnet" and args.norm_buffers != -1 and bool(args.norm_buffers) != bool(args.bf16):
+    if family == "xpdnet" and args.norm_buffers != -1 and args.dynamic_type == "CRNN":
+        warnings.warn(
+            "--norm_buffers has no effect for --dynamic_type CRNN: XPDNetRNN's BCRNN "
+            "correction does not route buffers through MWCNN, so there is nothing to "
+            "normalize — the flag is ignored",
+            stacklevel=2,
+        )
+    if (family == "xpdnet" and args.norm_buffers != -1 and args.dynamic_type != "CRNN"
+            and bool(args.norm_buffers) != bool(args.bf16)):
         warnings.warn(
             f"--norm_buffers {args.norm_buffers} overrides the certified pairing "
             "(normalization on exactly under --bf16): f32 with normalized buffers is a "
@@ -316,12 +323,16 @@ def _envelope_notices(family: str, args) -> None:
 
 
 def _build_model_from_args(family: str, args):
+    crnn = args.dynamic_type == "CRNN"
     if family == "varnet":
         kwargs = dict(num_cascades=args.num_cascades, sens_chans=args.sens_chans,
-                      sens_pools=args.sens_pools, chans=args.chans, pools=args.pools)
+                      sens_pools=args.sens_pools, chans=args.chans)
     elif family == "cinenet":
-        kwargs = dict(num_cascades=args.num_cascades, cg_iters=args.CG_iters,
-                      chans=args.chans, pools=args.pools)
+        kwargs = dict(num_cascades=args.num_cascades, cg_iters=args.CG_iters, chans=args.chans)
+    elif crnn:  # xpdnet
+        kwargs = dict(num_cascades=args.num_cascades, sens_chans=args.sens_chans,
+                      sens_pools=args.sens_pools, chans=args.crnn_chans,
+                      primal_only=args.primal_only, n_primal=args.n_primal, n_dual=args.n_dual)
     else:  # xpdnet
         kwargs = dict(num_cascades=args.num_cascades, sens_chans=args.sens_chans,
                       sens_pools=args.sens_pools, n_scales=args.n_scales,
@@ -332,7 +343,11 @@ def _build_model_from_args(family: str, args):
                       primal_only=args.primal_only, n_primal=args.n_primal,
                       n_dual=args.n_dual,
                       norm_buffers=None if args.norm_buffers == -1 else bool(args.norm_buffers))
-    kwargs.update(weight_sharing=args.weight_sharing, kernel_dc=bool(args.kernel_dc))
+    if not crnn:  # the CRNN models have no pools and no weight sharing
+        kwargs.update(weight_sharing=args.weight_sharing)
+        if family != "xpdnet":
+            kwargs.update(pools=args.pools)
+    kwargs.update(kernel_dc=bool(args.kernel_dc))
     return build_model(family, args.dynamic_type, device=args.device, **kwargs)
 
 

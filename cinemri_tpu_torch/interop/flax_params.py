@@ -20,6 +20,12 @@ CineNet: ``cascades/net_xf|net_yf/…`` (or ``cascades/plane_net``;
 axis of length ``num_cascades`` on every leaf) the MWCNNs
 ``cascades/image_net_xf|image_net_yf`` (or ``cascades/image_net``: 2D, or
 weight sharing) and, with ``primal_only`` off, ``cascades/kspace_net``.
+CRNN models: the trunk ``iterations/trunk`` (``trunk`` for XPDNet with
+``primal_only`` off) holds ``bcrnn/cell/i2h_h2h_ih2ih__f<sizes>``,
+``conv{1,2,3}_xh__f<sizes>`` and ``conv4_x``, the fused convs named with
+their per-input channel counts (matched here by prefix); VarNet and CineNet
+add one ``iterations/lambda_reg``, VarNet and XPDNet their ``sens_net``,
+and XPDNet with ``primal_only`` off ``kspace_net_{i}``.
 """
 
 from __future__ import annotations
@@ -38,6 +44,10 @@ __all__ = [
     "mwcnn_state_dict",
     "kspace_cnn_state_dict",
     "xpdnet_state_dict",
+    "crnn_trunk_state_dict",
+    "varnet_rnn_state_dict",
+    "cinenet_rnn_state_dict",
+    "xpdnet_rnn_state_dict",
 ]
 
 
@@ -143,4 +153,55 @@ def cinenet_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
     for name, sub in p["cascades"].items():  # net_xf + net_yf, plane_net, or net (2D / 3D)
         out.update(unet_state_dict(sub, f"cascades.{name}."))
     out["lambda_reg"] = _t(p["lambda_reg"])
+    return out
+
+
+def _by_prefix(tree: Mapping, prefix: str) -> Mapping:
+    """The one entry of ``tree`` whose name is ``prefix`` or starts with
+    ``prefix + "__f"`` (a fused conv's suffix carries its input widths)."""
+    hits = [v for k, v in tree.items() if k == prefix or k.startswith(prefix + "__f")]
+    if len(hits) != 1:
+        raise KeyError(f"expected one module named {prefix!r}[__f...], found {len(hits)}")
+    return hits[0]
+
+
+def crnn_trunk_state_dict(tree: Mapping, prefix: str) -> Dict[str, torch.Tensor]:
+    """flax ``CRNNTrunk`` params -> entries of the port's ``CRNNTrunk``."""
+    out = {}
+    for src, dst in ((_by_prefix(tree["bcrnn"]["cell"], "i2h_h2h_ih2ih"), "bcrnn.cell.conv"),
+                     (_by_prefix(tree, "conv1_xh"), "conv1"), (_by_prefix(tree, "conv2_xh"), "conv2"),
+                     (_by_prefix(tree, "conv3_xh"), "conv3"), (_by_prefix(tree, "conv4_x"), "conv4")):
+        out[f"{prefix}{dst}.weight"] = conv_weight(src["kernel"])
+        out[f"{prefix}{dst}.bias"] = _t(src["bias"])
+    return out
+
+
+def varnet_rnn_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
+    """flax ``VarNetRNN`` params -> ``cinemri_tpu_torch.models.VarNetRNN`` state_dict."""
+    p = params.get("params", params)
+    out = unet_state_dict(p["sens_net"]["NormUnet_0"]["Unet_0"], "sens_net.norm_unet.unet.")
+    out.update(crnn_trunk_state_dict(p["iterations"]["trunk"], "trunk."))
+    out["lambda_reg"] = _t(p["iterations"]["lambda_reg"])
+    return out
+
+
+def cinenet_rnn_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
+    """flax ``CineNetRNN`` params -> ``cinemri_tpu_torch.models.CineNetRNN`` state_dict."""
+    p = params.get("params", params)
+    out = crnn_trunk_state_dict(p["iterations"]["trunk"], "trunk.")
+    out["lambda_reg"] = _t(p["iterations"]["lambda_reg"])
+    return out
+
+
+def xpdnet_rnn_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
+    """flax ``XPDNetRNN`` params -> ``cinemri_tpu_torch.models.XPDNetRNN``
+    state_dict (the trunk under ``iterations`` with ``primal_only``, at the
+    top level with the per-iteration ``kspace_net_{i}`` without it)."""
+    p = params.get("params", params)
+    out = unet_state_dict(p["sens_net"]["Unet_0"], "sens_net.unet.")
+    out.update(crnn_trunk_state_dict(p["iterations"]["trunk"] if "iterations" in p else p["trunk"],
+                                     "trunk."))
+    for name, sub in p.items():
+        if name.startswith("kspace_net_"):
+            out.update(kspace_cnn_state_dict(sub, f"kspace_nets.{name[len('kspace_net_'):]}."))
     return out

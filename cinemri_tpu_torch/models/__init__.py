@@ -1,8 +1,9 @@
 """Model layer of the port (counterpart of ``cinemri_tpu/models``).
 
-Every non-recurrent variant of the three families is ported: VarNet and
-CineNet 2D / 3D / XT / XF, XPDNet 2D / XT / XF. The CRNN variants raise
-``NotImplementedError`` naming their ROADMAP item (Queue 1, item 12).
+Every variant of the three families is ported: VarNet and CineNet 2D / 3D
+/ XT / XF / CRNN, XPDNet 2D / XT / XF / CRNN (the CRNN hybrids are
+``models/recurrent.py``). What is not ported of them (the packed layouts,
+bf16) raises ``NotImplementedError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ from cinemri_tpu_torch import resolve_device
 from cinemri_tpu_torch.models import denoisers
 from cinemri_tpu_torch.models.cinenet import CineNet, CineNetCascade
 from cinemri_tpu_torch.models.init import torch_style_init
+from cinemri_tpu_torch.models.recurrent import CineNetRNN, CRNNTrunk, VarNetRNN, XPDNetRNN
 from cinemri_tpu_torch.models.varnet import SensitivityModel, VarNet, VarNetCascade
 from cinemri_tpu_torch.models.xpdnet import XPDNet, XPDNetBlock, XPDNetSensitivityModel
 
@@ -27,12 +29,17 @@ __all__ = [
     "XPDNet",
     "XPDNetBlock",
     "XPDNetSensitivityModel",
+    "VarNetRNN",
+    "CineNetRNN",
+    "XPDNetRNN",
+    "CRNNTrunk",
     "denoisers",
     "build_model",
     "torch_style_init",
 ]
 
 _MODELS = {"varnet": VarNet, "cinenet": CineNet, "xpdnet": XPDNet}
+_CRNN_MODELS = {"varnet": VarNetRNN, "cinenet": CineNetRNN, "xpdnet": XPDNetRNN}
 
 
 def build_model(
@@ -55,7 +62,10 @@ def build_model(
     ``sens_pools``, ``n_scales``, ``n_filters_per_scale``,
     ``n_convs_per_scale``, ``n_first_convs``, ``first_conv_n_filters``,
     ``res``, ``primal_only``, ``n_primal``, ``n_dual``, ``norm_buffers``,
-    ...); unknown keys raise.
+    ...; CRNN: ``num_cascades``, ``chans``, ``kernel_dc``, ``remat``, and
+    ``sens_chans`` / ``sens_pools`` (VarNet, XPDNet), ``cg_iters``
+    (CineNet), ``primal_only`` / ``n_primal`` / ``n_dual`` (XPDNet));
+    unknown keys raise.
     """
     dev = resolve_device(device)
     family = family.lower()
@@ -70,11 +80,11 @@ def build_model(
         raise ValueError(
             f"dynamic_type {dynamic_type!r} not supported for {family}: {allowed[family]}"
         )
-    if dynamic_type == "CRNN":
-        raise NotImplementedError(
-            f"{family} CRNN is not ported yet (ROADMAP Queue 1, item 12: CRNN)")
     if generator is None:
         generator = torch.Generator().manual_seed(0)
-    model = _MODELS[family](dynamic_type=dynamic_type, **kwargs)
+    if dynamic_type == "CRNN":
+        model = _CRNN_MODELS[family](**kwargs)
+    else:
+        model = _MODELS[family](dynamic_type=dynamic_type, **kwargs)
     torch_style_init(model, generator)
     return model.to(dev)

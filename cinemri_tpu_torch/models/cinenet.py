@@ -2,7 +2,7 @@
 consistency in image space.
 
 Counterpart of ``cinemri_tpu/models/cinenet.py`` for the 2D, 3D, XT and XF
-dynamic types (CRNN is a separate model, not ported yet). CineNet takes precomputed sensitivity maps as an input, its
+dynamic types (CRNN is a separate model, ``models/recurrent.py``). CineNet takes precomputed sensitivity maps as an input, its
 denoisers are plain U-Nets on raw ``[re, im]`` channels (no normalizing
 wrapper: XT / XF over the rotated planes, 2D per frame, 3D a 3-D U-Net
 over ``(t, h, w)`` without padding), and each cascade ends with a CG solve of
@@ -42,7 +42,16 @@ from cinemri_tpu_torch.physics.operators import (
     sens_reduce,
 )
 
-__all__ = ["CineNet", "CineNetCascade"]
+__all__ = ["CineNet", "CineNetCascade", "batched_kernel_and_maps"]
+
+
+def batched_kernel_and_maps(mask: torch.Tensor, sens_maps: Complex, b: int):
+    """The masked normal kernel and the maps at batch ``b``, made once, so no
+    CG apply copies a batch-1 K or S (``normal_plus_lambda_kernel``)."""
+    batched = lambda a: a.expand(b, *a.shape[1:]).contiguous()
+    k = masked_normal_kernel(mask)
+    return (Complex(batched(k.re), batched(k.im)),
+            Complex(batched(sens_maps.re), batched(sens_maps.im)))
 
 
 class CineNetCascade(nn.Module):
@@ -140,12 +149,7 @@ class CineNet(nn.Module):
         image_ref = sens_reduce(masked_kspace, sens_maps)  # (b, t, 1, h, w)
         dc_kernel = None
         if self.kernel_dc and is_line_mask(mask):
-            # K and the maps at batch b once, so no CG apply copies them
-            b = masked_kspace.shape[0]
-            batched = lambda a: a.expand(b, *a.shape[1:]).contiguous()
-            k = masked_normal_kernel(mask)
-            dc_kernel = Complex(batched(k.re), batched(k.im))
-            sens_maps = Complex(batched(sens_maps.re), batched(sens_maps.im))
+            dc_kernel, sens_maps = batched_kernel_and_maps(mask, sens_maps, masked_kspace.shape[0])
         x = image_ref
         for i in range(self.num_cascades):
             x = call_remat(self.cascades, self.remat, x, self.lambda_reg[i], image_ref, mask,

@@ -1,7 +1,7 @@
 """Dynamic End-to-End Variational Network (VarNet), forward pass.
 
 Counterpart of ``cinemri_tpu/models/varnet.py`` for the 2D, 3D, XT and XF
-dynamic types (CRNN is a separate model, not ported yet): unrolled cascades with a learned-λ soft data-consistency step, a
+dynamic types (CRNN is a separate model, ``models/recurrent.py``): unrolled cascades with a learned-λ soft data-consistency step, a
 learned sensitivity-map U-Net, and a regularizer shared by every cascade
 (one :class:`VarNetCascade` module called ``num_cascades`` times, as the
 flax ``nn.scan`` broadcasts its params). The cascade loop is a Python loop.

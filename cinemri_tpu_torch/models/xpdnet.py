@@ -2,7 +2,7 @@
 
 Counterpart of ``cinemri_tpu/models/xpdnet.py`` for the 2D, XT and XF
 dynamic types (3D is excluded by the reference; CRNN is a separate model,
-not ported yet). Each cascade pairs a k-space step (the measurement
+``models/recurrent.py``). Each cascade pairs a k-space step (the measurement
 residual; a :class:`KSpaceCNN` when ``primal_only=False``) with an
 image-space MWCNN over a buffer of ``n_primal`` complex channels.
 

@@ -231,8 +231,8 @@ class TestCineNet:
     def test_build_options(self):
         with pytest.raises(NotImplementedError, match="item 14"):
             CineNet(dynamic_type="3D", remat_policy="dots")
-        with pytest.raises(NotImplementedError, match="Queue 1, item 12"):
-            build_model("cinenet", "CRNN", device="cpu")
+        crnn = build_model("cinenet", "CRNN", device="cpu", num_cascades=2, chans=4)
+        assert crnn.lambda_reg.shape == () and crnn.cg_iters == 4  # one shared λ; JAX's default
         with pytest.raises(TypeError):
             build_model("cinenet", "XF", device="cpu", sens_chans=4)
         m = build_model("cinenet", "XF", device="cpu", **SMALL)

@@ -1,7 +1,7 @@
 """The port's VarNet CLI (cinemri_tpu_torch.cli) against the JAX package's on
 the CPU: the parser, the config fingerprint, the artifact names of the
 train -> test (with inference) -> visualize flow, the inference helpers,
-and the options whose path is not ported yet.
+the options whose path is not ported yet, and a CRNN run of each family.
 """
 
 import warnings
@@ -72,9 +72,6 @@ class TestParser:
 
 
 @pytest.mark.parametrize("family, argv, item", [
-    ("cinenet", ["--dynamic_type", "CRNN"], "item 12"),
-    ("xpdnet", ["--dynamic_type", "CRNN"], "item 12"),
-    ("varnet", ["--dynamic_type", "CRNN"], "item 12"),
     ("varnet", ["--num_devices", "2"], "item 13"),
     ("varnet", ["--coil_devices", "2"], "item 13"),
     ("varnet", ["--plane_devices", "2"], "item 13"),
@@ -229,3 +226,58 @@ def test_family_cli_flow_leaves_the_jax_flow_artifact_names(family, workdir, tmp
     JI.InferenceRunner(StandIn(), {}, family, jroot)(batch)
     want = {str(p.relative_to(jroot)) for p in jroot.rglob("*") if p.is_file()}
     assert len(want) == 3 and want <= got  # target, output_<family>, zero_filled
+
+
+CRNN_TINY = {
+    "varnet": ["--num_cascades", "1", "--chans", "4", "--sens_chans", "4", "--sens_pools", "2"],
+    "cinenet": ["--num_cascades", "1", "--chans", "4", "--CG_iters", "2"],
+    "xpdnet": ["--num_cascades", "1", "--crnn_chans", "4", "--sens_chans", "4", "--sens_pools", "2",
+               "--n_primal", "2"],
+}
+
+
+def _crnn_argv(family, workdir):
+    argv = CRNN_TINY[family] + ["--dynamic_type", "CRNN", "--center_fractions", "6",
+                                "--accelerations", "2"]
+    return argv, argv + ["--path_config", str(workdir / "dirs_path.yaml"),
+                         "--maps_cache_dir", str(workdir / "maps"), "--device", "cpu"]
+
+
+@pytest.mark.parametrize("family", ["varnet", "cinenet", "xpdnet"])
+def test_crnn_cli_trains_and_restores(family, workdir):
+    """``--dynamic_type CRNN`` trains one epoch with a final checkpoint in
+    the directory the JAX CLI names for the same argv (its fingerprint),
+    and ``--mode test --load_model 1`` restores those weights exactly."""
+    argv, common = _crnn_argv(family, workdir)
+    fp = JC.config_fingerprint(family, JC.build_parser(family).parse_args(argv))
+    assert TC.config_fingerprint(family, TC.build_parser(family).parse_args(argv)) == fp
+    out = TC.train_test_main(family, common + ["--mode", "train", "--epochs", "1",
+                                               "--save_checkpoint", "1"])
+    assert np.isfinite(out["history"][-1]["train_loss"])
+    trained = out["trainer"].model
+    assert type(trained).__name__ == {"varnet": "VarNetRNN", "cinenet": "CineNetRNN",
+                                      "xpdnet": "XPDNetRNN"}[family]
+    ckpt = workdir / "logs" / family / f"{family}_logs" / "checkpoints" / f"{family}_CRNN_acc2_{fp}"
+    assert sorted(p.name for p in ckpt.iterdir()) == ["0.pt", "1.pt", "best_steps.json"]
+
+    out = TC.train_test_main(family, common + ["--mode", "test", "--load_model", "1",
+                                               "--inference", "0"])
+    assert 0 < out["test_metrics"]["ssim"] <= 1
+    restored = out["trainer"].model.state_dict()
+    for name, value in trained.state_dict().items():
+        torch.testing.assert_close(restored[name], value, rtol=0, atol=0, msg=name)
+
+
+def test_xpdnet_crnn_norm_buffers_notice(workdir):
+    """--norm_buffers with --dynamic_type CRNN is a no-op (XPDNetRNN has no
+    MWCNN buffer path): the run says so, as the JAX CLI does, and the
+    override notice of the MWCNN variants stays silent."""
+    _, common = _crnn_argv("xpdnet", workdir)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        out = TC.train_test_main("xpdnet", common + ["--mode", "train", "--epochs", "1",
+                                                     "--norm_buffers", "1"])
+    said = [str(w.message) for w in caught if issubclass(w.category, UserWarning)]
+    assert any("no effect for --dynamic_type CRNN" in m for m in said)
+    assert not any("overrides the certified pairing" in m for m in said)
+    assert np.isfinite(out["history"][0]["train_loss"])

@@ -29,7 +29,7 @@ from cinemri_tpu_torch.interop.flax_params import (
     unet_state_dict,
     varnet_state_dict,
 )
-from cinemri_tpu_torch.models import build_model, torch_style_init
+from cinemri_tpu_torch.models import CineNetRNN, VarNetRNN, XPDNetRNN, build_model, torch_style_init
 from cinemri_tpu_torch.models.denoisers import NormUnet, Unet
 from cinemri_tpu_torch.models.varnet import LAMBDA_INIT, SensitivityModel, VarNet
 from cinemri_tpu_torch.ops.cplx import from_complex, to_numpy
@@ -180,11 +180,11 @@ class TestBuildModel:
             build_model("varnet", "XF", **SMALL)
 
     def test_not_ported_raise(self):
-        """CRNN (item 12) and the packed layouts (item 14) are all that is
-        left unported of the three families."""
-        for family in ("varnet", "cinenet", "xpdnet"):
-            with pytest.raises(NotImplementedError, match="item 12"):
-                build_model(family, "CRNN", device="cpu")
+        """The packed layouts (item 14) are all that is left unported of the
+        three families: CRNN builds for each (tests/test_torch_crnn.py holds
+        it against the JAX package)."""
+        for family, cls in (("varnet", VarNetRNN), ("cinenet", CineNetRNN), ("xpdnet", XPDNetRNN)):
+            assert isinstance(build_model(family, "CRNN", device="cpu", num_cascades=1, chans=4), cls)
         with pytest.raises(NotImplementedError, match="item 14"):
             build_model("varnet", "2D", device="cpu", packed=True, **SMALL)
         with pytest.raises(ValueError):

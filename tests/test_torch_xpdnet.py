@@ -275,8 +275,8 @@ class TestXPDNet:
     def test_build_options_and_tree(self):
         with pytest.raises(ValueError):
             build_model("xpdnet", "3D", device="cpu")
-        with pytest.raises(NotImplementedError, match="item 12"):
-            build_model("xpdnet", "CRNN", device="cpu")
+        crnn = build_model("xpdnet", "CRNN", device="cpu", num_cascades=2, chans=4)
+        assert crnn.trunk.bcrnn.cell.conv.sizes == (12, 4, 4)  # 2 x (n_primal + 1) = 12
         with pytest.raises(NotImplementedError, match="item 14"):
             build_model("xpdnet", "XF", device="cpu", packed=True, **SMALL)
         with pytest.raises(TypeError):
