@@ -81,6 +81,20 @@ and save time; then the latest checkpoint restored bit-identically into a
 fresh Trainer, ``test()`` (SSIMs.csv) and one ``InferenceRunner`` request
 (the three .npy files). The phase must take under 60 s of wall time.
 
+Then data parallelism, ``[ddp]``: the flagship VarNet-XF trained 3 steps by
+the data-parallel step on a one-rank NCCL group started in this process
+(one gradient all-reduce of 4,330,176 bytes and 2 scalar ones per step,
+counted; the kernel launches of the plain step) and 3 by the plain step,
+from the same weights, in turns; the same data-parallel run through the
+plain versions and library calls; one gradient-sized NCCL all-reduce
+alone; ``Trainer.fit`` on that one-rank mesh against the fit without a mesh,
+wall ms per step. Then two gloo ranks in two processes sharing the card (NCCL refuses
+two ranks on one card; gloo carries the CUDA tensors through the host), one
+volume each of a global batch of 2, held against this process training both
+volumes in one batch, and their ``Trainer.fit`` (2 epochs of ``[loop]``'s
+volumes) with a checkpoint restored on both ranks. Every process group has a
+timeout, and a rank that fails or hangs fails the run.
+
 It checks that each kernel run launched every kernel as many times as the
 path calls it and that the runs agree. Any failure ends the run with a
 non-zero exit code.
@@ -91,13 +105,13 @@ Output, last three lines: one JSON object with a row per kernel and run
 ``"cascades-2d3d"``, ``"varnet-3d-train"``, ``"cinenet-3d-train"``,
 ``"varnet-crnn-serve"``, ``"varnet-crnn-train"``, the same two for
 ``cinenet-crnn`` and ``xpdnet-crnn``, ``"xpdnet-crnn-dual"`` (its DFT only),
-``"data-serve"``, ``"soft-sense"``, ``"loop"`` and, for ``fft2_plane``,
+``"data-serve"``, ``"soft-sense"``, ``"loop"``, ``"ddp"`` and, for ``fft2_plane``,
 ``"check"``), the card's name and power limit as nvidia-smi
 reports them, and ``{"ok": true, "device": {...}}``. A row's ``ms``,
 ``plain_ms`` and ``library_ms`` sum CUDA-event times taken around every
 call of that function in its run (the four serve requests, the four train
-steps, the whole ``[loop]`` fit, or one call at each of the four check
-shapes); ``bound_ms`` sums the
+steps, the whole ``[loop]`` fit, the 3 data-parallel steps of ``[ddp]``, or
+one call at each of the four check shapes); ``bound_ms`` sums the
 bound of each call of the kernel run. The line before them, ``[details]
 {...}``, holds the per-shape microbenchmarks and every other number.
 
@@ -450,18 +464,19 @@ def rss_maps(torch, seed: int, device):
     return as_t(s.real), as_t(s.imag)
 
 
-def train_batch(torch, device, sens_maps: bool = False):
+def train_batch(torch, device, sens_maps: bool = False, seed: int = 0):
     """The JAX package's train-step batch (``bench/train_step.py``): k-space
-    from ``default_rng(0)`` under ``RandomMask([10], [4])(15, 200, seed=0)``,
-    target = |k| averaged over coils; with ``sens_maps``, RSS-normalized maps
-    drawn next from the same generator, as that script gives CineNet."""
+    from ``default_rng(seed)`` under ``RandomMask([10], [4])(15, 200,
+    seed=seed)`` (seed 0 there), target = |k| averaged over coils; with
+    ``sens_maps``, RSS-normalized maps drawn next from the same generator, as
+    that script gives CineNet."""
     from cinemri_tpu_torch.data.masks import RandomMask
     from cinemri_tpu_torch.ops.cplx import Complex
 
-    rng = np.random.default_rng(0)
+    rng = np.random.default_rng(seed)
     shape = (1, T, C, H, W)
     k = (rng.standard_normal(shape) + 1j * rng.standard_normal(shape)).astype(np.complex64)
-    mask = RandomMask([10], [4])(T, H, seed=0)[None].astype(np.float32)
+    mask = RandomMask([10], [4])(T, H, seed=seed)[None].astype(np.float32)
     km = k * mask
     as_t = lambda a: torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)).to(device)
     batch = {"masked_kspace": Complex(as_t(km.real), as_t(km.imag)), "mask": as_t(mask),
@@ -991,6 +1006,433 @@ def loop_phase(torch, dev, data, set_backends, bare_ms, per_step, per_forward, l
     if not wall < 60:
         fail(f"loop: the phase took {wall:.1f} s of wall time, not under 60 s")
     return out
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def ddp_batches(torch):
+    """``[ddp]``'s global batch on the host: ``train_batch``'s volume from
+    seed 0 and one from seed 1, with ``sample_weight``."""
+    parts = [train_batch(torch, "cpu", seed=s) for s in (0, 1)]
+    batch = {k: torch.cat([p[k] for p in parts]) for k in ("mask", "target")}
+    batch["k_re"] = torch.cat([p["masked_kspace"].re for p in parts])
+    batch["k_im"] = torch.cat([p["masked_kspace"].im for p in parts])
+    batch["sample_weight"] = torch.ones(2)
+    return batch
+
+
+def ddp_rows(torch, batch, rows, device):
+    """Rows ``rows`` of a ``ddp_batches`` batch as a train-step batch on ``device``."""
+    from cinemri_tpu_torch.ops.cplx import Complex
+
+    out = {k: batch[k][rows].to(device) for k in ("mask", "target", "sample_weight")}
+    out["masked_kspace"] = Complex(batch["k_re"][rows].to(device), batch["k_im"][rows].to(device))
+    return out
+
+
+def ddp_rank(rank: int, tmp: str) -> None:
+    """One of ``[ddp]``'s two gloo ranks, both on ``cuda:0``: two data-parallel
+    steps of the flagship on its volume of the global batch (ms per step,
+    collectives, loss, final weights), the metric sum of ``rank + 1``, 5
+    gradient-sized all-reduces timed alone, then ``Trainer.fit`` (2 epochs
+    of ``[loop]``'s volumes, one per rank and epoch; validation on volume
+    1, which only rank 0 holds) with a checkpoint, and a restore into a
+    fresh Trainer. Writes ``rank<r>.pt`` under ``tmp``."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT))
+    from cinemri_tpu_torch.data import RandomMask, VarNetDataTransform
+    from cinemri_tpu_torch.models import build_model
+    from cinemri_tpu_torch.parallel import distributed as D
+    from cinemri_tpu_torch.parallel import make_mesh, make_process_sum
+    from cinemri_tpu_torch.train import Loader, Trainer, TrainerConfig, create_train_state, make_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    # gloo on purpose: NCCL refuses two ranks on one card; gloo carries the
+    # CUDA tensors through the host
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/store", rank=rank, world_size=2,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        job = torch.load(f"{tmp}/job.pt", weights_only=False)
+        mesh = make_mesh({"data": 2})
+        model = build_model("varnet", "XF", device=dev, **FLAGSHIP)
+        model.load_state_dict(job["init"])
+        state = create_train_state(model, device=dev)
+        step = make_train_step(mesh=mesh)
+        batch = ddp_rows(torch, job["batch"], slice(rank, rank + 1), dev)
+        out = dict(ms=[], loss=[], collectives=[], bytes=[])
+        for _ in range(2):
+            D.COLLECTIVES.clear()
+            D.COLLECTIVE_BYTES.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, aux = step(state, batch)
+            out["loss"].append(aux["loss"].item())
+            torch.cuda.synchronize()
+            out["ms"].append((time.perf_counter() - t0) * 1e3)
+            out["collectives"].append(dict(D.COLLECTIVES))
+            out["bytes"].append(dict(D.COLLECTIVE_BYTES))
+        out["params"] = {n: p.detach().cpu() for n, p in model.named_parameters()}
+        out["sum"] = make_process_sum()(rank + 1.0)
+        buf = torch.zeros(sum(p.numel() for p in model.parameters()), device=dev)
+        D.all_reduce_sum(buf, "grad")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            D.all_reduce_sum(buf, "grad")
+        torch.cuda.synchronize()
+        out["allreduce_ms"] = (time.perf_counter() - t0) * 1e3 / 5
+        del state, aux, batch, buf, model
+        torch.cuda.empty_cache()
+
+        vols = np.load(f"{tmp}/volumes.npz")
+        decoded = [{"kspace": vols[f"kspace{i}"], "target": vols[f"target{i}"]} for i in (0, 1)]
+        transform = VarNetDataTransform(RandomMask([10], [4]), use_seed=False)
+
+        def loader(vols_, train):
+            ds = MemoryDataset([decoded[i] for i in vols_], [job["names"][i] for i in vols_], transform)
+            return Loader(ds, batch_size=1, shuffle=train, seed=42, prefetch_size=2, num_workers=4,
+                          num_replicas=2, rank=rank, volume_aware=not train)
+
+        cfg = TrainerConfig(epochs=2, log_dir=None, ckpt_dir=f"{tmp}/ckpt", save_path=f"{tmp}/results")
+        trainer = Trainer(build_model("varnet", "XF", device=dev, generator=torch.Generator().manual_seed(0),
+                                      **FLAGSHIP), cfg, train_loader=loader((0, 1), True),
+                          val_loader=loader((1,), False), mesh=mesh, reduce_fn=make_process_sum(),
+                          device=dev)
+        fit_step, step_ms = trainer._train_step, []
+
+        def timed_step(state_, batch_, **kw):
+            t0 = time.perf_counter()
+            result = fit_step(state_, batch_, **kw)
+            result[1]["loss"].item()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            return result
+
+        trainer._train_step = timed_step
+        t0 = time.perf_counter()
+        history = trainer.fit()
+        out["fit_s"] = time.perf_counter() - t0
+        out["fit_step_ms"], out["history"] = step_ms, history
+        fresh = Trainer(build_model("varnet", "XF", device=dev, generator=torch.Generator().manual_seed(1),
+                                    **FLAGSHIP), TrainerConfig(log_dir=None, ckpt_dir=f"{tmp}/ckpt"),
+                        mesh=mesh, device=dev)
+        out["next_epoch"] = fresh.restore_latest()
+        out["restored_same"] = all(torch.equal(a, b) for a, b in zip(
+            trainer.state.model.parameters(), fresh.state.model.parameters()))
+        out["fit_params"] = [p.detach().cpu() for p in trainer.state.model.parameters()]
+        torch.save(out, f"{tmp}/rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def ddp_fit_timing(torch, dev, data, mesh):
+    """``Trainer.fit`` of the flagship on ``[loop]``'s two volumes, each
+    twice (2 epochs of 4 steps, batch 1, no device cache, max-throughput
+    mode: no train metrics, no per-step logging, so the loss waits for the
+    epoch's end; a full garbage collection before each fit) on the
+    one-rank NCCL ``mesh`` against the same fit without a mesh and against
+    the mesh fit with each step's stop flag read right after its step
+    (``sync``), in turns (plain, mesh, sync, sync, mesh, plain): wall ms per
+    step (fit / steps, the host clock around a synchronized fit), the
+    mesh's collectives, and the epochs' train losses held to
+    ``TRAIN_LOSS_TOL``. The mesh fit agrees on a SIGTERM each step through
+    the step's scalar all-reduce and reads that flag a step late, so the
+    host can queue a step ahead as the plain fit does; ``sync`` shows what
+    reading it at once would cost."""
+    from cinemri_tpu_torch.data import RandomMask, VarNetDataTransform
+    from cinemri_tpu_torch.models import build_model
+    from cinemri_tpu_torch.parallel import distributed as D
+    from cinemri_tpu_torch.train import Loader, Trainer, TrainerConfig
+
+    transform = VarNetDataTransform(RandomMask([10], [4]), use_seed=False)
+    vols = (0, 1, 0, 1)
+    ds = MemoryDataset([data["decoded"][i] for i in vols], [data["names"][i] for i in vols],
+                       transform)
+    cfg = TrainerConfig(epochs=2, log_dir=None, compute_train_metrics=False, log_every_steps=0,
+                        device_data_cache=False)
+    out = {k: [] for k in ("plain", "mesh", "sync", "plain_loss", "mesh_loss", "sync_loss")}
+    for name in ("plain", "mesh", "sync", "sync", "mesh", "plain"):
+        trainer = Trainer(build_model("varnet", "XF", device=dev, **FLAGSHIP), cfg,
+                          train_loader=Loader(ds, batch_size=1, shuffle=True, seed=42,
+                                              prefetch_size=2, num_workers=4),
+                          mesh=None if name == "plain" else mesh, device=dev)
+        trainer.init_state()
+        if name == "sync":
+            step = trainer._train_step
+
+            def synced(state, batch, step=step, **kw):
+                state, aux = step(state, batch, **kw)
+                bool(aux["stop"])  # the host waits for this step before queuing the next
+                return state, aux
+
+            trainer._train_step = synced
+        D.COLLECTIVES.clear()
+        gc.collect()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        history = trainer.fit()
+        torch.cuda.synchronize()
+        out[name].append((time.perf_counter() - t0) * 1e3 / trainer.state.step)
+        out[f"{name}_loss"].append([h["train_loss"] for h in history])
+        if name == "mesh":
+            out["collectives"] = dict(D.COLLECTIVES)
+        del trainer
+        torch.cuda.empty_cache()
+    gap = max(abs(a - b) / abs(b) for m, p_ in zip(out["mesh_loss"] + out["sync_loss"],
+                                                    out["plain_loss"] * 2) for a, b in zip(m, p_))
+    out["loss_rel"] = gap
+    print(f"[ddp] Trainer.fit, 2 epochs x 4 steps, no train metrics (the loss waits for the "
+          f"epoch's end), no device cache: wall ms per step on the one-rank NCCL mesh "
+          f"{[round(x, 3) for x in out['mesh']]}, the same with the stop flag read at once "
+          f"{[round(x, 3) for x in out['sync']]}, without a mesh "
+          f"{[round(x, 3) for x in out['plain']]} (in turns plain, mesh, sync, sync, mesh, plain); "
+          f"mesh collectives {out['collectives']}; train losses rel {gap:.3e} "
+          f"(tol {TRAIN_LOSS_TOL:.0e})")
+    if gap > TRAIN_LOSS_TOL or out["collectives"] != {"grad": 8, "scalar": 18}:
+        fail(f"ddp: the one-rank NCCL Trainer.fit disagrees with the plain fit: {gap}, "
+             f"{out['collectives']}")
+    return out
+
+
+def ddp_phase(torch, dev, data, set_backends, per_step, launches):
+    """``[ddp]``: data parallelism at full width. (1) The flagship VarNet-XF
+    trained 3 steps by the data-parallel step on a one-rank NCCL group in
+    this process and 3 by the plain ``make_train_step()``, from the same
+    weights and batch, in turns (plain, kernels, kernels, plain), then the
+    data-parallel step through the plain versions and through library calls
+    (the ``ddp`` kernel rows); per step the collectives (1 gradient
+    all-reduce of Σ numel x 4 bytes, 2 scalar ones), the kernel launches
+    (the plain step's), ms and peak memory; one gradient-sized NCCL
+    all-reduce timed alone; ``Trainer.fit`` on that mesh against the fit
+    without one (``ddp_fit_timing``). (2) Two gloo ranks in two processes sharing
+    the card, one volume each of a global batch of 2 (``ddp_rank``), held
+    against this process training both volumes in one batch; then their
+    ``Trainer.fit`` with a checkpoint and a restore."""
+    import datetime
+    import multiprocessing
+
+    import torch.distributed as dist
+
+    from cinemri_tpu_torch.models import build_model
+    from cinemri_tpu_torch.ops.kernels import dft_cuda, normal_cuda
+    from cinemri_tpu_torch.parallel import distributed as D
+    from cinemri_tpu_torch.parallel import make_mesh
+    from cinemri_tpu_torch.train import create_train_state, make_train_step
+
+    t_phase = time.perf_counter()
+    host = ddp_batches(torch)
+    model = build_model("varnet", "XF", device=dev, generator=torch.Generator().manual_seed(0), **FLAGSHIP)
+    init = {n: v.detach().clone() for n, v in model.state_dict().items()}
+    nbytes = 4 * sum(p.numel() for p in model.parameters())
+
+    def run(step, batch, steps, timers=()):
+        """``steps`` steps from ``init`` with a fresh Adam: per step ms
+        (CUDA events), loss, launches and collectives; the first step's
+        gradients and the final weights."""
+        model.load_state_dict(init)
+        state = create_train_state(model, device=dev)
+        rec = dict(ms=[], loss=[], launches=[], collectives=[], bytes=[])
+        grads = None
+        with contextlib.ExitStack() as stack:
+            for timer in timers:
+                stack.enter_context(timer)
+            for i in range(steps):
+                before = launches()
+                D.COLLECTIVES.clear()
+                D.COLLECTIVE_BYTES.clear()
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+                state, aux = step(state, batch)
+                e1.record()
+                e1.synchronize()
+                rec["ms"].append(e0.elapsed_time(e1))
+                rec["loss"].append(aux["loss"].item())
+                rec["launches"].append({n: v - before[n] for n, v in launches().items()})
+                rec["collectives"].append(dict(D.COLLECTIVES))
+                rec["bytes"].append(dict(D.COLLECTIVE_BYTES))
+                if not math.isfinite(rec["loss"][-1]):
+                    fail(f"ddp: step {i + 1} gave loss {rec['loss'][-1]}")
+                if i == 0:
+                    grads = {n: q.grad.detach().clone() for n, q in model.named_parameters()}
+        return rec, grads, {n: p.detach().clone() for n, p in model.named_parameters()}
+
+    def rel_l2(a, b):
+        num = math.sqrt(sum(((a[n] - v) ** 2).sum().item() for n, v in b.items()))
+        return num / math.sqrt(sum((v ** 2).sum().item() for v in b.values()))
+
+    def held(label, rec, grads, params, ref, ref_grads, ref_params):
+        loss = max(abs(a - b) / abs(b) for a, b in zip(rec["loss"], ref["loss"]))
+        grad = rel_l2(grads, ref_grads) if grads is not None else 0.0
+        param = rel_l2(params, ref_params)
+        print(f"[ddp] {label}: loss rel {loss:.3e} (tol {TRAIN_LOSS_TOL:.0e}), step-1 grads rel L2 "
+              f"{grad:.3e}, final weights rel L2 {param:.3e} (tol {TRAIN_GRAD_TOL:.0e})")
+        if not (loss <= TRAIN_LOSS_TOL and grad <= TRAIN_GRAD_TOL and param <= TRAIN_GRAD_TOL):
+            fail(f"ddp: {label} is outside the train tolerances: {loss}, {grad}, {param}")
+        return dict(loss_rel=loss, grads_rel_l2=grad, params_rel_l2=param)
+
+    # -- (1) a one-rank NCCL group in this process -------------------------------
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}", rank=0,
+                            world_size=1, timeout=datetime.timedelta(seconds=120), device_id=dev)
+    try:
+        mesh = make_mesh({"data": 1})
+        batch = ddp_rows(torch, host, slice(0, 1), dev)
+        plain_step, dp_step = make_train_step(), make_train_step(mesh=mesh)
+        tkern = (Timed(torch, dft_cuda, "complex_dft_matmul", dft_cost),
+                 Timed(torch, normal_cuda, "normal_apply", normal_cost),
+                 Timed(torch, normal_cuda, "normal_apply_bwd", normal_bwd_cost))
+        plain_a, pg, pp = run(plain_step, batch, 3)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        dft_cuda.LAUNCHES = normal_cuda.LAUNCHES = normal_cuda.BWD_LAUNCHES = 0
+        kern, kg, kp = run(dp_step, batch, 3, tkern)
+        dp_launches = launches()
+        peak = torch.cuda.max_memory_allocated()
+        kern_b, _, _ = run(dp_step, batch, 3)
+        plain_b, _, _ = run(plain_step, batch, 3)
+        set_backends("torch")
+        tplain = (Timed(torch, dft_cuda, "complex_dft_matmul_torch", dft_cost),
+                  Timed(torch, normal_cuda, "normal_apply_torch", normal_cost),
+                  Timed(torch, normal_cuda, "normal_apply_bwd_torch", normal_bwd_cost))
+        pv, pvg, pvp = run(dp_step, batch, 3, tplain)
+        tlib = tuple(Timed(torch, mod, attr, cost, fn_[1], fn_[0]) for mod, attr, cost, fn_ in (
+            (dft_cuda, "complex_dft_matmul_torch", dft_cost, dft_library(torch)),
+            (normal_cuda, "normal_apply_torch", normal_cost, normal_library(torch)),
+            (normal_cuda, "normal_apply_bwd_torch", normal_bwd_cost, normal_bwd_library(torch))))
+        lib, lg, lp = run(dp_step, batch, 3, tlib)
+        set_backends("kernel")
+        buf = torch.zeros(nbytes // 4, device=dev)
+        nccl_ms = cuda_ms(torch, lambda: dist.all_reduce(buf), iters=20)
+        del buf
+        fits = ddp_fit_timing(torch, dev, data, mesh)
+    finally:
+        dist.destroy_process_group()
+
+    want = {"grad": 1, "scalar": 2}
+    print(f"[ddp] one-rank NCCL group: collectives per step {kern['collectives']}, bytes "
+          f"{kern['bytes']} (gradient {nbytes} = 4 x {nbytes // 4} floats); the plain step's "
+          f"{plain_a['collectives']}")
+    if any(c != want for c in kern["collectives"]) or any(
+            b["grad"] != nbytes for b in kern["bytes"]) or any(plain_a["collectives"]):
+        fail(f"ddp: the data-parallel step did not make one gradient all-reduce of {nbytes} bytes "
+             f"and 2 scalar ones per step: {kern['collectives']}, {kern['bytes']}")
+    print(f"[ddp] launches per step: data-parallel {kern['launches']}, plain step "
+          f"{plain_a['launches']} (the [train] phase's {per_step}); run total {dp_launches}")
+    if (any(s != per_step for s in kern["launches"] + plain_a["launches"])
+            or dp_launches != {n: 3 * v for n, v in per_step.items()}):
+        fail(f"ddp: the data-parallel step launched the kernels otherwise than the plain step: "
+             f"{kern['launches']}, {plain_a['launches']}")
+    gaps = dict(kernels=held("data-parallel vs plain step, kernels", kern, kg, kp, plain_a, pg, pp),
+                plain_versions=held("data-parallel through the plain versions vs plain step", pv, pvg,
+                                    pvp, plain_a, pg, pp),
+                library=held("data-parallel through library calls vs plain step", lib, lg, lp,
+                             plain_a, pg, pp))
+    dp_ms = statistics.median(kern["ms"][1:] + kern_b["ms"][1:])
+    plain_ms = statistics.median(plain_a["ms"][1:] + plain_b["ms"][1:])
+    print(f"[ddp] ms/step (CUDA events, median of steps 2-3 of two runs each, in turns plain, DP, DP, "
+          f"plain): data-parallel {dp_ms:.3f} ({[round(x, 3) for x in kern['ms'] + kern_b['ms']]}), "
+          f"plain step {plain_ms:.3f} ({[round(x, 3) for x in plain_a['ms'] + plain_b['ms']]}): "
+          f"{100 * (dp_ms / plain_ms - 1):+.2f}%; one {nbytes}-byte NCCL all-reduce alone "
+          f"{nccl_ms:.4f} ms (20 in a row, CUDA events); peak memory {peak / 2**20:.1f} MiB")
+    nccl = dict(kernels=kern, kernels_again=kern_b, plain_step=plain_a, plain_step_again=plain_b,
+                plain_versions=pv, library=lib, gaps=gaps, dp_ms_per_step=dp_ms,
+                plain_ms_per_step=plain_ms, allreduce_ms=nccl_ms, peak_memory_bytes=peak,
+                fits=fits)
+    del model, batch, pg, pp, kg, kp, pvg, pvp, lg, lp
+    torch.cuda.empty_cache()
+
+    # -- (2) two gloo ranks in two processes on the one card ------------------------
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.save({"init": {n: v.cpu() for n, v in init.items()}, "batch": host,
+                    "names": data["names"]}, f"{tmp}/job.pt")
+        np.savez(f"{tmp}/volumes.npz", **{f"{k}{i}": data["decoded"][i][k] for i in (0, 1)
+                                          for k in ("kspace", "target")})
+        ctx = multiprocessing.get_context("spawn")
+        procs = [ctx.Process(target=ddp_rank, args=(r, tmp)) for r in range(2)]
+        t0 = time.perf_counter()
+        for p in procs:
+            p.start()
+        try:
+            for p in procs:
+                p.join(timeout=max(1.0, 300 - (time.perf_counter() - t0)))
+        finally:
+            hung = [p.pid for p in procs if p.is_alive()]
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+        ranks_s = time.perf_counter() - t0
+        if hung or any(p.exitcode != 0 for p in procs):
+            fail(f"ddp: the gloo ranks ended with exit codes {[p.exitcode for p in procs]} "
+                 f"(killed after 300 s: {hung})")
+        ranks = [torch.load(f"{tmp}/rank{r}.pt", weights_only=False) for r in range(2)]
+
+    # this process, both volumes in one batch, the plain step
+    model = build_model("varnet", "XF", device=dev, **FLAGSHIP)
+    model.load_state_dict(init)
+    state = create_train_state(model, device=dev)
+    step = make_train_step()
+    both = ddp_rows(torch, host, slice(0, 2), dev)
+    one = dict(ms=[], loss=[])
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, aux = step(state, both)
+        one["loss"].append(aux["loss"].item())
+        torch.cuda.synchronize()
+        one["ms"].append((time.perf_counter() - t0) * 1e3)
+    one_params = {n: p.detach().cpu() for n, p in model.named_parameters()}
+    del model, state, aux, both
+    torch.cuda.empty_cache()
+    same = [torch.equal(ranks[0]["params"][n], ranks[1]["params"][n]) for n in one_params]
+    same_fit = [torch.equal(a, b) for a, b in zip(ranks[0]["fit_params"], ranks[1]["fit_params"])]
+    loss_gap = max(abs(a - b) / abs(b) for a, b in zip(ranks[0]["loss"], one["loss"]))
+    param_gap = rel_l2(ranks[0]["params"], one_params)
+    print(f"[ddp] two gloo ranks on cuda:0, one volume each: ms per step (host clock) rank 0 "
+          f"{[round(x, 3) for x in ranks[0]['ms']]}, rank 1 {[round(x, 3) for x in ranks[1]['ms']]}; one "
+          f"process with both volumes {[round(x, 3) for x in one['ms']]}; a {nbytes}-byte gloo "
+          f"all-reduce of CUDA tensors {ranks[0]['allreduce_ms']:.3f} / {ranks[1]['allreduce_ms']:.3f} "
+          f"ms; collectives per step {ranks[0]['collectives']}")
+    print(f"[ddp] two gloo ranks vs one process: loss {ranks[0]['loss']} vs {one['loss']} (rel "
+          f"{loss_gap:.3e}, tol {TRAIN_LOSS_TOL:.0e}), weights rel L2 {param_gap:.3e} (tol "
+          f"{TRAIN_GRAD_TOL:.0e}); ranks' weights bit-identical: {sum(same)} of {len(same)}; metric "
+          f"sum of rank + 1: {[r_['sum'] for r_ in ranks]} (want 3.0)")
+    if not (all(same) and ranks[0]["loss"] == ranks[1]["loss"] and loss_gap <= TRAIN_LOSS_TOL
+            and param_gap <= TRAIN_GRAD_TOL and all(r_["sum"] == 3.0 for r_ in ranks)
+            and all(c == want for r_ in ranks for c in r_["collectives"])):
+        fail("ddp: the two gloo ranks disagree with each other or with the one-process batch")
+    fit_ms = [r_["fit_s"] * 1e3 / len(r_["fit_step_ms"]) for r_ in ranks]
+    print(f"[ddp] Trainer.fit on the two ranks (2 epochs, one volume per rank and epoch, validation "
+          f"on volume 1 held by rank 0 only): {[round(r_['fit_s'], 3) for r_ in ranks]} s, wall ms per "
+          f"step (fit / steps) {[round(x, 3) for x in fit_ms]}, each step "
+          f"{[[round(x, 3) for x in r_['fit_step_ms']] for r_ in ranks]}; histories equal "
+          f"{ranks[0]['history'] == ranks[1]['history']}; weights bit-identical {all(same_fit)}; "
+          f"restore_latest into a fresh Trainer on each rank: next epoch "
+          f"{[r_['next_epoch'] for r_ in ranks]}, bit-identical {[r_['restored_same'] for r_ in ranks]}")
+    if not (all(same_fit) and ranks[0]["history"] == ranks[1]["history"]
+            and all(r_["restored_same"] and r_["next_epoch"] == 2 for r_ in ranks)
+            and all(len(r_["fit_step_ms"]) == 2 for r_ in ranks)):
+        fail("ddp: Trainer.fit on the two ranks diverged, or its checkpoint did not restore")
+    wall = time.perf_counter() - t_phase
+    print(f"[ddp] phase wall time {wall:.1f} s, of which the two ranks' processes {ranks_s:.1f} s")
+    for r_ in ranks:
+        r_.pop("params")
+        r_.pop("fit_params")
+    return dict(nccl_world1=nccl, gloo_ranks=ranks, one_process=one, loss_rel=loss_gap,
+                params_rel_l2=param_gap, fit_wall_ms_per_step=fit_ms, wall_s=wall,
+                launches=dp_launches, launches_per_step=per_step, timers=(tkern, tplain, tlib))
 
 
 def main() -> int:
@@ -2297,6 +2739,9 @@ def main() -> int:
     # -- 12. the training system: Trainer.fit / restore / test / inference -------------
     loop = loop_phase(torch, dev, data, set_backends, vtrain["ms_per_step"],
                       vtrain["launches_per_step"], expected, launches)
+
+    # -- 12b. data parallelism: a one-rank NCCL group, two gloo ranks on the card ----------
+    ddp = ddp_phase(torch, dev, data, set_backends, vtrain["launches_per_step"], launches)
     del data["decoded"]
 
     # -- 13. report -------------------------------------------------------------------
@@ -2327,7 +2772,7 @@ def main() -> int:
     for run, tr in (("train", vtrain), ("cinenet-train", ctrain), ("xpdnet-train", xtrain),
                     ("varnet-3d-train", c3train["varnet"]), ("cinenet-3d-train", c3train["cinenet"]),
                     *[(f"{fam}-crnn-train", crnn[fam]["train"]) for fam in ("varnet", "cinenet", "xpdnet")],
-                    ("loop", loop)):
+                    ("loop", loop), ("ddp", ddp)):
         tkern, tplain, tlib = tr.pop("timers")
         rows += [row(*src, run, tr["launches"][key], tkern[i], tplain[i], tlib[i])
                  for i, (src, key) in enumerate(((dft_src, "dft"), (fwd_src, "normal"),
@@ -2349,7 +2794,7 @@ def main() -> int:
         cascades_2d3d=dict(forward=c2d3d, train_3d=c3train),
         crnn=dict(crnn, wall_s=crnn_wall),
         data=data, data_serve=dserve, soft_sense=soft_sense, queue3=queue3,
-        data_phases_wall_s=data_wall, loop=loop)))
+        data_phases_wall_s=data_wall, loop=loop, ddp=ddp)))
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -12,11 +12,18 @@ flag and default of the JAX package's, so a run's checkpoint directory
 at its default runs the dense conv stacks (the JAX package's packed layout,
 its default for 2D, 3D and CRNN, is numerically the same and not ported).
 
+Data parallelism runs one process per device, as the reference's DDP does:
+``torchrun --nproc_per_node N -m cinemri_tpu_torch.cli.train_test_varnet
+--num_devices N ...``, or N processes started with ``--num_processes N
+--coordinator_address host:port --process_id i``. ``--num_devices`` is the
+global data-axis size and equals the number of processes (0: that number);
+each process runs on ``cuda:LOCAL_RANK``, or the CPU with ``--device cpu``
+(gloo in place of NCCL), and loads its shard of every global batch.
+
 What is not ported raises ``NotImplementedError`` naming its ROADMAP item
-(Queue 1): more than one device,
-``--coil_devices``, ``--plane_devices``, more than one process and
-``--coordinator_address`` (13); ``--mode export``, ``--from_torch_ckpt``,
-``--bf16``, ``--packed 1`` and ``--profile_steps`` (14).
+(Queue 1): ``--coil_devices`` and ``--plane_devices`` (13b); ``--mode
+export``, ``--from_torch_ckpt``, ``--bf16``, ``--packed 1`` and
+``--profile_steps`` (14).
 """
 
 from __future__ import annotations
@@ -29,7 +36,7 @@ import warnings
 from pathlib import Path
 from typing import Dict
 
-import torch
+import torch.distributed as dist
 
 from cinemri_tpu_torch.data import (
     CineNetDataTransform,
@@ -41,6 +48,8 @@ from cinemri_tpu_torch.data import (
     create_mask_for_mask_type,
 )
 from cinemri_tpu_torch.models import build_model
+from cinemri_tpu_torch.parallel import initialize, make_mesh, make_process_sum, process_info
+from cinemri_tpu_torch.parallel.distributed import local_device
 from cinemri_tpu_torch.train import Loader, Trainer, TrainerConfig
 from cinemri_tpu_torch.utils.paths import fetch_dir
 
@@ -179,19 +188,21 @@ def build_parser(family: str) -> argparse.ArgumentParser:
                    help="Decode-thread pool size of the host input pipeline; 0 "
                         "disables prefetch, 1 = serial decode in the prefetch thread")
 
-    # parallelism (the reference's --accelerator dp/ddp + --gpus); one
-    # device only until ROADMAP Queue 1, item 13
+    # parallelism (the reference's --accelerator ddp + --gpus): one process
+    # per device, the batch sharded over a `data` mesh axis
     p.add_argument("--num_devices", default=1, type=int,
-                   help="Devices on the data-parallel axis; 0 = all visible; "
-                        "more than 1 is not ported yet (item 13)")
+                   help="Devices on the data-parallel axis, one per process: the number of "
+                        "processes (torchrun --nproc_per_node N, or --num_processes N); 0 = "
+                        "that number. The per-device batch is --batch_size, so the global "
+                        "batch is batch_size x num_devices (DDP semantics)")
     p.add_argument("--coil_devices", default=1, type=int,
-                   help="Devices on the coil axis (not ported yet: item 13)")
+                   help="Devices on the coil axis (not ported yet: item 13b)")
     p.add_argument("--plane_devices", default=1, type=int,
-                   help="Devices on the plane axis (not ported yet: item 13)")
+                   help="Devices on the plane axis (not ported yet: item 13b)")
     p.add_argument("--num_processes", default=1, type=int,
-                   help="Multi-host process count (more than 1 is not ported yet: item 13)")
+                   help="Process count of a run started without torchrun (one device each)")
     p.add_argument("--coordinator_address", default=None, type=str,
-                   help="host:port of process 0 (not ported yet: item 13)")
+                   help="host:port of process 0's rendezvous (a free port), with --num_processes")
     p.add_argument("--process_id", default=0, type=int,
                    help="This process's index in [0, num_processes)")
 
@@ -253,23 +264,19 @@ def build_parser(family: str) -> argparse.ArgumentParser:
 
 
 def _resolved_devices(args) -> int:
-    """``--num_devices``, with 0 resolved to the devices visible to torch."""
-    if args.num_devices > 0:
-        return args.num_devices
-    return max(1, torch.cuda.device_count()) if args.device.startswith("cuda") else 1
+    """``--num_devices``, with 0 resolved to the number of processes (one
+    device each)."""
+    return args.num_devices if args.num_devices > 0 else process_info()[1]
 
 
 def _check_ported(args) -> None:
     """Raise ``NotImplementedError`` naming the ROADMAP item (Queue 1) of
     the first option whose path the port does not have yet."""
     unported = [
-        (_resolved_devices(args) > 1, f"--num_devices {args.num_devices}",
-         "ROADMAP Queue 1, item 13: parallelism"),
-        (args.coil_devices > 1, "--coil_devices", "ROADMAP Queue 1, item 13: parallelism"),
-        (args.plane_devices > 1, "--plane_devices", "ROADMAP Queue 1, item 13: parallelism"),
-        (args.num_processes > 1, "--num_processes", "ROADMAP Queue 1, item 13: parallelism"),
-        (args.coordinator_address is not None, "--coordinator_address",
-         "ROADMAP Queue 1, item 13: parallelism"),
+        (args.coil_devices > 1, "--coil_devices",
+         "ROADMAP Queue 1, item 13b: the plane and coil axes"),
+        (args.plane_devices > 1, "--plane_devices",
+         "ROADMAP Queue 1, item 13b: the plane and coil axes"),
         (args.mode == "export", "--mode export", "ROADMAP Queue 1, item 14: torch.export"),
         (args.from_torch_ckpt is not None, "--from_torch_ckpt",
          "ROADMAP Queue 1, item 14: interop/torch_import.py"),
@@ -282,19 +289,29 @@ def _check_ported(args) -> None:
             raise NotImplementedError(f"{what} is not ported yet ({item})")
 
 
-def _envelope_notices(family: str, args) -> None:
+def _envelope_notices(family: str, args, n_devices: int | None = None) -> None:
     """One-line runtime notices when a run leaves the certified parity
     envelope (PARITY.md "Parity envelope notes"): warnings, not errors.
-    The JAX package's data-parallel lr notice comes back with data
-    parallelism (ROADMAP Queue 1, item 13): until then ``_check_ported``
-    refuses any run on more than one device; its bf16 notices come back
-    with bf16 (item 14)."""
+    ``n_devices`` is the data-parallel size (default: the resolved
+    ``--num_devices``). The JAX package's bf16 notices come back with bf16
+    (item 14)."""
+    n = _resolved_devices(args) if n_devices is None else n_devices
     if args.batch_size > 1:
         warnings.warn(
             f"batch_size={args.batch_size} (PER-DEVICE) is outside the "
             "certified parity envelope: the SSIM loss takes data_range "
             "per-sample here but per-batch in the reference (losses.py:34) "
             "— identical at batch_size=1, deliberately different above it",
+            stacklevel=2,
+        )
+    if args.mode == "train" and n != 1 and args.batch_size == 1 and abs(args.lr - 1e-4) < 1e-12:
+        warnings.warn(
+            f"--num_devices {n} at the default --lr 1e-4: "
+            "the certified data-parallel recipe scales lr LINEARLY with "
+            "the global batch (--lr {:.0e} here); unscaled lr measured "
+            "ΔSSIM −0.23 vs the b=1 schedule at the 30-epoch screen "
+            "(BASELINE.md 'Data-parallel trained quality at global "
+            "batch 8')".format(1e-4 * n),
             stacklevel=2,
         )
     if args.compress_coils:
@@ -368,12 +385,36 @@ def config_fingerprint(family: str, args) -> str:
 
 
 def train_test_main(family: str, argv=None) -> Dict:
-    """The reference's train_test_main (train_test_varnet.py:22-136)."""
+    """The reference's train_test_main (train_test_varnet.py:22-136); one
+    process of a data-parallel run when started as one (module docstring)."""
     args = build_parser(family).parse_args(argv)
     _check_ported(args)
     if args.load_model is None:
         args.load_model = 0
-    _envelope_notices(family, args)
+    # the process group first: the device and the data-parallel size depend on it
+    started = not dist.is_initialized()
+    rank, world = initialize(args.coordinator_address, args.num_processes, args.process_id,
+                             device=args.device)
+    try:
+        return _train_test(family, args, rank, world)
+    finally:
+        if started and dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _train_test(family: str, args, rank: int, world: int) -> Dict:
+    args.device = str(local_device(args.device, rank))
+    n_devices = _resolved_devices(args)
+    if n_devices != world:
+        if world == 1:
+            raise ValueError(
+                f"--num_devices {n_devices} runs one process per device: launch {n_devices} "
+                f"processes with `torchrun --nproc_per_node {n_devices} -m <this module> "
+                f"--num_devices {n_devices} ...`, or start each with `--num_processes "
+                f"{n_devices} --coordinator_address host:port --process_id i`")
+        raise ValueError(f"--num_devices {args.num_devices} must equal the {world} processes "
+                         "of this run (one device each), or be 0")
+    _envelope_notices(family, args, n_devices)
     data_path = args.data_path or fetch_dir("data_path", args.path_config)
     save_path = fetch_dir("save_path", args.path_config)
     log_root = fetch_dir("log_path", args.path_config) / family / f"{family}_logs"
@@ -435,6 +476,11 @@ def train_test_main(family: str, argv=None) -> Dict:
             seed=args.seed,
             prefetch_size=2 if args.num_workers > 0 else 0,
             num_workers=max(int(args.num_workers), 1),
+            # each process feeds its shard of the example list; eval shards
+            # volume-aware so whole volumes stay on one process (the
+            # reference's VolumeSampler, data_module.py:189-194)
+            num_replicas=world,
+            rank=rank,
             volume_aware=not is_train,
         )
 
@@ -464,6 +510,8 @@ def train_test_main(family: str, argv=None) -> Dict:
         train_loader=make_loader("train", shuffle=True),
         val_loader=make_loader("valid", shuffle=False),
         test_loader=make_loader(args.test_split, shuffle=False),
+        mesh=make_mesh({"data": world}) if world > 1 else None,
+        reduce_fn=make_process_sum(),
         device=args.device,
     )
 
@@ -486,7 +534,7 @@ def train_test_main(family: str, argv=None) -> Dict:
         results["test_metrics"] = trainer.test()
         print("test metrics:", results["test_metrics"])
 
-        if args.inference:
+        if args.inference and rank == 0:  # one process writes the inference files
             from cinemri_tpu_torch.cli.inference import InferenceRunner
 
             inf_ds = SliceDataset(data_path / "inference", transform=transform,

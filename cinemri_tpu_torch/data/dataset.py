@@ -193,8 +193,13 @@ class SliceDataset:
                 cache[key] = self.examples
                 logger.info("Saving dataset cache to %s.", self.dataset_cache_file)
                 self.dataset_cache_file.parent.mkdir(parents=True, exist_ok=True)
-                with open(self.dataset_cache_file, "wb") as f:
+                # under a per-process name, then moved into place: processes of
+                # one data-parallel run list the same root at the same time
+                tmp = self.dataset_cache_file.with_name(
+                    f".{self.dataset_cache_file.name}.{os.getpid()}.tmp")
+                with open(tmp, "wb") as f:
                     pickle.dump(cache, f)
+                os.replace(tmp, self.dataset_cache_file)
         else:
             logger.info("Using dataset cache from %s.", self.dataset_cache_file)
             self.examples = cache[key]
@@ -254,7 +259,10 @@ class SliceDataset:
         decoded = preprocess_volume(raw, cfg)
         if cpath is not None:
             cpath.parent.mkdir(parents=True, exist_ok=True)
-            np.savez(cpath, **decoded)
+            tmp = cpath.with_name(f".{cpath.name}.{os.getpid()}.tmp")
+            with open(tmp, "wb") as f:
+                np.savez(f, **decoded)
+            os.replace(tmp, cpath)
         return self._ram_put(fname, decoded)
 
     def _ram_put(self, fname: Path, decoded: Dict) -> Dict:

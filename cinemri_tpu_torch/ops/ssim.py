@@ -82,13 +82,18 @@ def ssim_loss(
     k1: float = 0.01,
     k2: float = 0.03,
     sample_weight: torch.Tensor | None = None,
+    denominator: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Time-averaged SSIM loss: the mean over t of ``1 - mean SSIM``, per
     sample, then the mean over samples weighted by ``sample_weight (b,)``
-    (weight 0 drops a padded sample; the denominator is at least 1)."""
+    (weight 0 drops a padded sample; the denominator is at least 1).
+    ``denominator`` replaces ``Σ w`` (a data-parallel rank divides by the
+    global batch's)."""
     s = ssim_index_per_sample(pred, target, win_size, k1, k2)  # (b, t)
     per_sample = (1.0 - s).mean(dim=1)  # (b,)
     if sample_weight is None:
         return per_sample.mean()
     w = sample_weight.to(per_sample.dtype)
-    return (per_sample * w).sum() / torch.clamp(w.sum(), min=1.0)
+    if denominator is None:
+        denominator = torch.clamp(w.sum(), min=1.0)
+    return (per_sample * w).sum() / denominator

@@ -1,5 +1,5 @@
 """Training (counterpart of ``cinemri_tpu/train``): the optimizer, the
-single-device train and eval steps, the metrics aggregator, checkpoints,
+train step (single-device or data-parallel) and eval step, the metrics aggregator, checkpoints,
 the logger, the loader and the Trainer, with the JAX package's export list
 (plus ``Optimizer``)."""
 

@@ -16,6 +16,12 @@ in the checkpoint directory so it survives process restarts.
 Saves are synchronous: :meth:`CheckpointManager.save` returns once the file
 is in place, so :meth:`CheckpointManager.wait` returns at once (the JAX
 package's orbax saves are asynchronous; its callers wait).
+
+In a data-parallel run every process calls :meth:`~CheckpointManager.save`
+with the same tree (the weights are replicated); rank 0 alone writes the
+file and ``best_steps.json`` and prunes, then every rank waits at a barrier,
+so a restore on any rank finds the file. The directory must be one that
+every process sees.
 """
 
 from __future__ import annotations
@@ -26,6 +32,8 @@ from pathlib import Path
 from typing import Any, Dict, List, Optional
 
 import torch
+
+from cinemri_tpu_torch.parallel.distributed import barrier, process_info
 
 __all__ = ["CheckpointManager"]
 
@@ -74,8 +82,19 @@ class CheckpointManager:
     def save(self, step: int, tree: Dict[str, Any], metrics: Optional[Dict] = None):
         """Write ``tree`` as step ``step``, replacing a checkpoint already
         saved at that step (e.g. re-running an epoch after a preemption
-        save), then apply the retention."""
+        save), then apply the retention. Only rank 0 writes; every rank
+        keeps the same best-step record and waits until the file is in
+        place."""
         step = int(step)
+        if process_info()[0] == 0:
+            self._write(step, tree, metrics)
+        else:
+            self._metrics.pop(step, None)
+            if metrics and self.monitor in metrics:
+                self._metrics[step] = float(metrics[self.monitor])
+        barrier()
+
+    def _write(self, step: int, tree: Dict[str, Any], metrics: Optional[Dict]):
         if self._metrics.pop(step, None) is not None:
             self._write_metrics()
         tmp = self.directory / f".{step}.pt.tmp"

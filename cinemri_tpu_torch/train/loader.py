@@ -141,8 +141,10 @@ class Loader:
             drop_last=self.drop_last,
         )
 
-    def steps_per_epoch(self) -> int:
-        return len(self._batch_chunks(0))
+    def steps_per_epoch(self, epoch: int = 0) -> int:
+        """Batches in ``epoch``: per shape bucket, so a shard's count can
+        change with the epoch's shuffle when shapes are mixed."""
+        return len(self._batch_chunks(epoch))
 
     def epoch(self, epoch: int = 0) -> Iterator[Dict]:
         it = self._epoch_iter(epoch)

@@ -5,7 +5,8 @@ prog-bar scalars (``training_loss``/``validation_loss``/``test_loss``),
 ``{split}_metrics/{nmse,ssim,psnr}``, and fps=15 video logging of
 target / reconstruction / |error| for selected batches, each normalized by
 its own max. Backed by tensorboardX, imported only when a ``log_dir`` is
-given. A copy of ``cinemri_tpu/train/logging.py``.
+given. A copy of ``cinemri_tpu/train/logging.py``; in a data-parallel run
+only rank 0 writes.
 """
 
 from __future__ import annotations
@@ -15,12 +16,14 @@ from typing import Dict, Optional
 
 import numpy as np
 
+from cinemri_tpu_torch.parallel.distributed import process_info
+
 __all__ = ["TrainLogger"]
 
 
 class TrainLogger:
     def __init__(self, log_dir: Optional[Path], enabled: bool = True):
-        self.enabled = enabled and log_dir is not None
+        self.enabled = enabled and log_dir is not None and process_info()[0] == 0
         self._writer = None
         if self.enabled:
             from tensorboardX import SummaryWriter

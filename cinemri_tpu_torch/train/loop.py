@@ -1,4 +1,5 @@
-"""Training / evaluation orchestration on one device.
+"""Training / evaluation orchestration, on one device or data-parallel
+over processes.
 
 Counterpart of ``cinemri_tpu/train/loop.py``, which replaces the
 reference's Lightning Trainer wiring (train_test_varnet.py:286-297 +
@@ -7,9 +8,20 @@ and cine videos, best-checkpoint tracking on ``validation_loss``, resume,
 preemption, and the test-time SSIMs.csv artifact.
 
 Batches come from the Loader as numpy and cross to the device here
-(:meth:`Trainer._place_batch`). A mesh (data, coil or plane parallelism,
-ROADMAP Queue 1, item 13), ``profile_steps`` and ``debug_nans`` (item 14,
-``instrument/``) are not ported yet and raise.
+(:meth:`Trainer._place_batch`). With a ``data`` mesh
+(:func:`~cinemri_tpu_torch.parallel.make_mesh`), each process trains on its
+loader's shard through the data-parallel step, and every place where ranks
+could diverge or wait on each other forever agrees first: the weights are
+broadcast from rank 0 after init and restore; each epoch takes as many
+steps on every rank as the longest shard holds (a shard that buckets into
+fewer batches adds zero-weight steps); a SIGTERM on any rank rides the
+step's scalar all-reduce, read a step late so one step stays queued, so
+every rank stops at the same step, and an evaluation pass (whose ranks may
+hold different batch counts) agrees once at its end; the metric reductions
+run in the same order on every rank; rank 0 alone writes checkpoints and
+TensorBoard logs. The ``plane`` and ``coil``
+axes (ROADMAP Queue 1, item 13b), ``profile_steps`` and ``debug_nans``
+(item 14, ``instrument/``) are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -27,6 +39,8 @@ import torch
 from cinemri_tpu_torch import resolve_device
 from cinemri_tpu_torch.models.init import lecun_normal_init, torch_style_init
 from cinemri_tpu_torch.ops.cplx import Complex
+from cinemri_tpu_torch.parallel import distributed as D
+from cinemri_tpu_torch.parallel.mesh import shard_batch
 from cinemri_tpu_torch.train.checkpoint import CheckpointManager
 from cinemri_tpu_torch.train.device_cache import DeviceSampleCache, to_device
 from cinemri_tpu_torch.train.logging import TrainLogger
@@ -83,7 +97,9 @@ class TrainerConfig:
 class Trainer:
     """Fits, evaluates and checkpoints ``model`` on ``device`` (CUDA by
     default; raises without a CUDA device, pass ``device="cpu"`` for the
-    CPU)."""
+    CPU). With a ``data`` ``mesh``, one process of a data-parallel run, on
+    ``cuda:LOCAL_RANK`` by default; ``reduce_fn`` then sums host scalars
+    over the processes (``parallel.make_process_sum()``)."""
 
     def __init__(
         self,
@@ -96,35 +112,36 @@ class Trainer:
         reduce_fn: Callable[[float], float] = lambda x: x,
         device=None,
     ):
-        if mesh is not None:
+        if mesh is not None and tuple(mesh.mesh_dim_names) != ("data",):
             raise NotImplementedError(
-                "a device mesh is not ported yet (ROADMAP Queue 1, item 13: parallelism); "
-                "the port's Trainer runs on one device")
+                f"mesh dims {tuple(mesh.mesh_dim_names)}: the Trainer takes a 'data' mesh only "
+                "(ROADMAP Queue 1, item 13b: the plane and coil axes)")
         for name in ("profile_steps", "debug_nans"):
             if getattr(config, name):
                 raise NotImplementedError(
                     f"TrainerConfig.{name} is not ported yet (ROADMAP Queue 1, item 14: "
                     "instrument/)")
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = resolve_device(device) if mesh is None else D.local_device(device)
         self.model = model.to(self.device)
         self.cfg = config
         self.train_loader = train_loader
         self.val_loader = val_loader
         self.test_loader = test_loader
-        self.reduce_fn = reduce_fn  # the identity until DDP (item 13)
+        self.reduce_fn = reduce_fn
         self.logger = TrainLogger(config.log_dir, enabled=config.log_dir is not None)
         self.ckpt = (
             CheckpointManager(config.ckpt_dir, config.max_checkpoints, "val_loss")
             if config.ckpt_dir is not None
             else None
         )
-        self._train_step = make_train_step()
+        self._train_step = make_train_step(mesh=mesh)
         self._eval_step = make_eval_step()
         self.state = None
         self.rng: Optional[torch.Generator] = None
         self.history: List[Dict[str, float]] = []
         self._caches: Optional[Dict[str, DeviceSampleCache]] = None
-        if config.device_data_cache:
+        if config.device_data_cache and mesh is None:
             budget = int(config.device_data_cache_gb * (1 << 30))
             self._caches = {split: DeviceSampleCache(self.device, budget)
                             for split in ("train", "eval")}
@@ -151,8 +168,15 @@ class Trainer:
         ``k * mask + 0.0`` (mask 0/1: the host transform's values). Maps go
         into the cache only when the transform declares them stable
         (``sens_maps_are_stable``), else with every step. Anything else
-        sends the whole batch.
+        sends the whole batch. Mesh runs place this rank's rows through
+        :func:`~cinemri_tpu_torch.parallel.shard_batch`, without the cache,
+        as the JAX package does.
         """
+        if self.mesh is not None:
+            placed = shard_batch(batch, self.mesh, device=self.device)
+            self.h2d_bytes += sum(t.nbytes for v in placed.values()
+                                  for t in ((v.re, v.im) if isinstance(v, Complex) else (v,)))
+            return placed
         ds = getattr(loader, "dataset", None)
         tf = getattr(ds, "transform", None)
         if (
@@ -206,8 +230,13 @@ class Trainer:
         """Draw the initial weights from a generator seeded with
         ``cfg.seed`` (torch-style, or lecun_normal without ``torch_init``)
         and build the optimizer; the generator is kept (and checkpointed)
-        as the trainer's randomness."""
-        steps_per_epoch = self.train_loader.steps_per_epoch() if self.train_loader else 1
+        as the trainer's randomness. On a mesh every rank draws the same
+        weights from the same generator, and rank 0's are broadcast once
+        as a guard."""
+        steps_per_epoch = 1
+        if self.train_loader is not None:
+            steps_per_epoch = (self.train_loader.steps_per_epoch() if self.mesh is None
+                               else self._agreed_steps(0))
         self.rng = torch.Generator().manual_seed(self.cfg.seed)
         (torch_style_init if self.cfg.torch_init else lecun_normal_init)(self.model, self.rng)
         self.state = create_train_state(
@@ -220,7 +249,36 @@ class Trainer:
             steps_per_epoch=steps_per_epoch,
             clip_grad_norm=self.cfg.clip_grad_norm,
         )
+        self._sync_weights()
         return self.state
+
+    def _agreed_steps(self, epoch: int) -> int:
+        """The train steps every rank takes in ``epoch``: the most any
+        rank's shard holds (``Loader.steps_per_epoch(epoch)``). Shards have
+        one length, but each is bucketed by shape into batches, so with
+        mixed shapes and a batch above 1 their batch counts can differ."""
+        return max(D.all_gather_object(self.train_loader.steps_per_epoch(epoch)))
+
+    def _train_batches(self, epoch: int, steps: Optional[int]):
+        """The train loader's batches of ``epoch``, then, up to ``steps``
+        (on a mesh), copies of the last with ``sample_weight`` 0: a rank
+        whose shard holds fewer batches takes steps that add nothing to the
+        loss or the gradient, so every rank makes the same all-reduces."""
+        n, last = 0, None
+        for last in self.train_loader.epoch(epoch):
+            n += 1
+            yield last
+        if steps is not None and n < steps:
+            if last is None:
+                raise ValueError(f"epoch {epoch}: this rank's shard holds no batch; the others "
+                                 f"hold up to {steps}")
+            pad = dict(last, sample_weight=np.zeros(len(last["fname"]), np.float32))
+            for _ in range(n, steps):
+                yield pad
+
+    def _sync_weights(self):
+        if self.mesh is not None:
+            D.broadcast_tensors(list(self.state.model.parameters()))
 
     def _fingerprint(self) -> str:
         return self.cfg.config_fingerprint.ljust(8, "0")[:8]
@@ -269,7 +327,15 @@ class Trainer:
         opt.scheduler.load_state_dict(restored["scheduler"])
         self.state.step = int(restored["step"])
         self.rng.set_state(restored["rng"])
-        self._resume_position = (int(restored.get("epoch_step", 0)), restored.get("train_partial"))
+        partial = restored.get("train_partial")
+        if isinstance(partial, list):  # one per rank, saved by a data-parallel run
+            rank, world = D.process_info()
+            if len(partial) != world:
+                raise ValueError(f"checkpoint in {self.ckpt.directory} was saved mid-epoch by "
+                                 f"{len(partial)} processes; this run has {world}")
+            partial = partial[rank]
+        self._resume_position = (int(restored.get("epoch_step", 0)), partial)
+        self._sync_weights()
         return int(restored["epoch"]) + 1
 
     def restore_best(self):
@@ -279,18 +345,17 @@ class Trainer:
         restored = self.ckpt.restore(step=self.ckpt.best_step, map_location="cpu")
         self._check_fingerprint(restored)
         self.state.model.load_state_dict(restored["model"])
+        self._sync_weights()
         return self.state
 
     # ------------------------------------------------------------------ loops
 
-    def _fetch(self, aux) -> Callable:
-        """Start copying an eval step's loss, output and target to the host;
-        returns the wait for them (float, numpy, numpy). On the card the
-        copy is queued behind the step and waited on by an event, so the
-        next batch can be dispatched first."""
-        parts = (aux["loss"], aux["output"], aux["target"])
+    def _fetch(self, *parts: torch.Tensor) -> Callable:
+        """Start copying ``parts`` to the host; returns the wait for their
+        host copies. On the card the copy is queued behind the step and
+        waited on by an event, so the next step can be dispatched first."""
         if self.device.type != "cuda":
-            return lambda: (float(parts[0]), parts[1].numpy(), parts[2].numpy())
+            return lambda: parts
         host = [torch.empty(p.shape, dtype=p.dtype, pin_memory=True) for p in parts]
         for h, p in zip(host, parts):
             h.copy_(p, non_blocking=True)
@@ -299,13 +364,15 @@ class Trainer:
 
         def wait():
             done.synchronize()
-            return float(host[0]), host[1].numpy(), host[2].numpy()
+            return host
 
         return wait
 
     def _run_eval(self, loader, epoch: int, split: str, ssim_csv=None) -> Optional[Dict]:
         """The split's metrics, or None when a SIGTERM inside ``fit`` cut
-        the pass short (the caller saves and exits)."""
+        the pass short (the caller saves and exits). On a mesh the ranks'
+        shards may hold different batch counts, so the pass runs to its end
+        on every rank and the ranks agree on a SIGTERM once, after it."""
         agg = MetricsAggregator(self.reduce_fn, ssim_csv_path=ssim_csv)
         cache = self._caches["eval"] if self._caches else None
         step = int(self.state.step)
@@ -314,7 +381,8 @@ class Trainer:
         def consume(batch, fetched):
             nonlocal logged
             loss, out, tgt = fetched()
-            agg.update_batch(batch, out, tgt, loss=loss)
+            out, tgt = out.numpy(), tgt.numpy()
+            agg.update_batch(batch, out, tgt, loss=float(loss))
             if logged < self.cfg.num_log_images:
                 self.logger.cine_video(f"{split}_images_idx_{logged}", tgt[0], out[0], step)
                 logged += 1
@@ -324,14 +392,17 @@ class Trainer:
         # computes batch i's metrics
         prev = None
         for batch in loader.epoch(epoch):
-            if self._preempted:
+            if self._preempted and self.mesh is None:
                 return None
-            fetched = self._fetch(self._eval_step(self.state, self._place_batch(batch, loader, cache)))
+            aux = self._eval_step(self.state, self._place_batch(batch, loader, cache))
+            fetched = self._fetch(aux["loss"], aux["output"], aux["target"])
             if prev is not None:
                 consume(*prev)
             prev = (batch, fetched)
         if prev is not None:
             consume(*prev)
+        if self.mesh is not None and self._agreed_stop():
+            return None
         metrics = agg.compute()
         self.logger.scalars(
             {f"{split}_metrics/{k}": v for k, v in metrics.items() if k != "loss"}, step
@@ -345,14 +416,37 @@ class Trainer:
         # the middle of an optimizer update
         self._preempted = True
 
+    def _agreed_stop(self) -> bool:
+        """Whether any rank has taken a SIGTERM: one scalar all-reduce on a
+        mesh, the local flag otherwise."""
+        if self.mesh is None:
+            return self._preempted
+        flag = torch.full((1,), float(self._preempted), device=self.device)
+        return bool(D.all_reduce_sum(flag, "scalar", self.mesh.get_group("data")).item() > 0)
+
+    def _stop_before_step(self, stops: List[Callable]) -> bool:
+        """Whether to save and exit before the next step: the local flag, or
+        on a mesh the flag the ranks agreed on two steps back. ``stops``
+        holds the waits for the steps' flags (:meth:`_fetch`); reading one
+        a step late keeps the last step queued on the device while the host
+        waits, and every rank reads the same flag at the same step."""
+        if self.mesh is None:
+            return self._preempted
+        return len(stops) > 1 and bool(stops.pop(0)()[0])
+
     def _preempt(self, epoch: int, steps_done: int, agg: MetricsAggregator, pending: List):
         """Save under the interrupted epoch's id with the previous epoch
         recorded and the steps already taken in this one, then exit with
         143 (128 + SIGTERM). ``fit(resume=True)`` skips those steps'
         batches, so it continues exactly where this run stopped; the
-        epoch's completion save later overwrites this checkpoint."""
+        epoch's completion save later overwrites this checkpoint. On a mesh
+        the checkpoint holds every rank's partial metrics, and rank 0
+        writes it."""
         self._flush(pending, agg)
-        self.ckpt.save(epoch, self._ckpt_tree(epoch - 1, steps_done, agg.state_dict()))
+        partial = agg.state_dict()
+        if self.mesh is not None:
+            partial = D.all_gather_object(partial)
+        self.ckpt.save(epoch, self._ckpt_tree(epoch - 1, steps_done, partial))
         raise SystemExit(143)
 
     @staticmethod
@@ -393,18 +487,26 @@ class Trainer:
                 agg = MetricsAggregator(self.reduce_fn)
                 if partial is not None:
                     agg.load_state_dict(partial)
-                done = 0
-                for batch in self.train_loader.epoch(epoch):
+                done, stops = 0, []
+                steps = None if self.mesh is None else self._agreed_steps(epoch)
+                for batch in self._train_batches(epoch, steps):
                     if done < skip:  # taken before a preemption
                         done += 1
                         continue
-                    if self._preempted:
+                    if self._stop_before_step(stops):
                         self._preempt(epoch, done, agg, pending)
                     arrays = self._place_batch(batch, self.train_loader, cache)
-                    self.state, aux = self._train_step(self.state, arrays)
+                    if self.mesh is None:
+                        self.state, aux = self._train_step(self.state, arrays)
+                    else:
+                        self.state, aux = self._train_step(self.state, arrays,
+                                                           stop=self._preempted)
+                        stops.append(self._fetch(aux["stop"]))
                     done += 1
                     n_real = (int(np.sum(batch["sample_weight"] > 0))
                               if "sample_weight" in batch else len(batch["fname"]))
+                    if not n_real:  # a zero-weight step of a short shard
+                        continue
                     if defer_loss:
                         pending.append((aux["loss"], n_real))
                         continue
@@ -438,7 +540,7 @@ class Trainer:
                         self.logger.scalars({"validation_loss": val.get("loss", 0.0)}, step)
                 # a SIGTERM during the epoch's last step or its validation:
                 # every step is recorded, so a resume re-runs the validation
-                if self._preempted:
+                if self._agreed_stop():
                     self._preempt(epoch, done, agg, pending)
                 record["epoch"] = epoch
                 self.history.append(record)

@@ -1,7 +1,11 @@
 """Per-volume metric aggregation (host-side, numpy).
 
-A copy of ``cinemri_tpu/train/metrics_agg.py``. ``reduce_fn`` stays the
-identity until data parallelism is ported (ROADMAP Queue 1, item 13).
+A copy of ``cinemri_tpu/train/metrics_agg.py``, with one change for
+data-parallel runs: :meth:`MetricsAggregator.compute` makes the same
+``reduce_fn`` calls in the same order on every process (whether the loss
+is reported is itself reduced first, since a process whose shard held no
+batch has no losses), and :meth:`~MetricsAggregator.loss_value` reduces its
+sums too, so every process reports the global value.
 
 Parity target: reference MriModule's step_end / epoch_end machinery
 (reconstruction/pl_modules/mri_module.py:65-493):
@@ -82,8 +86,10 @@ class MetricsAggregator:
         self.losses.append((float(loss), int(n_samples)))
 
     def loss_value(self) -> float:
-        num = sum(l * n for l, n in self.losses)
-        den = max(sum(n for _, n in self.losses), 1)
+        """The sample-weighted mean loss over every process's steps."""
+        r = self.reduce_fn
+        num = r(float(sum(l * n for l, n in self.losses)))
+        den = max(r(float(sum(n for _, n in self.losses))), 1.0)
         return float(num / den)
 
     def update(self, fname: str, slice_num: int, output, target, max_value, loss=None):
@@ -158,7 +164,7 @@ class MetricsAggregator:
             "ssim": r(ssim) / tot_examples,
             "psnr": r(psnr) / tot_examples,
         }
-        if self.losses:
+        if r(float(len(self.losses))) > 0:  # the same branch on every process
             num = float(sum(l * n for l, n in self.losses))
             den = max(r(float(sum(n for _, n in self.losses))), 1.0)
             out["loss"] = r(num) / den

@@ -10,8 +10,15 @@ backpropagate, and take one optimizer step. A batch is a dict with
 third argument. PyTorch updates the model's parameters in
 place, so a step returns the same state object, advanced.
 
-The data-parallel ``shard_map`` step is not ported yet (ROADMAP Queue 1,
-item 13).
+With a ``data`` mesh, :func:`make_train_step` is the explicit schedule of
+the JAX package's ``shard_map`` step, one process per device: the global
+weight denominator first, each rank's loss contribution over it, a backward
+with no communication, then **one** all-reduce of the whole gradient as a
+flat buffer, the loss all-reduced as a scalar, and the same clip and Adam
+update on every rank. Not ``DistributedDataParallel``: DDP averages
+gradients where the JAX step sums contributions over a global denominator
+(padded rows carry weight 0), and its bucket hooks interact with the remat
+replay (``models/remat.py``) and with parameters a call leaves unused.
 """
 
 from __future__ import annotations
@@ -26,6 +33,7 @@ from cinemri_tpu_torch import resolve_device
 from cinemri_tpu_torch.data.transforms import center_crop_to_smallest
 from cinemri_tpu_torch.ops.cplx import Complex
 from cinemri_tpu_torch.ops.ssim import ssim_loss
+from cinemri_tpu_torch.parallel.distributed import all_reduce_sum
 from cinemri_tpu_torch.train.optim import Optimizer, make_optimizer
 
 __all__ = ["TrainState", "create_train_state", "make_train_step", "make_eval_step", "global_norm"]
@@ -54,7 +62,10 @@ def _to(a, device: torch.device):
     return a.to(device)
 
 
-def _loss_and_output(model: nn.Module, batch: Dict):
+def _loss_and_output(model: nn.Module, batch: Dict, denominator=None):
+    """The step's loss, cropped output and target. With ``denominator`` (a
+    data-parallel step's global weight sum), the loss is this rank's
+    contribution ``Σ w·l / denominator``, rows without a weight counting 1."""
     dev = next(model.parameters()).device
     args = (batch["masked_kspace"], batch["mask"])
     if "sens_maps" in batch:
@@ -62,8 +73,19 @@ def _loss_and_output(model: nn.Module, batch: Dict):
     output = model(*(_to(a, dev) for a in args))
     target, output_c = center_crop_to_smallest(_to(batch["target"], dev), output)
     weight = batch.get("sample_weight")
-    loss = ssim_loss(output_c, target, sample_weight=None if weight is None else _to(weight, dev))
+    if denominator is not None:
+        weight = _sample_weight(batch, dev)
+    elif weight is not None:
+        weight = _to(weight, dev)
+    loss = ssim_loss(output_c, target, sample_weight=weight, denominator=denominator)
     return loss, output_c, target
+
+
+def _sample_weight(batch: Dict, dev: torch.device) -> torch.Tensor:
+    weight = batch.get("sample_weight")
+    if weight is None:
+        return torch.ones(batch["target"].shape[0], device=dev)
+    return _to(weight, dev).to(torch.float32)
 
 
 def global_norm(tensors) -> torch.Tensor:
@@ -71,21 +93,65 @@ def global_norm(tensors) -> torch.Tensor:
     return torch.sqrt(sum((t * t).sum() for t in tensors))
 
 
-def make_train_step() -> Callable:
-    """``(state, batch) -> (state, aux)`` with aux ``loss``, ``output`` and
-    ``target`` (both cropped) and ``grad_norm``, the global L2 norm of the
-    gradients before any clip."""
+def _all_reduce_grads(params, group) -> None:
+    """THE one gradient all-reduce: every parameter in a fixed layout,
+    zeros where this call left a parameter unused."""
+    flat = torch.cat([(p.grad if p.grad is not None else torch.zeros_like(p)).reshape(-1)
+                      for p in params])
+    all_reduce_sum(flat, "grad", group)
+    offset = 0
+    for p in params:
+        if p.grad is not None:
+            p.grad.copy_(flat[offset:offset + p.numel()].view_as(p))
+        offset += p.numel()
 
-    def train_step(state: TrainState, batch: Dict):
+
+def make_train_step(mesh=None, data_axis: str = "data") -> Callable:
+    """``(state, batch, stop=False) -> (state, aux)`` with aux ``loss``,
+    ``output`` and ``target`` (both cropped) and ``grad_norm``, the global
+    L2 norm of the gradients before any clip. Without a mesh ``stop`` is
+    unused and the step makes no collective.
+
+    With a ``mesh`` whose only dim is ``data_axis``, the data-parallel step:
+    ``batch`` holds this rank's rows, ``loss`` and ``grad_norm`` are the
+    global batch's (the same on every rank), ``output`` and ``target`` this
+    rank's rows, and aux ``stop`` (a device bool) is true on every rank when
+    any rank passed ``stop=True``: the flag rides the step's scalar
+    all-reduce, so the ranks agree on a preemption without another
+    collective. Per step: one gradient all-reduce of Σ numel × 4 bytes and
+    two scalar all-reduces (``parallel.distributed.COLLECTIVES``)."""
+    group = None
+    if mesh is not None:
+        if tuple(mesh.mesh_dim_names) != (data_axis,):
+            raise NotImplementedError(
+                f"mesh dims {tuple(mesh.mesh_dim_names)}: only a {data_axis!r} mesh is ported "
+                "(ROADMAP Queue 1, item 13b: the plane and coil axes)")
+        group = mesh.get_group(data_axis)
+
+    def train_step(state: TrainState, batch: Dict, stop: bool = False):
         opt = state.optimizer
         opt.adam.zero_grad(set_to_none=True)
-        loss, output, target = _loss_and_output(state.model, batch)
+        gden = None
+        if group is not None:
+            # the global weight denominator first: it depends on no
+            # parameter, so each rank's loss is a contribution whose sum is
+            # the global weighted mean, and the gradients sum the same way
+            dev = next(state.model.parameters()).device
+            gden = all_reduce_sum(_sample_weight(batch, dev).sum().reshape(1), "scalar",
+                                  group).clamp_min(1.0)[0]
+        loss, output, target = _loss_and_output(state.model, batch, gden)
         loss.backward()
+        aux = {}
+        if group is not None:
+            _all_reduce_grads(opt.params, group)
+            scalars = torch.stack([loss.detach(), torch.full((), float(stop), device=loss.device)])
+            all_reduce_sum(scalars, "scalar", group)
+            loss, aux["stop"] = scalars[0], scalars[1] > 0
         gnorm = global_norm(p.grad for p in opt.params if p.grad is not None)
         opt.step(gnorm)
         state.step += 1
-        return state, {"loss": loss.detach(), "output": output.detach(), "target": target,
-                       "grad_norm": gnorm}
+        aux.update(loss=loss.detach(), output=output.detach(), target=target, grad_norm=gnorm)
+        return state, aux
 
     return train_step
 

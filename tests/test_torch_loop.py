@@ -9,6 +9,7 @@ chans 4, pools 2, sens net 4/2.
 """
 
 import signal
+from types import SimpleNamespace
 
 import jax
 import numpy as np
@@ -324,8 +325,9 @@ class TestLoop:
         model = build_model("varnet", "XF", device="cpu", **TINY)
         with pytest.raises(NotImplementedError, match=item):
             Trainer(model, TrainerConfig(**cfg), device="cpu")
-        with pytest.raises(NotImplementedError, match="item 13"):
-            Trainer(model, TrainerConfig(), mesh=object(), device="cpu")
+        with pytest.raises(NotImplementedError, match="item 13b"):
+            Trainer(model, TrainerConfig(), mesh=SimpleNamespace(mesh_dim_names=("data", "coil")),
+                    device="cpu")
 
     def test_default_device_raises_without_cuda(self):
         if torch.cuda.is_available():
