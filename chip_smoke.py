@@ -95,6 +95,19 @@ volumes in one batch, and their ``Trainer.fit`` (2 epochs of ``[loop]``'s
 volumes) with a checkpoint restored on both ranks. Every process group has a
 timeout, and a rank that fails or hangs fails the run.
 
+Then the plane and coil mesh axes, ``[mesh]``: two gloo ranks in two
+processes sharing the card run the flagship VarNet-XF on ``{plane: 2}`` (100
+of the 200 planes of each plane batch per rank) and on ``{coil: 2}`` (5 of
+the 10 coils per rank, the normal apply and its backward on 5-coil shards),
+a forward and 2 train steps each, CineNet-XF's forward on ``{coil: 2}`` (λ
+added once after the coil all-reduce, through the CG), and ``Trainer.fit``
+(1 epoch) on ``{coil: 2}`` with a checkpoint restored on both ranks; each
+held against this process's one-process run from the same weights, each
+forward and step launching the kernels as the one-process path does and
+making the collectives counted in ``MESH_*_COLLECTIVES``. The phase must
+take under 120 s of wall time. Its times are of a host-carried (gloo)
+collective on one shared card, not of NVLink scaling.
+
 It checks that each kernel run launched every kernel as many times as the
 path calls it and that the runs agree. Any failure ends the run with a
 non-zero exit code.
@@ -105,12 +118,14 @@ Output, last three lines: one JSON object with a row per kernel and run
 ``"cascades-2d3d"``, ``"varnet-3d-train"``, ``"cinenet-3d-train"``,
 ``"varnet-crnn-serve"``, ``"varnet-crnn-train"``, the same two for
 ``cinenet-crnn`` and ``xpdnet-crnn``, ``"xpdnet-crnn-dual"`` (its DFT only),
-``"data-serve"``, ``"soft-sense"``, ``"loop"``, ``"ddp"`` and, for ``fft2_plane``,
+``"data-serve"``, ``"soft-sense"``, ``"loop"``, ``"ddp"``, ``"mesh"`` (rank 0's 2
+steps on ``{coil: 2}``) and, for ``fft2_plane``,
 ``"check"``), the card's name and power limit as nvidia-smi
 reports them, and ``{"ok": true, "device": {...}}``. A row's ``ms``,
 ``plain_ms`` and ``library_ms`` sum CUDA-event times taken around every
 call of that function in its run (the four serve requests, the four train
-steps, the whole ``[loop]`` fit, the 3 data-parallel steps of ``[ddp]``, or
+steps, the whole ``[loop]`` fit, the 3 data-parallel steps of ``[ddp]``, rank
+0's 2 coil-axis steps of ``[mesh]``, or
 one call at each of the four check shapes); ``bound_ms`` sums the
 bound of each call of the kernel run. The line before them, ``[details]
 {...}``, holds the per-shape microbenchmarks and every other number.
@@ -1435,6 +1450,400 @@ def ddp_phase(torch, dev, data, set_backends, per_step, launches):
                 launches=dp_launches, launches_per_step=per_step, timers=(tkern, tplain, tlib))
 
 
+class Measured:
+    """A ``Timed`` run's numbers carried back from a rank process: the
+    summed CUDA-event ms of its calls and the summed bound of those calls."""
+
+    def __init__(self, ms, bound_ms=0.0, bound_by="bytes"):
+        self._ms, self._bound = ms, (bound_ms, bound_by)
+
+    def ms(self) -> float:
+        return self._ms
+
+    def bound(self, peak_flops: float, peak_bw: float):
+        return self._bound
+
+
+# Collectives of one flagship VarNet-XF step (10 cascades, remat, kernel DC)
+# on a mesh axis of 2. Coil: the forward all-reduces the sens net's RSS,
+# R0 = Σ|S|², x_ref and each cascade's normal apply (13); the backward
+# replays each cascade's normal apply and all-reduces the cotangent of its
+# input (20) and that of the sens net's RSS (1). Plane: each cascade gathers
+# its two plane batches (20); the backward replays those gathers and
+# all-gathers the two slices' cotangents (40). A forward alone makes the
+# forward's 13 (coil) or 20 (plane).
+MESH_STEP_COLLECTIVES = {"coil": {"coil": 34, "grad": 1, "scalar": 2},
+                         "plane": {"plane": 60, "grad": 1, "scalar": 2}}
+MESH_FORWARD_COLLECTIVES = {"coil": {"coil": 13}, "plane": {"plane": 20}}
+
+
+def mesh_host_batch(torch):
+    """``train_batch``'s volume (seed 0) as numpy, the Loader's layout."""
+    b = train_batch(torch, "cpu", seed=0)
+    k = b["masked_kspace"]
+    return {"masked_kspace": (k.re.numpy() + 1j * k.im.numpy()).astype(np.complex64),
+            "mask": b["mask"].numpy(), "target": b["target"].numpy()}
+
+
+def mesh_rank(rank: int, tmp: str) -> None:
+    """One of ``[mesh]``'s two gloo ranks, both on ``cuda:0``. On ``{plane:
+    2}`` and then ``{coil: 2}``: the flagship VarNet-XF's forward (one warm,
+    one timed) and 2 train steps (ms, launches, collectives and bytes by
+    kind, peak memory, the first step's gradients); on ``{coil: 2}`` also
+    the 2 steps again with every call of the three kernels timed, through
+    the kernels, the plain versions and library calls (the ``mesh`` kernel
+    rows). Then CineNet-XF's forward on ``{coil: 2}``, and ``Trainer.fit``
+    (1 epoch of ``[loop]``'s two volumes, both on every rank) with a
+    checkpoint restored into a fresh Trainer. Writes ``rank<r>.pt``."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT))
+    from cinemri_tpu_torch.data import RandomMask, VarNetDataTransform
+    from cinemri_tpu_torch.models import build_model
+    from cinemri_tpu_torch.ops import fft as FFT
+    from cinemri_tpu_torch.ops.cplx import Complex
+    from cinemri_tpu_torch.ops.kernels import dft_cuda, normal_cuda
+    from cinemri_tpu_torch.parallel import coil_shard, make_mesh, set_mesh, shard_batch
+    from cinemri_tpu_torch.parallel import distributed as D
+    from cinemri_tpu_torch.parallel import make_process_sum
+    from cinemri_tpu_torch.physics import operators as OPS
+    from cinemri_tpu_torch.train import Loader, Trainer, TrainerConfig, create_train_state, make_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    # gloo: NCCL refuses two ranks on one card
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/store", rank=rank, world_size=2,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        job = torch.load(f"{tmp}/job.pt", weights_only=False)
+        peak_flops, peak_bw = peaks(torch.cuda.get_device_name(0))
+        host = job["batch"]
+
+        def launches():
+            return {"dft": dft_cuda.LAUNCHES, "normal": normal_cuda.LAUNCHES,
+                    "normal_bwd": normal_cuda.BWD_LAUNCHES}
+
+        def delta(before):
+            return {n: v - before[n] for n, v in launches().items()}
+
+        def cplx(a):
+            return Complex(torch.from_numpy(np.ascontiguousarray(a.real)).to(dev),
+                           torch.from_numpy(np.ascontiguousarray(a.imag)).to(dev))
+
+        def timed_forward(model, mesh, *args):
+            with set_mesh(mesh), torch.inference_mode():
+                model(*args)  # warm
+                torch.cuda.synchronize()
+                before = launches()
+                D.COLLECTIVES.clear()
+                t0 = time.perf_counter()
+                y = model(*args)
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+            return dict(out=y.cpu(), ms=ms, launches=delta(before), collectives=dict(D.COLLECTIVES))
+
+        def steps(model, mesh, n, timers=()):
+            model.load_state_dict(job["varnet"])
+            state = create_train_state(model, device=dev)
+            step = make_train_step(mesh=mesh)
+            batch = shard_batch(host, mesh, device=dev)
+            rec = dict(ms=[], loss=[], launches=[], collectives=[], bytes=[])
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            with contextlib.ExitStack() as stack:
+                for timer in timers:
+                    stack.enter_context(timer)
+                for i in range(n):
+                    before = launches()
+                    D.COLLECTIVES.clear()
+                    D.COLLECTIVE_BYTES.clear()
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    state, aux = step(state, batch)
+                    rec["loss"].append(aux["loss"].item())
+                    torch.cuda.synchronize()
+                    rec["ms"].append((time.perf_counter() - t0) * 1e3)
+                    rec["launches"].append(delta(before))
+                    rec["collectives"].append(dict(D.COLLECTIVES))
+                    rec["bytes"].append(dict(D.COLLECTIVE_BYTES))
+                    if i == 0:
+                        rec["grads"] = {n_: p.grad.detach().cpu() for n_, p in model.named_parameters()}
+            rec["peak_mib"] = torch.cuda.max_memory_allocated() / 2**20
+            return rec
+
+        out = {}
+        t_rank = time.perf_counter()
+        for axis in ("plane", "coil"):
+            mesh = make_mesh({axis: 2})
+            model = build_model("varnet", "XF", device=dev, **FLAGSHIP, **{f"{axis}_axis": axis})
+            model.load_state_dict(job["varnet"])
+            with set_mesh(mesh):
+                k = coil_shard(cplx(host["masked_kspace"]), model.coil_axis)
+            rec = dict(forward=timed_forward(model, mesh, k, torch.from_numpy(host["mask"]).to(dev)),
+                       train=steps(model, mesh, 2))
+            if axis == "coil":
+                def kernels(fns):
+                    return [Timed(torch, mod, attr, cost, *fn) for (mod, attr, cost), fn in zip(
+                        ((dft_cuda, "complex_dft_matmul", dft_cost),
+                         (normal_cuda, "normal_apply", normal_cost),
+                         (normal_cuda, "normal_apply_bwd", normal_bwd_cost)), fns)]
+
+                tk = kernels([()] * 3)
+                dft_cuda.LAUNCHES = normal_cuda.LAUNCHES = normal_cuda.BWD_LAUNCHES = 0
+                kern_run = steps(model, mesh, 2, tk)
+                kern_run["counts"] = launches()
+                FFT.set_dft_backend("torch")
+                OPS.set_normal_backend("torch")
+                tp = [Timed(torch, mod, attr, cost) for mod, attr, cost in (
+                    (dft_cuda, "complex_dft_matmul_torch", dft_cost),
+                    (normal_cuda, "normal_apply_torch", normal_cost),
+                    (normal_cuda, "normal_apply_bwd_torch", normal_bwd_cost))]
+                plain_run = steps(model, mesh, 2, tp)
+                tl = [Timed(torch, mod, attr, cost, fn_[1], fn_[0]) for mod, attr, cost, fn_ in (
+                    (dft_cuda, "complex_dft_matmul_torch", dft_cost, dft_library(torch)),
+                    (normal_cuda, "normal_apply_torch", normal_cost, normal_library(torch)),
+                    (normal_cuda, "normal_apply_bwd_torch", normal_bwd_cost,
+                     normal_bwd_library(torch)))]
+                steps(model, mesh, 2, tl)
+                FFT.set_dft_backend("kernel")
+                OPS.set_normal_backend("kernel")
+                rec["timers"] = [[(t.ms(), *t.bound(peak_flops, peak_bw), len(t.calls)) for t in ts]
+                                 for ts in (tk, tp, tl)]
+                # the timed kernel run against the plain versions' run on the
+                # same shards: the kernels on 5-coil operands, held by the path
+                rec["kernel_run"] = {k_: kern_run[k_] for k_ in ("loss", "grads", "counts")}
+                rec["plain_run"] = {k_: plain_run[k_] for k_ in ("loss", "grads")}
+            out[axis] = rec
+            del model, k
+            torch.cuda.empty_cache()
+
+        # CineNet-XF on {coil: 2}: λ after the coil all-reduce, through the CG
+        mesh = make_mesh({"coil": 2})
+        cmodel = build_model("cinenet", "XF", device=dev, **CINENET, coil_axis="coil")
+        cmodel.load_state_dict(job["cinenet"])
+        with set_mesh(mesh):
+            ck = coil_shard(cplx(job["cinenet_k"]), "coil")
+            cs = coil_shard(cplx(job["cinenet_maps"]), "coil")
+        out["cinenet"] = timed_forward(cmodel, mesh, ck, torch.from_numpy(job["cinenet_mask"]).to(dev),
+                                       cs)
+        del cmodel, ck, cs
+        torch.cuda.empty_cache()
+
+        # Trainer.fit on {coil: 2}: both volumes on both ranks (one data group)
+        vols = np.load(f"{tmp}/volumes.npz")
+        decoded = [{"kspace": vols[f"kspace{i}"], "target": vols[f"target{i}"]} for i in (0, 1)]
+        ds = MemoryDataset(decoded, job["names"], VarNetDataTransform(RandomMask([10], [4]),
+                                                                      use_seed=False))
+        cfg = TrainerConfig(epochs=1, log_dir=None, ckpt_dir=f"{tmp}/ckpt")
+        trainer = Trainer(build_model("varnet", "XF", device=dev, coil_axis="coil", **FLAGSHIP), cfg,
+                          train_loader=Loader(ds, batch_size=1, shuffle=True, seed=42,
+                                              prefetch_size=2, num_workers=4),
+                          mesh=mesh, reduce_fn=make_process_sum(mesh), device=dev)
+        before = launches()
+        D.COLLECTIVES.clear()
+        t0 = time.perf_counter()
+        history = trainer.fit()
+        torch.cuda.synchronize()
+        fit = dict(s=time.perf_counter() - t0, launches=delta(before), history=history,
+                   steps=trainer.state.step, collectives=dict(D.COLLECTIVES))
+        fresh = Trainer(build_model("varnet", "XF", device=dev, coil_axis="coil",
+                                    generator=torch.Generator().manual_seed(1), **FLAGSHIP),
+                        TrainerConfig(log_dir=None, ckpt_dir=f"{tmp}/ckpt"), mesh=mesh, device=dev)
+        fit["next_epoch"] = fresh.restore_latest()
+        fit["restored_same"] = all(torch.equal(a, b) for a, b in zip(
+            trainer.state.model.parameters(), fresh.state.model.parameters()))
+        fit["params"] = [p.detach().cpu() for p in trainer.state.model.parameters()]
+        out["fit"] = fit
+        out["wall_s"] = time.perf_counter() - t_rank
+        torch.save(out, f"{tmp}/rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_phase(torch, dev, data, per_step, expected):
+    """``[mesh]``: the plane and coil axes at full width, two gloo ranks in
+    two processes sharing the card (``mesh_rank``), held against this
+    process's one-process runs from the same weights: the flagship
+    VarNet-XF's forward to ``MODEL_TOL`` x max |out|, its 2 train steps'
+    losses to ``TRAIN_LOSS_TOL`` and first-step gradients to
+    ``TRAIN_GRAD_TOL`` (relative L2), CineNet-XF's forward to ``MODEL_TOL``;
+    every forward and step launching the kernels as the one-process path
+    does (``expected``, ``per_step``) and making ``MESH_*_COLLECTIVES``. The
+    times are of two ranks sharing one card over a host-carried (gloo)
+    collective, not of NVLink scaling. Fails over 120 s of wall time."""
+    import multiprocessing
+
+    from cinemri_tpu_torch.data.masks import RandomMask
+    from cinemri_tpu_torch.models import build_model
+    from cinemri_tpu_torch.ops.cplx import Complex
+    from cinemri_tpu_torch.train import create_train_state, make_train_step
+
+    t_phase = time.perf_counter()
+    host = mesh_host_batch(torch)
+    vmodel = build_model("varnet", "XF", device=dev, generator=torch.Generator().manual_seed(0),
+                         **FLAGSHIP)
+    cmodel = build_model("cinenet", "XF", device=dev, generator=torch.Generator().manual_seed(0),
+                         **CINENET)
+    ck = flagship_inputs(torch, RandomMask([10], [4]), 0, "cpu")
+    cs = rss_maps(torch, 0, "cpu")
+    job = dict(varnet={n: v.cpu() for n, v in vmodel.state_dict().items()},
+               cinenet={n: v.cpu() for n, v in cmodel.state_dict().items()}, batch=host,
+               cinenet_k=(ck[0].numpy() + 1j * ck[1].numpy()).astype(np.complex64),
+               cinenet_mask=ck[2].numpy(),
+               cinenet_maps=(cs[0].numpy() + 1j * cs[1].numpy()).astype(np.complex64),
+               names=data["names"])
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.save(job, f"{tmp}/job.pt")
+        np.savez(f"{tmp}/volumes.npz", **{f"{k}{i}": data["decoded"][i][k] for i in (0, 1)
+                                          for k in ("kspace", "target")})
+        ctx = multiprocessing.get_context("spawn")
+        procs = [ctx.Process(target=mesh_rank, args=(r, tmp)) for r in range(2)]
+        t0 = time.perf_counter()
+        for p in procs:
+            p.start()
+        try:
+            for p in procs:
+                p.join(timeout=max(1.0, 240 - (time.perf_counter() - t0)))
+        finally:
+            hung = [p.pid for p in procs if p.is_alive()]
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+        ranks_s = time.perf_counter() - t0
+        if hung or any(p.exitcode != 0 for p in procs):
+            fail(f"mesh: the gloo ranks ended with exit codes {[p.exitcode for p in procs]} "
+                 f"(killed after 240 s: {hung})")
+        ranks = [torch.load(f"{tmp}/rank{r}.pt", weights_only=False) for r in range(2)]
+
+    # this process: the same weights and inputs, no mesh
+    def cplx(a):
+        return Complex(torch.from_numpy(np.ascontiguousarray(a.real)).to(dev),
+                       torch.from_numpy(np.ascontiguousarray(a.imag)).to(dev))
+
+    with torch.inference_mode():
+        v_out = vmodel(cplx(host["masked_kspace"]), torch.from_numpy(host["mask"]).to(dev)).cpu()
+        c_out = cmodel(cplx(job["cinenet_k"]), torch.from_numpy(job["cinenet_mask"]).to(dev),
+                       cplx(job["cinenet_maps"])).cpu()
+    state = create_train_state(vmodel, device=dev)
+    step = make_train_step()
+    batch = {"masked_kspace": cplx(host["masked_kspace"]),
+             "mask": torch.from_numpy(host["mask"]).to(dev),
+             "target": torch.from_numpy(host["target"]).to(dev)}
+    one = dict(loss=[])
+    for i in range(2):
+        state, aux = step(state, batch)
+        one["loss"].append(aux["loss"].item())
+        if i == 0:
+            one_grads = {n: p.grad.detach().cpu() for n, p in vmodel.named_parameters()}
+    del vmodel, cmodel, state, aux, batch
+    torch.cuda.empty_cache()
+
+    def rel_l2(a, b):
+        num = math.sqrt(sum(((a[n] - v) ** 2).sum().item() for n, v in b.items()))
+        return num / math.sqrt(sum((v ** 2).sum().item() for v in b.values()))
+
+    expected = dict(expected, normal_bwd=0)
+    report, ok = {}, True
+    v_scale, c_scale = v_out.abs().max().item(), c_out.abs().max().item()
+    for axis in ("plane", "coil"):
+        recs = [r_[axis] for r_ in ranks]
+        fwd_err = max((r_["forward"]["out"] - v_out).abs().max().item() for r_ in recs) / v_scale
+        loss_rel = max(abs(a - b) / abs(b) for r_ in recs for a, b in zip(r_["train"]["loss"],
+                                                                           one["loss"]))
+        grad_rel = max(rel_l2(r_["train"]["grads"], one_grads) for r_ in recs)
+        launches_ok = all(r_["forward"]["launches"] == expected
+                          and all(l_ == per_step for l_ in r_["train"]["launches"]) for r_ in recs)
+        coll_ok = all(r_["forward"]["collectives"] == MESH_FORWARD_COLLECTIVES[axis]
+                      and all(c_ == MESH_STEP_COLLECTIVES[axis] for c_ in r_["train"]["collectives"])
+                      for r_ in recs)
+        print(f"[mesh] VarNet-XF on {{{axis}: 2}}, two gloo ranks on cuda:0 (host-carried "
+              f"collectives on one shared card, not NVLink scaling): forward ms per rank "
+              f"{[round(r_['forward']['ms'], 3) for r_ in recs]}, train ms per step "
+              f"{[[round(x, 3) for x in r_['train']['ms']] for r_ in recs]}, peak MiB "
+              f"{[round(r_['train']['peak_mib'], 1) for r_ in recs]}; collectives per step "
+              f"{recs[0]['train']['collectives'][0]}, bytes {recs[0]['train']['bytes'][0]} "
+              f"(forward {recs[0]['forward']['collectives']}); launches per forward "
+              f"{recs[0]['forward']['launches']} (want {expected}), per step "
+              f"{recs[0]['train']['launches']} (want {per_step})")
+        print(f"[mesh] VarNet-XF on {{{axis}: 2}} vs one process: forward max|diff| / max|out| "
+              f"{fwd_err:.3e} (tol {MODEL_TOL:.0e}), losses rel {loss_rel:.3e} (tol "
+              f"{TRAIN_LOSS_TOL:.0e}), step-1 grads rel L2 {grad_rel:.3e} (tol {TRAIN_GRAD_TOL:.0e})")
+        ok &= (fwd_err <= MODEL_TOL and loss_rel <= TRAIN_LOSS_TOL and grad_rel <= TRAIN_GRAD_TOL
+               and launches_ok and coll_ok and recs[0]["train"]["loss"] == recs[1]["train"]["loss"])
+        report[axis] = dict(forward_rel=fwd_err, loss_rel=loss_rel, grads_rel_l2=grad_rel,
+                            forward_ms=[r_["forward"]["ms"] for r_ in recs],
+                            train_ms=[r_["train"]["ms"] for r_ in recs],
+                            peak_mib=[r_["train"]["peak_mib"] for r_ in recs],
+                            collectives=recs[0]["train"]["collectives"],
+                            bytes=recs[0]["train"]["bytes"],
+                            launches=[r_["train"]["launches"] for r_ in recs])
+    c_expected = {"dft": 2 + 2 * CINENET["num_cascades"],
+                  "normal": CINENET["num_cascades"] * (1 + CINENET["cg_iters"]), "normal_bwd": 0}
+    c_err = max((r_["cinenet"]["out"] - c_out).abs().max().item() for r_ in ranks) / c_scale
+    c_launches_ok = all(r_["cinenet"]["launches"] == c_expected for r_ in ranks)
+    print(f"[mesh] CineNet-XF forward on {{coil: 2}} (5 coils per rank, RSS-normalized random "
+          f"maps): ms per rank {[round(r_['cinenet']['ms'], 3) for r_ in ranks]}, launches "
+          f"{ranks[0]['cinenet']['launches']} (want {c_expected}), collectives "
+          f"{ranks[0]['cinenet']['collectives']}; vs one process max|diff| / max|out| {c_err:.3e} "
+          f"(tol {MODEL_TOL:.0e})")
+    ok &= c_err <= MODEL_TOL and c_launches_ok
+    fits = [r_["fit"] for r_ in ranks]
+    same_fit = all(torch.equal(a, b) for a, b in zip(fits[0]["params"], fits[1]["params"]))
+    fit_ok = (same_fit and fits[0]["history"] == fits[1]["history"]
+              and all(f["restored_same"] and f["next_epoch"] == 1 and f["steps"] == 2
+                      and f["launches"] == {n: 2 * v for n, v in per_step.items()} for f in fits))
+    print(f"[mesh] Trainer.fit on {{coil: 2}} (1 epoch, [loop]'s two volumes on both ranks): "
+          f"{[round(f['s'], 3) for f in fits]} s, launches {fits[0]['launches']}, collectives "
+          f"{fits[0]['collectives']}; history {fits[0]['history']}; ranks' weights bit-identical "
+          f"{same_fit}; restore_latest into a fresh Trainer: next epoch "
+          f"{[f['next_epoch'] for f in fits]}, bit-identical {[f['restored_same'] for f in fits]}")
+    ok &= fit_ok
+    # the timed coil-axis run through the kernels against the same run through
+    # the plain versions, on each rank's 5-coil shards; its launch counts
+    # (the counters set to 0 just before it) against 2 steps of the path
+    for r, r_ in enumerate(ranks):
+        kr, pr = r_["coil"]["kernel_run"], r_["coil"]["plain_run"]
+        kp_loss = max(abs(a - b) / abs(b) for a, b in zip(kr["loss"], pr["loss"]))
+        kp_grad = rel_l2(kr["grads"], pr["grads"])
+        counts_ok = kr["counts"] == {n: 2 * v for n, v in per_step.items()}
+        print(f"[mesh] rank {r} VarNet-XF on {{coil: 2}}, timed run through the kernels vs the "
+              f"plain versions on the same 5-coil shards: losses rel {kp_loss:.3e} (tol "
+              f"{TRAIN_LOSS_TOL:.0e}), step-1 grads rel L2 {kp_grad:.3e} (tol {TRAIN_GRAD_TOL:.0e}); "
+              f"launches {kr['counts']} (want {dict((n, 2 * v) for n, v in per_step.items())})")
+        ok &= kp_loss <= TRAIN_LOSS_TOL and kp_grad <= TRAIN_GRAD_TOL and counts_ok
+        report.setdefault("kernel_vs_plain", []).append(
+            dict(loss_rel=kp_loss, grads_rel_l2=kp_grad, launches=kr["counts"]))
+    wall = time.perf_counter() - t_phase
+    print(f"[mesh] phase wall time {wall:.1f} s (limit 120 s), of which the ranks' processes "
+          f"{ranks_s:.1f} s")
+    if not ok:
+        fail("mesh: a mesh run disagrees with one process or with the plain versions, or "
+             "launched the kernels or made the collectives otherwise than the path does")
+    if wall > 120:
+        fail(f"mesh: the phase took {wall:.1f} s of wall time, not under 120 s")
+    coil = ranks[0]["coil"]
+    timers = tuple(tuple(Measured(ms, b_ms, b_by) for ms, b_ms, b_by, _ in ts)
+                   for ts in coil["timers"])
+    launches = coil["kernel_run"]["counts"]
+    for r_ in ranks:
+        for axis in ("plane", "coil"):
+            r_[axis]["train"].pop("grads")
+            r_[axis]["forward"].pop("out")
+        r_["coil"].pop("kernel_run")
+        r_["coil"].pop("plain_run")
+        r_["cinenet"].pop("out")
+        r_["fit"].pop("params")
+    return dict(report, cinenet_rel=c_err, fits=fits, wall_s=wall, ranks_s=ranks_s,
+                rank_wall_s=[r_["wall_s"] for r_ in ranks], timers=timers, launches=launches,
+                timed_calls=[[c for *_, c in ts] for ts in coil["timers"]])
+
+
 def main() -> int:
     import torch
 
@@ -1667,6 +2076,31 @@ def main() -> int:
         xr, xi = args[0], args[1]
         check_bwd_case(dict(b=b, t=T, c=C, h=H, w=W, kt=kt, lam=lam_label),
                        (xr, xi, xr + randn(b, T, H, W), xi + randn(b, T, H, W)) + args[2:6] + (lam,))
+    del args, sr, si, rss, kern, xr, xi
+
+    # the coil axis's shards (``[mesh]``): each of two ranks runs the sens
+    # net's and x_ref's ifft2c, and the normal apply and its backward with
+    # λ = 0, on 5 of the 10 coils (maps normalized by the RSS of all 10);
+    # the ``mesh`` rows take their max_abs_err from these cases
+    shard = dict(shard=f"coil {C // 2} of {C}")
+    for o, n, i in ((C // 2, H, W), (C // 2 * H, W, 1), (T * C // 2, H, W), (T * C // 2 * H, W, 1)):
+        wr, wi = FFT._dft_tensors(n, False, False, "ortho", dev)
+        check_case("complex_dft_matmul", dict(O=o, N=n, I=i, **shard),
+                   (randn(o, n, i), randn(o, n, i), wr, wi),
+                   dft_cuda.complex_dft_matmul, dft_cuda.complex_dft_matmul_torch,
+                   dft_library(torch), dft_cost, DFT_TOL)
+    masks = RandomMask([10], [4])(T, H, seed=5)[None]
+    kern = OPS.masked_normal_kernel(torch.from_numpy(masks).to(dev))
+    sr, si = randn(1, C, H, W), randn(1, C, H, W)
+    rss = torch.sqrt((sr * sr + si * si).sum(1, keepdim=True))
+    args = (randn(1, T, H, W), randn(1, T, H, W), kern.re.contiguous(), kern.im.contiguous(),
+            (sr / rss)[:, :C // 2].contiguous(), (si / rss)[:, :C // 2].contiguous())
+    check_case("normal_apply", dict(b=1, t=T, c=C // 2, h=H, w=W, kt=T, lam=0.0, **shard),
+               args + (0.0,), normal_cuda.normal_apply, normal_cuda.normal_apply_torch,
+               normal_library(torch), normal_cost, NORMAL_TOL)
+    xr, xi = args[0], args[1]
+    check_bwd_case(dict(b=1, t=T, c=C // 2, h=H, w=W, kt=T, lam=0.0, **shard),
+                   (xr, xi, xr + randn(1, T, H, W), xi + randn(1, T, H, W)) + args[2:6] + (0.0,))
     del args, sr, si, rss, kern, xr, xi
 
     # fft2_plane, wired into no path (as in the JAX package), at the 2-D DFT
@@ -2742,14 +3176,19 @@ def main() -> int:
 
     # -- 12b. data parallelism: a one-rank NCCL group, two gloo ranks on the card ----------
     ddp = ddp_phase(torch, dev, data, set_backends, vtrain["launches_per_step"], launches)
+
+    # -- 12c. the plane and coil axes: two gloo ranks on the card ------------------------
+    mesh = mesh_phase(torch, dev, data, vtrain["launches_per_step"], expected)
     del data["decoded"]
 
     # -- 13. report -------------------------------------------------------------------
     def row(kernel, source, replaces, run, launches, timed, plain, library):
+        # the mesh rows: the checks at the coil shards' shapes; else all of the kernel's
         b_ms, b_by = timed.bound(peak_flops, peak_bw)
         return dict(name=kernel, route="cuda", source=source, replaces=replaces, run=run,
                     launches=launches,
-                    max_abs_err=max(c["max_abs_err"] for c in cases if c["kernel"] == kernel),
+                    max_abs_err=max(c["max_abs_err"] for c in cases if c["kernel"] == kernel
+                                    and (run != "mesh" or "shard" in c)),
                     ms=timed.ms(), plain_ms=plain.ms(), bound_ms=b_ms, bound_by=b_by,
                     library_ms=library.ms())
 
@@ -2772,7 +3211,7 @@ def main() -> int:
     for run, tr in (("train", vtrain), ("cinenet-train", ctrain), ("xpdnet-train", xtrain),
                     ("varnet-3d-train", c3train["varnet"]), ("cinenet-3d-train", c3train["cinenet"]),
                     *[(f"{fam}-crnn-train", crnn[fam]["train"]) for fam in ("varnet", "cinenet", "xpdnet")],
-                    ("loop", loop), ("ddp", ddp)):
+                    ("loop", loop), ("ddp", ddp), ("mesh", mesh)):
         tkern, tplain, tlib = tr.pop("timers")
         rows += [row(*src, run, tr["launches"][key], tkern[i], tplain[i], tlib[i])
                  for i, (src, key) in enumerate(((dft_src, "dft"), (fwd_src, "normal"),
@@ -2794,7 +3233,7 @@ def main() -> int:
         cascades_2d3d=dict(forward=c2d3d, train_3d=c3train),
         crnn=dict(crnn, wall_s=crnn_wall),
         data=data, data_serve=dserve, soft_sense=soft_sense, queue3=queue3,
-        data_phases_wall_s=data_wall, loop=loop, ddp=ddp)))
+        data_phases_wall_s=data_wall, loop=loop, ddp=ddp, mesh=mesh)))
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

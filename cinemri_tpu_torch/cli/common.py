@@ -12,18 +12,24 @@ flag and default of the JAX package's, so a run's checkpoint directory
 at its default runs the dense conv stacks (the JAX package's packed layout,
 its default for 2D, 3D and CRNN, is numerically the same and not ported).
 
-Data parallelism runs one process per device, as the reference's DDP does:
+Parallel runs take one process per device, as the reference's DDP does:
 ``torchrun --nproc_per_node N -m cinemri_tpu_torch.cli.train_test_varnet
---num_devices N ...``, or N processes started with ``--num_processes N
---coordinator_address host:port --process_id i``. ``--num_devices`` is the
-global data-axis size and equals the number of processes (0: that number);
-each process runs on ``cuda:LOCAL_RANK``, or the CPU with ``--device cpu``
-(gloo in place of NCCL), and loads its shard of every global batch.
+--num_devices 0 ...``, or N processes started with ``--num_processes N
+--coordinator_address host:port --process_id i``. The mesh is the JAX
+CLI's ``data x plane x coil``: ``--num_devices`` (the data-axis size; 0:
+the processes // (coil x plane)) x ``--plane_devices`` x ``--coil_devices``
+must equal the number of processes. Each process runs on
+``cuda:LOCAL_RANK``, or the CPU with ``--device cpu`` (gloo in place of
+NCCL), and loads its data shard of every global batch; on ``coil`` it keeps
+its coils of it. ``--plane_devices`` splits the XT / XF plane batches (other
+types raise the JAX CLI's ``ValueError``), ``--coil_devices`` the receive
+coils. Unlike the JAX CLI, which forces its XLA normal backend on a coil
+axis, the port keeps the normal-apply kernel there: each rank runs it on its
+own coils and all-reduces.
 
 What is not ported raises ``NotImplementedError`` naming its ROADMAP item
-(Queue 1): ``--coil_devices`` and ``--plane_devices`` (13b); ``--mode
-export``, ``--from_torch_ckpt``, ``--bf16``, ``--packed 1`` and
-``--profile_steps`` (14).
+(Queue 1, item 14): ``--mode export``, ``--from_torch_ckpt``, ``--bf16``,
+``--packed 1`` and ``--profile_steps``.
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import hashlib
+import math
 import time
 import warnings
 from pathlib import Path
@@ -47,8 +54,16 @@ from cinemri_tpu_torch.data import (
     XPDNetDataTransform,
     create_mask_for_mask_type,
 )
-from cinemri_tpu_torch.models import build_model
-from cinemri_tpu_torch.parallel import initialize, make_mesh, make_process_sum, process_info
+from cinemri_tpu_torch.models import build_model, check_plane_axis
+from cinemri_tpu_torch.parallel import (
+    initialize,
+    make_mesh,
+    make_process_sum,
+    mesh_coordinates,
+    mesh_lead,
+    process_info,
+    set_mesh,
+)
 from cinemri_tpu_torch.parallel.distributed import local_device
 from cinemri_tpu_torch.train import Loader, Trainer, TrainerConfig
 from cinemri_tpu_torch.utils.paths import fetch_dir
@@ -191,14 +206,16 @@ def build_parser(family: str) -> argparse.ArgumentParser:
     # parallelism (the reference's --accelerator ddp + --gpus): one process
     # per device, the batch sharded over a `data` mesh axis
     p.add_argument("--num_devices", default=1, type=int,
-                   help="Devices on the data-parallel axis, one per process: the number of "
-                        "processes (torchrun --nproc_per_node N, or --num_processes N); 0 = "
-                        "that number. The per-device batch is --batch_size, so the global "
-                        "batch is batch_size x num_devices (DDP semantics)")
+                   help="Devices on the data-parallel axis, one per process (torchrun "
+                        "--nproc_per_node N, or --num_processes N); 0 = the processes // "
+                        "(coil_devices x plane_devices). The per-device batch is --batch_size, "
+                        "so the global batch is batch_size x num_devices (DDP semantics)")
     p.add_argument("--coil_devices", default=1, type=int,
-                   help="Devices on the coil axis (not ported yet: item 13b)")
+                   help="Devices on the coil (tensor-parallel) axis: each holds its share of "
+                        "the receive coils")
     p.add_argument("--plane_devices", default=1, type=int,
-                   help="Devices on the plane axis (not ported yet: item 13b)")
+                   help="Devices on the plane (sequence-parallel) axis: each runs the plane "
+                        "nets on its share of the XT/XF plane batches")
     p.add_argument("--num_processes", default=1, type=int,
                    help="Process count of a run started without torchrun (one device each)")
     p.add_argument("--coordinator_address", default=None, type=str,
@@ -263,20 +280,24 @@ def build_parser(family: str) -> argparse.ArgumentParser:
     return p
 
 
+def _model_axes(args) -> Dict[str, int]:
+    """The ``plane`` and ``coil`` dims of the run's mesh, those above 1."""
+    sizes = {"plane": max(1, args.plane_devices), "coil": max(1, args.coil_devices)}
+    return {k: v for k, v in sizes.items() if v > 1}
+
+
 def _resolved_devices(args) -> int:
-    """``--num_devices``, with 0 resolved to the number of processes (one
-    device each)."""
-    return args.num_devices if args.num_devices > 0 else process_info()[1]
+    """``--num_devices``, with 0 resolved to the processes (one device
+    each) over the plane and coil dims, at least 1."""
+    if args.num_devices > 0:
+        return args.num_devices
+    return max(1, process_info()[1] // math.prod(_model_axes(args).values()))
 
 
 def _check_ported(args) -> None:
     """Raise ``NotImplementedError`` naming the ROADMAP item (Queue 1) of
     the first option whose path the port does not have yet."""
     unported = [
-        (args.coil_devices > 1, "--coil_devices",
-         "ROADMAP Queue 1, item 13b: the plane and coil axes"),
-        (args.plane_devices > 1, "--plane_devices",
-         "ROADMAP Queue 1, item 13b: the plane and coil axes"),
         (args.mode == "export", "--mode export", "ROADMAP Queue 1, item 14: torch.export"),
         (args.from_torch_ckpt is not None, "--from_torch_ckpt",
          "ROADMAP Queue 1, item 14: interop/torch_import.py"),
@@ -365,6 +386,7 @@ def _build_model_from_args(family: str, args):
         if family != "xpdnet":
             kwargs.update(pools=args.pools)
     kwargs.update(kernel_dc=bool(args.kernel_dc))
+    kwargs.update({f"{axis}_axis": axis for axis in _model_axes(args)})
     return build_model(family, args.dynamic_type, device=args.device, **kwargs)
 
 
@@ -389,6 +411,7 @@ def train_test_main(family: str, argv=None) -> Dict:
     process of a data-parallel run when started as one (module docstring)."""
     args = build_parser(family).parse_args(argv)
     _check_ported(args)
+    check_plane_axis(args.dynamic_type, args.plane_devices > 1)  # before the process group
     if args.load_model is None:
         args.load_model = 0
     # the process group first: the device and the data-parallel size depend on it
@@ -405,16 +428,28 @@ def train_test_main(family: str, argv=None) -> Dict:
 def _train_test(family: str, args, rank: int, world: int) -> Dict:
     args.device = str(local_device(args.device, rank))
     n_devices = _resolved_devices(args)
-    if n_devices != world:
+    axes = _model_axes(args)
+    total = n_devices * math.prod(axes.values())
+    if total != world:
+        mesh_args = "".join(f" --{k}_devices {v}" for k, v in axes.items())
         if world == 1:
             raise ValueError(
-                f"--num_devices {n_devices} runs one process per device: launch {n_devices} "
-                f"processes with `torchrun --nproc_per_node {n_devices} -m <this module> "
-                f"--num_devices {n_devices} ...`, or start each with `--num_processes "
-                f"{n_devices} --coordinator_address host:port --process_id i`")
-        raise ValueError(f"--num_devices {args.num_devices} must equal the {world} processes "
-                         "of this run (one device each), or be 0")
+                f"--num_devices {n_devices}{mesh_args} runs one process per device: launch "
+                f"{total} processes with `torchrun --nproc_per_node {total} -m <this module> "
+                f"--num_devices {n_devices}{mesh_args} ...`, or start each with "
+                f"`--num_processes {total} --coordinator_address host:port --process_id i`")
+        raise ValueError(f"--num_devices {args.num_devices}{mesh_args} needs {total} processes "
+                         f"(one device each), this run has {world}; or pass --num_devices 0")
     _envelope_notices(family, args, n_devices)
+    mesh = make_mesh({"data": n_devices, **axes}) if world > 1 else None
+    coords = mesh_coordinates(mesh) if mesh is not None else {"data": 0}
+    with set_mesh(mesh):
+        return _run(family, args, mesh, n_devices, coords)
+
+
+def _run(family: str, args, mesh, n_devices: int, coords: Dict[str, int]) -> Dict:
+    """The run itself, under the ambient mesh; ``coords`` is this rank's
+    index on each mesh dim."""
     data_path = args.data_path or fetch_dir("data_path", args.path_config)
     save_path = fetch_dir("save_path", args.path_config)
     log_root = fetch_dir("log_path", args.path_config) / family / f"{family}_logs"
@@ -476,11 +511,11 @@ def _train_test(family: str, args, rank: int, world: int) -> Dict:
             seed=args.seed,
             prefetch_size=2 if args.num_workers > 0 else 0,
             num_workers=max(int(args.num_workers), 1),
-            # each process feeds its shard of the example list; eval shards
-            # volume-aware so whole volumes stay on one process (the
-            # reference's VolumeSampler, data_module.py:189-194)
-            num_replicas=world,
-            rank=rank,
+            # each data group feeds its shard of the example list; eval
+            # shards volume-aware so whole volumes stay on one data group
+            # (the reference's VolumeSampler, data_module.py:189-194)
+            num_replicas=n_devices,
+            rank=coords["data"],
             volume_aware=not is_train,
         )
 
@@ -510,8 +545,8 @@ def _train_test(family: str, args, rank: int, world: int) -> Dict:
         train_loader=make_loader("train", shuffle=True),
         val_loader=make_loader("valid", shuffle=False),
         test_loader=make_loader(args.test_split, shuffle=False),
-        mesh=make_mesh({"data": world}) if world > 1 else None,
-        reduce_fn=make_process_sum(),
+        mesh=mesh,
+        reduce_fn=make_process_sum(mesh),
         device=args.device,
     )
 
@@ -534,12 +569,15 @@ def _train_test(family: str, args, rank: int, world: int) -> Dict:
         results["test_metrics"] = trainer.test()
         print("test metrics:", results["test_metrics"])
 
-        if args.inference and rank == 0:  # one process writes the inference files
+        # the first data group runs the inference (its plane and coil ranks
+        # together) and its rank 0 alone writes the files
+        if args.inference and coords["data"] == 0:
             from cinemri_tpu_torch.cli.inference import InferenceRunner
 
             inf_ds = SliceDataset(data_path / "inference", transform=transform,
                                   preprocess=preprocess, maps_cache_dir=args.maps_cache_dir)
-            runner = InferenceRunner(model, None, family, save_path, device=args.device)
+            runner = InferenceRunner(model, None, family, save_path, device=args.device,
+                                     write=mesh_lead(mesh))
             total = 0.0
             print("Starting inference..............")
             for batch in Loader(inf_ds, batch_size=1).epoch(0):

@@ -74,15 +74,19 @@ class InferenceRunner:
     The weights are bound once at construction through
     :func:`cinemri_tpu_torch.serve.bind_model` (``state_dict`` loaded into
     ``model`` when given; ``None`` keeps the model's own). ``device``
-    defaults to CUDA and raises without a CUDA device.
+    defaults to CUDA and raises without a CUDA device. With ``write`` off
+    the runner only reconstructs: on a ``plane`` or ``coil`` mesh every rank
+    of the group runs the request, and one writes the files.
     """
 
     def __init__(self, model, state_dict: Optional[Mapping[str, torch.Tensor]], model_type: str,
-                 save_path: Path, device=None):
+                 save_path: Path, device=None, write: bool = True):
         assert model_type in ("varnet", "cinenet", "xpdnet"), "Wrong model_type arg."
         self.model_type = model_type
         self.save_path = Path(save_path)
-        self.save_path.mkdir(parents=True, exist_ok=True)
+        self.write = write
+        if write:
+            self.save_path.mkdir(parents=True, exist_ok=True)
         self._serve = bind_model(model, state_dict, device=device)
         self._device = next(model.parameters()).device
 
@@ -100,6 +104,8 @@ class InferenceRunner:
         if self._device.type == "cuda":
             torch.cuda.synchronize(self._device)
         elapsed = time.perf_counter() - t0
+        if not self.write:
+            return elapsed
 
         target = np.asarray(batch["target"], np.float32)
         output = output.cpu().numpy().astype(np.float32)

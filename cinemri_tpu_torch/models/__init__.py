@@ -35,11 +35,21 @@ __all__ = [
     "CRNNTrunk",
     "denoisers",
     "build_model",
+    "check_plane_axis",
     "torch_style_init",
 ]
 
 _MODELS = {"varnet": VarNet, "cinenet": CineNet, "xpdnet": XPDNet}
 _CRNN_MODELS = {"varnet": VarNetRNN, "cinenet": CineNetRNN, "xpdnet": XPDNetRNN}
+
+
+def check_plane_axis(dynamic_type: str, plane_axis) -> None:
+    """The JAX CLI's check: only XT and XF have plane batches to split."""
+    if plane_axis and dynamic_type not in ("XT", "XF"):
+        raise ValueError(
+            "--plane_devices shards the XT/XF rotated-plane batches; "
+            f"dynamic_type {dynamic_type!r} has none"
+        )
 
 
 def build_model(
@@ -65,7 +75,10 @@ def build_model(
     ...; CRNN: ``num_cascades``, ``chans``, ``kernel_dc``, ``remat``, and
     ``sens_chans`` / ``sens_pools`` (VarNet, XPDNet), ``cg_iters``
     (CineNet), ``primal_only`` / ``n_primal`` / ``n_dual`` (XPDNet));
-    unknown keys raise.
+    unknown keys raise. ``coil_axis`` (every family and type) and
+    ``plane_axis`` (XT and XF only; another type raises the JAX CLI's
+    ``ValueError``) name dims of the ambient mesh (``parallel.set_mesh``)
+    the model splits its coils and its plane batches over.
     """
     dev = resolve_device(device)
     family = family.lower()
@@ -80,6 +93,9 @@ def build_model(
         raise ValueError(
             f"dynamic_type {dynamic_type!r} not supported for {family}: {allowed[family]}"
         )
+    check_plane_axis(dynamic_type, kwargs.get("plane_axis", ""))
+    if dynamic_type == "CRNN" and "plane_axis" in kwargs:
+        kwargs.pop("plane_axis")
     if generator is None:
         generator = torch.Generator().manual_seed(0)
     if dynamic_type == "CRNN":

@@ -17,12 +17,18 @@ h-axis normal kernel (``physics.normal_plus_lambda_kernel``, the CUDA
 kernel on the card); otherwise through the direct operator
 (``physics.normal_plus_lambda``). With ``remat`` (the default, as in the
 JAX package) each cascade is checkpointed when autograd records.
+``plane_axis`` and ``coil_axis`` split the plane batches and the coils over
+dims of the ambient mesh, as in ``models/varnet.py``: on a coil axis the maps
+and k-space hold this rank's coils, and each CG apply runs the kernel on them
+with λ = 0, all-reduces, and adds ``v·x`` once.
 
 I/O: ``masked_kspace (b, t, c, h, w)`` Complex, ``mask (b, t|1, 1, h, 1)``,
 ``sens_maps (b, 1, c, h, w)`` Complex -> magnitude ``(b, t, h, w)`` float32.
 """
 
 from __future__ import annotations
+
+from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -33,6 +39,8 @@ from cinemri_tpu_torch.models.remat import call_remat, check_remat_policy
 from cinemri_tpu_torch.models.varnet import DYNAMIC_TYPES, LAMBDA_INIT
 from cinemri_tpu_torch.ops.cplx import Complex, cmean, from_channels, to_channels
 from cinemri_tpu_torch.ops.fft import fft1c, ifft1c
+from cinemri_tpu_torch.parallel.autograd import split_rows
+from cinemri_tpu_torch.parallel.mesh import mesh_axis, partial_by_prefix
 from cinemri_tpu_torch.physics.cg import conj_grad
 from cinemri_tpu_torch.physics.operators import (
     is_line_mask,
@@ -58,11 +66,13 @@ class CineNetCascade(nn.Module):
     """Denoise, then a CG solve; a single instance serves every cascade."""
 
     def __init__(self, chans: int, pools: int, cg_iters: int = 4, dynamic_type: str = "XF",
-                 weight_sharing: bool = False):
+                 weight_sharing: bool = False, plane_axis: str = "", coil_axis: str = ""):
         super().__init__()
         if dynamic_type not in DYNAMIC_TYPES:
             raise ValueError(f"unknown dynamic_type {dynamic_type!r}")
         self.cg_iters = cg_iters
+        self.plane_axis = plane_axis
+        self.coil_axis = coil_axis
         self.dynamic_type = dynamic_type
         self.weight_sharing = weight_sharing
         if dynamic_type in ("2D", "3D"):
@@ -76,8 +86,8 @@ class CineNetCascade(nn.Module):
     def _xfyf(self, x: Complex) -> Complex:
         """Rotated-plane regularization on raw channels: temporal-mean
         subtraction, temporal FFT (XF only), U-Nets over the (w, t) and
-        (h, t) plane batches (h, resp. w, folded into the batch), average,
-        inverse FFT, mean restored."""
+        (h, t) plane batches (h, resp. w, folded into the batch; split over
+        ``plane_axis``), average, inverse FFT, mean restored."""
         b, t, h, w = x.shape
         mean = cmean(x, axis=1, keepdims=True)
         x = x - mean
@@ -87,8 +97,11 @@ class CineNetCascade(nn.Module):
         yf = to_channels(x.transpose(0, 3, 2, 1).reshape(b * w, h, t), axis=1)  # (b·w, 2, h, t)
         net_xf = self.plane_net if self.weight_sharing else self.net_xf
         net_yf = self.plane_net if self.weight_sharing else self.net_yf
-        xf = from_channels(net_xf(xf), axis=1).reshape(b, h, w, t).transpose(0, 3, 1, 2)
-        yf = from_channels(net_yf(yf), axis=1).reshape(b, w, h, t).transpose(0, 3, 2, 1)
+        ax = mesh_axis(self.plane_axis)
+        xf = from_channels(split_rows(net_xf, ax, xf), axis=1)
+        yf = from_channels(split_rows(net_yf, ax, yf), axis=1)
+        xf = xf.reshape(b, h, w, t).transpose(0, 3, 1, 2)
+        yf = yf.reshape(b, w, h, t).transpose(0, 3, 2, 1)
         out = 0.5 * (xf + yf)
         if self.dynamic_type == "XF":
             out = ifft1c(out, axis=1)
@@ -110,10 +123,10 @@ class CineNetCascade(nn.Module):
         rhs = image_ref + v * model_out
         if dc_kernel is None:
             def op(z):
-                return normal_plus_lambda(z, mask, sens_maps, v)
+                return normal_plus_lambda(z, mask, sens_maps, v, self.coil_axis)
         else:
             def op(z):
-                return normal_plus_lambda_kernel(z, dc_kernel, sens_maps, v)
+                return normal_plus_lambda_kernel(z, dc_kernel, sens_maps, v, self.coil_axis)
         return conj_grad(op, rhs, model_out, self.cg_iters)
 
 
@@ -131,6 +144,8 @@ class CineNet(nn.Module):
         kernel_dc: bool = True,
         remat: bool = True,
         remat_policy: str = "",
+        plane_axis: str = "",
+        coil_axis: str = "",
     ):
         super().__init__()
         if dynamic_type not in DYNAMIC_TYPES:
@@ -141,12 +156,21 @@ class CineNet(nn.Module):
         self.num_cascades = num_cascades
         self.kernel_dc = kernel_dc
         self.remat = remat
-        self.cascades = CineNetCascade(chans, pools, cg_iters, dynamic_type, weight_sharing)
+        self.plane_axis = plane_axis
+        self.coil_axis = coil_axis
+        self.cascades = CineNetCascade(chans, pools, cg_iters, dynamic_type, weight_sharing,
+                                       plane_axis, coil_axis)
         self.lambda_reg = nn.Parameter(torch.full((num_cascades,), LAMBDA_INIT))
+
+    def partial_parameters(self) -> Dict[str, Tuple[str, ...]]:
+        """The plane nets' gradients are partial on the plane axis; every
+        rank computes λ's whole (CineNet has no weight on its coils)."""
+        return partial_by_prefix(self, {"cascades.": self.plane_axis})
 
     def forward(self, masked_kspace: Complex, mask: torch.Tensor,
                 sens_maps: Complex) -> torch.Tensor:
-        image_ref = sens_reduce(masked_kspace, sens_maps)  # (b, t, 1, h, w)
+        # (b, t, 1, h, w)
+        image_ref = sens_reduce(masked_kspace, sens_maps, coil_axis=self.coil_axis)
         dc_kernel = None
         if self.kernel_dc and is_line_mask(mask):
             dc_kernel, sens_maps = batched_kernel_and_maps(mask, sens_maps, masked_kspace.shape[0])

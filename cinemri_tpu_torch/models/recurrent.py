@@ -31,13 +31,18 @@ ported (ROADMAP Queue 1, item 14). The packed trunk is exact with the same
 parameters, so the dense one here computes the JAX package's packed
 models too.
 
+``coil_axis`` splits the coils over a dim of the ambient mesh, as in
+``models/varnet.py``: the sens net and XPDNet's k-space nets run on this
+rank's coils, every coil sum is all-reduced, and the trunk and λ, computed
+whole on every rank, are replicated. The CRNN models have no plane batches.
+
 I/O: ``masked_kspace (b, t, c, h, w)`` Complex, ``mask (b, t|1, 1, h, 1)``
 (CineNet also ``sens_maps (b, 1, c, h, w)``) -> magnitude ``(b, t, h, w)``.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -56,6 +61,7 @@ from cinemri_tpu_torch.ops.cplx import (
     from_multi_channels,
     to_multi_channels,
 )
+from cinemri_tpu_torch.parallel.mesh import partial_by_prefix
 from cinemri_tpu_torch.physics.cg import conj_grad
 from cinemri_tpu_torch.physics.operators import (
     apply_mask,
@@ -147,6 +153,7 @@ class VarNetRNN(nn.Module):
         trunk_block: tuple = (),
         remat: bool = True,
         remat_policy: str = "",
+        coil_axis: str = "",
     ):
         super().__init__()
         _check_unported(packed, trunk_block)
@@ -155,29 +162,37 @@ class VarNetRNN(nn.Module):
         self.chans = chans
         self.kernel_dc = kernel_dc
         self.remat = remat
-        self.sens_net = SensitivityModel(sens_chans, sens_pools)
+        self.coil_axis = coil_axis
+        self.sens_net = SensitivityModel(sens_chans, sens_pools, coil_axis=coil_axis)
         self.trunk = CRNNTrunk(chans)
         self.lambda_reg = nn.Parameter(torch.tensor(LAMBDA_INIT))
+
+    def partial_parameters(self) -> Dict[str, Tuple[str, ...]]:
+        """The sens net's gradient is partial on the coil axis."""
+        return partial_by_prefix(self, {"sens_net.": self.coil_axis})
 
     def _iteration(self, x: Complex, hiddens: Hiddens, ref: Complex, mask: torch.Tensor,
                    sens_maps: Complex, dc_kernel, rss0):
         out, hiddens = _trunk_image(self.trunk, x, hiddens)
         out = out[:, :, None]  # (b, t, 1, h, w)
         v = F.softplus(self.lambda_reg)
+        coil = self.coil_axis
         if dc_kernel is None:  # ref is the k-space reference
-            dc = soft_dc(sens_expand(out, sens_maps), ref, mask, v)
-            return sens_reduce(dc, sens_maps)[:, :, 0], hiddens
+            dc = soft_dc(sens_expand(out, sens_maps, coil), ref, mask, v)
+            return sens_reduce(dc, sens_maps, coil_axis=coil)[:, :, 0], hiddens
         # ref is the zero-filled image: no DFT per iteration
-        return soft_dc_image_kernel(out, ref, dc_kernel, sens_maps, v, rss_sq=rss0)[:, :, 0], hiddens
+        out = soft_dc_image_kernel(out, ref, dc_kernel, sens_maps, v, rss_sq=rss0, coil_axis=coil)
+        return out[:, :, 0], hiddens
 
     def forward(self, masked_kspace: Complex, mask: torch.Tensor) -> torch.Tensor:
+        coil = self.coil_axis
         sens_maps = self.sens_net(masked_kspace, mask)
-        x_ref = sens_reduce(masked_kspace, sens_maps)  # (b, t, 1, h, w)
+        x_ref = sens_reduce(masked_kspace, sens_maps, coil_axis=coil)  # (b, t, 1, h, w)
         x = x_ref[:, :, 0]
         b, t, h, w = x.shape
         hiddens = _zero_hiddens(x.re, t, b, h, w, self.chans)
         if self.kernel_dc and is_line_mask(mask):
-            dc_kernel, rss0, ref = masked_normal_kernel(mask), coil_weight(sens_maps), x_ref
+            dc_kernel, rss0, ref = masked_normal_kernel(mask), coil_weight(sens_maps, coil), x_ref
         else:
             dc_kernel, rss0, ref = None, None, masked_kspace
         for _ in range(self.num_cascades):
@@ -201,6 +216,7 @@ class CineNetRNN(nn.Module):
         trunk_block: tuple = (),
         remat: bool = True,
         remat_policy: str = "",
+        coil_axis: str = "",
     ):
         super().__init__()
         _check_unported(packed, trunk_block)
@@ -210,8 +226,13 @@ class CineNetRNN(nn.Module):
         self.chans = chans
         self.kernel_dc = kernel_dc
         self.remat = remat
+        self.coil_axis = coil_axis
         self.trunk = CRNNTrunk(chans)
         self.lambda_reg = nn.Parameter(torch.tensor(LAMBDA_INIT))
+
+    def partial_parameters(self) -> Dict[str, Tuple[str, ...]]:
+        """Every rank computes every gradient whole."""
+        return partial_by_prefix(self, {})
 
     def _iteration(self, x: Complex, hiddens: Hiddens, x_ref: Complex, mask: torch.Tensor,
                    sens_maps: Complex, dc_kernel):
@@ -221,15 +242,15 @@ class CineNetRNN(nn.Module):
         rhs = x_ref + v * out
         if dc_kernel is None:
             def op(z):
-                return normal_plus_lambda(z, mask, sens_maps, v)
+                return normal_plus_lambda(z, mask, sens_maps, v, self.coil_axis)
         else:
             def op(z):
-                return normal_plus_lambda_kernel(z, dc_kernel, sens_maps, v)
+                return normal_plus_lambda_kernel(z, dc_kernel, sens_maps, v, self.coil_axis)
         return conj_grad(op, rhs, out, self.cg_iters)[:, :, 0], hiddens
 
     def forward(self, masked_kspace: Complex, mask: torch.Tensor,
                 sens_maps: Complex) -> torch.Tensor:
-        x_ref = sens_reduce(masked_kspace, sens_maps)  # (b, t, 1, h, w)
+        x_ref = sens_reduce(masked_kspace, sens_maps, coil_axis=self.coil_axis)  # (b, t, 1, h, w)
         x = x_ref[:, :, 0]
         b, t, h, w = x.shape
         hiddens = _zero_hiddens(x.re, t, b, h, w, self.chans)
@@ -264,6 +285,7 @@ class XPDNetRNN(nn.Module):
         trunk_block: tuple = (),
         remat: bool = True,
         remat_policy: str = "",
+        coil_axis: str = "",
     ):
         super().__init__()
         _check_unported(packed, trunk_block)
@@ -275,11 +297,19 @@ class XPDNetRNN(nn.Module):
         self.n_dual = n_dual
         self.kernel_dc = kernel_dc
         self.remat = remat
-        self.sens_net = XPDNetSensitivityModel(sens_chans, sens_pools)
+        self.coil_axis = coil_axis
+        self.sens_net = XPDNetSensitivityModel(sens_chans, sens_pools, coil_axis=coil_axis)
         self.trunk = CRNNTrunk(chans, in_ch=2 * (n_primal + 1), out_ch=2 * n_primal)
         if not primal_only:
             self.kspace_nets = nn.ModuleList(
                 KSpaceCNN(2 * (n_dual + 2), 2 * n_dual) for _ in range(num_cascades))
+
+    def partial_parameters(self) -> Dict[str, Tuple[str, ...]]:
+        """Partial on the coil axis: the sens net and, without
+        ``primal_only``, the k-space nets (each rank runs them on its
+        coils); the CRNN trunk's is whole on every rank."""
+        return partial_by_prefix(self, {"sens_net.": self.coil_axis,
+                                        "kspace_nets.": self.coil_axis})
 
     def _head(self, buf: torch.Tensor) -> Complex:
         """Complex slot 0 of the buffer ``(t, b, 2n, h, w)``: ``(b, t, 1, h, w)``,
@@ -294,19 +324,22 @@ class XPDNetRNN(nn.Module):
         """One k-step, the backward operator and the CRNN correction of the
         buffer; returns ``(buf, kspace_buffer, hiddens)``."""
         n = self.n_primal
+        coil = self.coil_axis
         head = self._head(buf)
         if dc_kernel is not None:
             # measurement-residual k-step and backward operator collapsed:
             # Sᴴ F⁻¹ M (F S head − k_ref) = N(head) − x_ref
-            bwd = (normal_plus_lambda_kernel(head, dc_kernel, sens_maps, 0.0) - x_ref)[:, :, 0]
+            bwd = normal_plus_lambda_kernel(head, dc_kernel, sens_maps, 0.0, coil)
+            bwd = (bwd - x_ref)[:, :, 0]
         else:
-            fwd = apply_mask(sens_expand(head, sens_maps), mask)  # (b, t, c, h, w)
+            fwd = apply_mask(sens_expand(head, sens_maps, coil), mask)  # (b, t, c, h, w)
             if kspace_net is not None:
                 cat = concat([kspace_buffer, fwd[..., None], ref_kspace[..., None]], axis=-1)
                 kspace_buffer = from_multi_channels(kspace_net(to_multi_channels(cat)))
             else:
                 kspace_buffer = (fwd - ref_kspace)[..., None]
-            bwd = sens_reduce(apply_mask(kspace_buffer[..., 0], mask), sens_maps)[:, :, 0]
+            bwd = sens_reduce(apply_mask(kspace_buffer[..., 0], mask), sens_maps,
+                              coil_axis=coil)[:, :, 0]
         t, b, _, h, w = buf.shape
         tb = lambda a: a.transpose(0, 1)[:, :, None]  # (b, t, h, w) -> (t, b, 1, h, w)
         x_in = torch.cat([buf[:, :, :n], tb(bwd.re), buf[:, :, n:], tb(bwd.im)], dim=2)
@@ -315,7 +348,8 @@ class XPDNetRNN(nn.Module):
 
     def forward(self, masked_kspace: Complex, mask: torch.Tensor) -> torch.Tensor:
         sens_maps = self.sens_net(masked_kspace, mask)
-        x_ref = sens_reduce(apply_mask(masked_kspace, mask), sens_maps)  # (b, t, 1, h, w)
+        # (b, t, 1, h, w)
+        x_ref = sens_reduce(apply_mask(masked_kspace, mask), sens_maps, coil_axis=self.coil_axis)
         b, t, _, h, w = x_ref.shape
         n = self.n_primal
         # every slot starts at the zero-filled image: n real channels, n imaginary

@@ -14,6 +14,15 @@ and (h, t) planes; 2D, a NormUnet per frame (frames folded into the
 batch); 3D, a NormUnet3D over ``(t, h, w)``. With ``remat`` (the default, as in the JAX package) each
 cascade is checkpointed when autograd records (``models/remat.py``).
 
+On a mesh (``parallel.set_mesh``), ``plane_axis`` splits the XT / XF
+plane batches over that dim: each rank runs the plane nets on its share of
+the ``b·h`` and ``b·w`` planes and the outputs are gathered
+(``parallel.autograd.split_rows``). ``coil_axis`` splits the coils: the
+k-space (and so the maps) hold this rank's coils, the sens net runs on them,
+and every coil sum is all-reduced over the coil group
+(``physics/operators.py``). :meth:`VarNet.partial_parameters` names the
+weights whose gradient each rank of an axis computes only a part of.
+
 I/O: ``masked_kspace (b, t, c, h, w)`` Complex, ``mask (b, t|1, 1, h, 1)``
 float32 -> magnitude image ``(b, t, h, w)`` float32.
 """
@@ -21,6 +30,7 @@ float32 -> magnitude image ``(b, t, h, w)`` float32.
 from __future__ import annotations
 
 import math
+from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -31,8 +41,11 @@ from cinemri_tpu_torch.models.remat import call_remat, check_remat_policy
 from cinemri_tpu_torch.ops.coil import rss_complex
 from cinemri_tpu_torch.ops.cplx import Complex, cmean
 from cinemri_tpu_torch.ops.fft import fft1c, ifft1c, ifft2c
+from cinemri_tpu_torch.parallel.autograd import split_rows
+from cinemri_tpu_torch.parallel.mesh import mesh_axis, partial_by_prefix
 from cinemri_tpu_torch.physics.lowfreq import low_frequency_kspace
 from cinemri_tpu_torch.physics.operators import (
+    coil_copy,
     coil_weight,
     is_line_mask,
     masked_normal_kernel,
@@ -53,17 +66,19 @@ DYNAMIC_TYPES = ("2D", "3D", "XT", "XF")
 class SensitivityModel(nn.Module):
     """Learned coil sensitivities: IFFT of the center-band-masked,
     time-averaged k-space, a per-coil NormUnet (coils folded into the
-    batch), then RSS normalization. Output ``(b, 1, c, h, w)``."""
+    batch), then RSS normalization. Output ``(b, 1, c, h, w)``; on a
+    ``coil_axis``, of this rank's coils, normalized by the RSS of all."""
 
-    def __init__(self, chans: int, num_pools: int, packed: bool = False):
+    def __init__(self, chans: int, num_pools: int, packed: bool = False, coil_axis: str = ""):
         super().__init__()
+        self.coil_axis = coil_axis
         self.norm_unet = NormUnet(chans, num_pools, packed=packed)
 
     def forward(self, masked_kspace: Complex, mask: torch.Tensor) -> Complex:
         x = ifft2c(low_frequency_kspace(masked_kspace, mask))  # (b, c, h, w), a band per sample
         b, c, h, w = x.shape
         x = self.norm_unet(x.reshape(b * c, h, w)).reshape(b, c, h, w)
-        x = x / rss_complex(x, axis=1)[:, None]
+        x = x / coil_copy(rss_complex(x, axis=1, coil_axis=self.coil_axis), self.coil_axis)[:, None]
         return x[:, None]
 
 
@@ -71,12 +86,15 @@ class VarNetCascade(nn.Module):
     """One unrolled block; a single instance serves every cascade."""
 
     def __init__(self, chans: int, pools: int, dynamic_type: str = "XF",
-                 weight_sharing: bool = False, packed: bool = False):
+                 weight_sharing: bool = False, packed: bool = False, plane_axis: str = "",
+                 coil_axis: str = ""):
         super().__init__()
         if dynamic_type not in DYNAMIC_TYPES:
             raise ValueError(f"unknown dynamic_type {dynamic_type!r}")
         self.dynamic_type = dynamic_type
         self.weight_sharing = weight_sharing
+        self.plane_axis = plane_axis
+        self.coil_axis = coil_axis
         if dynamic_type in ("2D", "3D"):
             self.net = (NormUnet if dynamic_type == "2D" else NormUnet3D)(chans, pools, packed=packed)
         elif weight_sharing:
@@ -87,8 +105,8 @@ class VarNetCascade(nn.Module):
 
     def _xfyf(self, x: Complex) -> Complex:
         """Rotated-plane regularization: temporal-mean subtraction, temporal
-        FFT (XF only), NormUnets over the (w, t) and (h, t) plane batches,
-        average, inverse FFT, mean restored."""
+        FFT (XF only), NormUnets over the (w, t) and (h, t) plane batches
+        (split over ``plane_axis``), average, inverse FFT, mean restored."""
         b, t, h, w = x.shape
         mean = cmean(x, axis=1, keepdims=True)
         x = x - mean
@@ -98,8 +116,9 @@ class VarNetCascade(nn.Module):
         yf = x.transpose(0, 3, 2, 1).reshape(b * w, h, t)
         net_xf = self.plane_net if self.weight_sharing else self.net_xf
         net_yf = self.plane_net if self.weight_sharing else self.net_yf
-        xf = net_xf(xf).reshape(b, h, w, t).transpose(0, 3, 1, 2)
-        yf = net_yf(yf).reshape(b, w, h, t).transpose(0, 3, 2, 1)
+        ax = mesh_axis(self.plane_axis)
+        xf = split_rows(net_xf, ax, xf).reshape(b, h, w, t).transpose(0, 3, 1, 2)
+        yf = split_rows(net_yf, ax, yf).reshape(b, w, h, t).transpose(0, 3, 2, 1)
         out = 0.5 * (xf + yf)
         if self.dynamic_type == "XF":
             out = ifft1c(out, axis=1)
@@ -108,8 +127,9 @@ class VarNetCascade(nn.Module):
     def forward(self, carry: Complex, lam: torch.Tensor, ref: Complex,
                 mask: torch.Tensor, sens_maps: Complex, dc_kernel, rss0=None) -> Complex:
         # direct form: carry/ref are k-space; kernel form: the combined image
+        coil = self.coil_axis
         if dc_kernel is None:
-            image = sens_reduce(carry, sens_maps)[:, :, 0]  # (b, t, h, w)
+            image = sens_reduce(carry, sens_maps, coil_axis=coil)[:, :, 0]  # (b, t, h, w)
         else:
             image = carry[:, :, 0]
         b, t, h, w = image.shape
@@ -122,8 +142,9 @@ class VarNetCascade(nn.Module):
         model_out = model_out[:, :, None]
         v = F.softplus(lam)
         if dc_kernel is None:
-            return soft_dc(sens_expand(model_out, sens_maps), ref, mask, v)
-        return soft_dc_image_kernel(model_out, ref, dc_kernel, sens_maps, v, rss_sq=rss0)
+            return soft_dc(sens_expand(model_out, sens_maps, coil), ref, mask, v)
+        return soft_dc_image_kernel(model_out, ref, dc_kernel, sens_maps, v, rss_sq=rss0,
+                                    coil_axis=coil)
 
 
 class VarNet(nn.Module):
@@ -142,6 +163,8 @@ class VarNet(nn.Module):
         kernel_dc: bool = True,
         remat: bool = True,
         remat_policy: str = "",
+        plane_axis: str = "",
+        coil_axis: str = "",
     ):
         super().__init__()
         if dynamic_type not in DYNAMIC_TYPES:
@@ -152,16 +175,28 @@ class VarNet(nn.Module):
         self.num_cascades = num_cascades
         self.kernel_dc = kernel_dc
         self.remat = remat
-        self.sens_net = SensitivityModel(sens_chans, sens_pools, packed=packed)
-        self.cascades = VarNetCascade(chans, pools, dynamic_type, weight_sharing, packed)
+        self.plane_axis = plane_axis
+        self.coil_axis = coil_axis
+        self.sens_net = SensitivityModel(sens_chans, sens_pools, packed=packed, coil_axis=coil_axis)
+        self.cascades = VarNetCascade(chans, pools, dynamic_type, weight_sharing, packed,
+                                      plane_axis, coil_axis)
         self.lambda_reg = nn.Parameter(torch.full((num_cascades,), LAMBDA_INIT))
 
+    def partial_parameters(self) -> Dict[str, Tuple[str, ...]]:
+        """Each weight's mesh axes whose ranks each compute a part of its
+        gradient: the sens net's on the coil axis (each rank runs it on its
+        coils), the plane nets' on the plane axis; every rank computes λ's
+        whole."""
+        return partial_by_prefix(self, {"sens_net.": self.coil_axis,
+                                        "cascades.": self.plane_axis})
+
     def forward(self, masked_kspace: Complex, mask: torch.Tensor) -> torch.Tensor:
+        coil = self.coil_axis
         sens_maps = self.sens_net(masked_kspace, mask)
         if self.kernel_dc and is_line_mask(mask):
             dc_kernel = masked_normal_kernel(mask)
-            rss0 = coil_weight(sens_maps)
-            x_ref = sens_reduce(masked_kspace, sens_maps)  # (b, t, 1, h, w)
+            rss0 = coil_weight(sens_maps, coil)
+            x_ref = sens_reduce(masked_kspace, sens_maps, coil_axis=coil)  # (b, t, 1, h, w)
             carry, ref = x_ref, x_ref
         else:
             dc_kernel, rss0, carry, ref = None, None, masked_kspace, masked_kspace
@@ -170,4 +205,4 @@ class VarNet(nn.Module):
                                mask, sens_maps, dc_kernel, rss0)
         if dc_kernel is not None:
             return carry[:, :, 0].abs()  # carry is sens_reduce(k_pred)
-        return sens_reduce(carry, sens_maps, keepdims=False).abs()
+        return sens_reduce(carry, sens_maps, keepdims=False, coil_axis=coil).abs()

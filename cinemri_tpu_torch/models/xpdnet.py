@@ -35,13 +35,17 @@ form runs ``sens_expand`` / ``sens_reduce`` (four DFTs per cascade). With
 de-normalizes its output (``None`` resolves to the ``bf16`` setting in the
 JAX package; bf16 is not ported, so here ``None`` means off).
 
+``plane_axis`` and ``coil_axis`` split the plane batches and the coils over
+dims of the ambient mesh, as in ``models/varnet.py``; on a coil axis the
+k-space buffer and a :class:`KSpaceCNN` (per coil) run on this rank's coils.
+
 I/O: ``masked_kspace (b, t, c, h, w)`` Complex, ``mask (b, t|1, 1, h, 1)``
 -> magnitude ``(b, t, h, w)`` float32.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -64,9 +68,12 @@ from cinemri_tpu_torch.ops.cplx import (
 )
 from cinemri_tpu_torch.ops.fft import fft1c_alt, ifft1c, ifft2c
 from cinemri_tpu_torch.ops.pad import pad_for_mwcnn, unpad_from_mwcnn
+from cinemri_tpu_torch.parallel.autograd import split_rows
+from cinemri_tpu_torch.parallel.mesh import mesh_axis, partial_by_prefix
 from cinemri_tpu_torch.physics.lowfreq import low_frequency_kspace
 from cinemri_tpu_torch.physics.operators import (
     apply_mask,
+    coil_copy,
     is_line_mask,
     masked_normal_kernel,
     normal_plus_lambda_kernel,
@@ -82,11 +89,14 @@ DYNAMIC_TYPES = ("2D", "XT", "XF")
 class XPDNetSensitivityModel(nn.Module):
     """XPDNet's sensitivity net: the IFFT of the center-band-masked,
     time-averaged k-space, a plain U-Net per coil (no normalizing wrapper,
-    with a residual), then RSS normalization. Output ``(b, 1, c, h, w)``."""
+    with a residual), then RSS normalization. Output ``(b, 1, c, h, w)``;
+    on a ``coil_axis``, of this rank's coils, normalized by the RSS of all."""
 
-    def __init__(self, chans: int, num_pools: int, res_connection: bool = True):
+    def __init__(self, chans: int, num_pools: int, res_connection: bool = True,
+                 coil_axis: str = ""):
         super().__init__()
         self.res_connection = res_connection
+        self.coil_axis = coil_axis
         self.unet = Unet(chans=chans, num_pool_layers=num_pools)
 
     def forward(self, masked_kspace: Complex, mask: torch.Tensor) -> Complex:
@@ -97,7 +107,7 @@ class XPDNetSensitivityModel(nn.Module):
         if self.res_connection:
             out = out + r
         x = from_channels(out, axis=1).reshape(b, c, h, w)
-        x = x / rss_complex(x, axis=1)[:, None]
+        x = x / coil_copy(rss_complex(x, axis=1, coil_axis=self.coil_axis), self.coil_axis)[:, None]
         return x[:, None]
 
 
@@ -119,11 +129,15 @@ class XPDNetBlock(nn.Module):
         weight_sharing: bool = False,
         packed: bool = False,
         norm_buffers: bool = False,
+        plane_axis: str = "",
+        coil_axis: str = "",
     ):
         super().__init__()
         if dynamic_type not in DYNAMIC_TYPES:
             raise ValueError(f"dynamic_type {dynamic_type!r} unsupported for XPDNet "
                              f"(one of {DYNAMIC_TYPES}; 3D is excluded by the reference)")
+        self.plane_axis = plane_axis
+        self.coil_axis = coil_axis
         self.n_scales = n_scales
         self.primal_only = primal_only
         self.n_primal = n_primal
@@ -158,7 +172,7 @@ class XPDNetBlock(nn.Module):
     def _k_step(self, image_buffer, kspace_buffer, ref_kspace, mask, sens_maps):
         """The k-space correction in its direct form: ``(b, t, c, h, w, n)``."""
         head = image_buffer[..., 0][:, :, None]  # (b, t, 1, h, w)
-        fwd = apply_mask(sens_expand(head, sens_maps), mask)  # (b, t, c, h, w)
+        fwd = apply_mask(sens_expand(head, sens_maps, self.coil_axis), mask)  # (b, t, c, h, w)
         if not self.primal_only:
             cat = concat([kspace_buffer, fwd[..., None], ref_kspace[..., None]], axis=-1)
             return from_multi_channels(self.kspace_net(to_multi_channels(cat)))
@@ -178,8 +192,11 @@ class XPDNetBlock(nn.Module):
         yf = to_multi_channels(x.transpose(0, 3, 4, 2, 1), axis=2).reshape(b * w, 2 * ch, h, t)
         net_xf, net_yf = ((self.image_net, self.image_net) if hasattr(self, "image_net")
                           else (self.image_net_xf, self.image_net_yf))
-        xf = from_multi_channels(self._apply_net(xf, net_xf).reshape(b, h, 2 * n, w, t), axis=2)
-        yf = from_multi_channels(self._apply_net(yf, net_yf).reshape(b, w, 2 * n, h, t), axis=2)
+        ax = mesh_axis(self.plane_axis)
+        xf = split_rows(lambda p: self._apply_net(p, net_xf), ax, xf)
+        yf = split_rows(lambda p: self._apply_net(p, net_yf), ax, yf)
+        xf = from_multi_channels(xf.reshape(b, h, 2 * n, w, t), axis=2)
+        yf = from_multi_channels(yf.reshape(b, w, 2 * n, h, t), axis=2)
         out = 0.5 * (xf.transpose(0, 4, 1, 3, 2) + yf.transpose(0, 4, 3, 1, 2))
         if self.dynamic_type == "XF":
             out = ifft1c(out, axis=1)  # the standard inverse, as the reference
@@ -202,10 +219,12 @@ class XPDNetBlock(nn.Module):
             # measurement-residual k-step and backward operator collapsed:
             # Sᴴ F⁻¹ M (F S head − k_ref) = N(head) − x_ref
             head = image_buffer[..., 0][:, :, None]
-            bwd = (normal_plus_lambda_kernel(head, dc_kernel, sens_maps, 0.0) - x_ref)[:, :, 0]
+            bwd = normal_plus_lambda_kernel(head, dc_kernel, sens_maps, 0.0, self.coil_axis)
+            bwd = (bwd - x_ref)[:, :, 0]
         else:
             kspace_buffer = self._k_step(image_buffer, kspace_buffer, ref_kspace, mask, sens_maps)
-            bwd = sens_reduce(apply_mask(kspace_buffer[..., 0], mask), sens_maps)[:, :, 0]
+            bwd = sens_reduce(apply_mask(kspace_buffer[..., 0], mask), sens_maps,
+                              coil_axis=self.coil_axis)[:, :, 0]
         return self._i_step(image_buffer, bwd), kspace_buffer
 
 
@@ -233,6 +252,8 @@ class XPDNet(nn.Module):
         norm_buffers: Optional[bool] = None,
         remat: bool = True,
         remat_policy: str = "",
+        plane_axis: str = "",
+        coil_axis: str = "",
     ):
         super().__init__()
         if dynamic_type not in DYNAMIC_TYPES:
@@ -244,16 +265,27 @@ class XPDNet(nn.Module):
         self.primal_only = primal_only
         self.kernel_dc = kernel_dc
         self.remat = remat
-        self.sens_net = XPDNetSensitivityModel(sens_chans, sens_pools)
+        self.plane_axis = plane_axis
+        self.coil_axis = coil_axis
+        self.sens_net = XPDNetSensitivityModel(sens_chans, sens_pools, coil_axis=coil_axis)
         self.cascades = nn.ModuleList(
             XPDNetBlock(n_scales, n_filters_per_scale, n_convs_per_scale, n_first_convs,
                         first_conv_n_filters, res, primal_only, n_primal, n_dual, dynamic_type,
-                        weight_sharing, packed, bool(norm_buffers))
+                        weight_sharing, packed, bool(norm_buffers), plane_axis, coil_axis)
             for _ in range(num_cascades))
+
+    def partial_parameters(self) -> Dict[str, Tuple[str, ...]]:
+        """Partial on the coil axis: the sens net and the k-space nets (each
+        rank runs them on its coils); on the plane axis: the image nets."""
+        rules = {"sens_net.": self.coil_axis}
+        for i in range(len(self.cascades)):
+            rules.update({f"cascades.{i}.image_net": self.plane_axis,
+                          f"cascades.{i}.kspace_net.": self.coil_axis})
+        return partial_by_prefix(self, rules)
 
     def forward(self, masked_kspace: Complex, mask: torch.Tensor) -> torch.Tensor:
         sens_maps = self.sens_net(masked_kspace, mask)
-        x_ref = sens_reduce(masked_kspace, sens_maps)  # (b, t, 1, h, w)
+        x_ref = sens_reduce(masked_kspace, sens_maps, coil_axis=self.coil_axis)  # (b, t, 1, h, w)
         image_buffer = crepeat(x_ref[:, :, 0][..., None], self.n_primal, axis=-1)
         if self.kernel_dc and self.primal_only and is_line_mask(mask):
             dc_kernel, kspace_buffer = masked_normal_kernel(mask), None  # the k buffer is dead

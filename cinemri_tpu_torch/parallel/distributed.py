@@ -23,8 +23,10 @@ count it in :data:`COLLECTIVES` (calls) and :data:`COLLECTIVE_BYTES` by
 kind, as the kernel wrappers count their launches: ``"grad"`` (the train
 step's one gradient all-reduce), ``"scalar"`` (the step's and the loop's
 scalar all-reduces), ``"metric"`` (:func:`make_process_sum`),
-``"broadcast"``, ``"barrier"`` and ``"object"``. Reset them with
-``.clear()``.
+``"broadcast"``, ``"barrier"``, ``"object"``, and the model's own
+collectives on the mesh axes (``parallel/autograd.py``): ``"coil"`` (the
+coil sums and their backward) and ``"plane"`` (the plane batches' gathers
+and their backward). Reset them with ``.clear()``.
 """
 
 from __future__ import annotations
@@ -45,6 +47,7 @@ __all__ = [
     "make_process_sum",
     "local_device",
     "all_reduce_sum",
+    "all_gather",
     "broadcast_tensors",
     "barrier",
     "all_gather_object",
@@ -158,6 +161,16 @@ def all_reduce_sum(tensor: torch.Tensor, kind: str, group=None) -> torch.Tensor:
     return tensor
 
 
+def all_gather(tensor: torch.Tensor, kind: str, group=None) -> List[torch.Tensor]:
+    """Every rank's ``tensor`` of ``group`` (default: all ranks), in the
+    group's rank order; all must have one shape."""
+    n = dist.get_world_size(group)
+    _count(kind, tensor.numel() * tensor.element_size() * n)
+    out = [torch.empty_like(tensor) for _ in range(n)]
+    dist.all_gather(out, tensor.contiguous(), group=group)
+    return out
+
+
 def broadcast_tensors(tensors: Sequence[torch.Tensor], src: int = 0) -> None:
     """Overwrite ``tensors`` (one dtype, one device) with rank ``src``'s, as
     one flat broadcast; nothing at one process."""
@@ -196,14 +209,19 @@ def all_gather_object(obj) -> List:
     return out
 
 
-def make_process_sum() -> Callable[[float], float]:
-    """Scalar all-reduce-sum across processes (identity on one process)."""
-    if process_info()[1] == 1:
+def make_process_sum(mesh=None) -> Callable[[float], float]:
+    """Scalar all-reduce-sum across processes (identity on one process).
+    With a ``mesh``, the sum runs over its ``data`` group only (none for a
+    mesh without that dim): the ranks that differ in their ``plane`` and
+    ``coil`` coordinates hold the same volumes, so each volume is counted
+    once."""
+    if process_info()[1] == 1 or (mesh is not None and "data" not in mesh.mesh_dim_names):
         return lambda x: float(x)
     device = _collective_device()
+    group = None if mesh is None else mesh.get_group("data")
 
     def reduce_fn(x: float) -> float:
         t = torch.tensor([float(x)], dtype=torch.float64, device=device)
-        return float(all_reduce_sum(t, "metric").item())
+        return float(all_reduce_sum(t, "metric", group).item())
 
     return reduce_fn

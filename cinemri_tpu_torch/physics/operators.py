@@ -13,6 +13,17 @@ hand-written CUDA kernels (forward and backward) for CUDA tensors, their
 plain versions for CPU tensors. :func:`set_normal_backend` ``("torch")``
 sends CUDA tensors to the plain versions too, in both directions, as an
 explicit choice for comparison.
+
+``coil_axis`` (default ``""``, no axis) names the ``coil`` dim of the
+ambient mesh (``parallel.set_mesh``) over which the coils are split: k-space
+and maps then hold this rank's coils only, every coil sum
+(:func:`sens_reduce`, :func:`coil_weight`, the normal operator's ``Σ_c``)
+is all-reduced over the coil group, and a replicated image entering
+per-coil work (:func:`sens_expand`, the normal operator's ``x``) sums its
+gradient over the group (``parallel/autograd.py``). The JAX package pins the
+same layout with ``constrain_coil_axis`` and lets XLA place those
+all-reduces; its counterpart here is ``parallel.coil_shard``, which takes
+a rank's coils of a whole tensor.
 """
 
 from __future__ import annotations
@@ -22,6 +33,8 @@ import torch
 from cinemri_tpu_torch.ops.cplx import Complex, csum
 from cinemri_tpu_torch.ops.fft import _dft_tensors, fft2c, ifft2c
 from cinemri_tpu_torch.ops.kernels import normal_cuda
+from cinemri_tpu_torch.parallel.autograd import copy_to_group, reduce_from_group
+from cinemri_tpu_torch.parallel.mesh import mesh_axis
 from cinemri_tpu_torch.physics.cg import conj_grad
 
 __all__ = [
@@ -34,6 +47,8 @@ __all__ = [
     "masked_normal_kernel",
     "normal_plus_lambda_kernel",
     "coil_weight",
+    "coil_copy",
+    "coil_sum",
     "soft_dc_image_kernel",
     "set_normal_backend",
     "get_normal_backend",
@@ -67,15 +82,38 @@ def get_normal_backend() -> str:
     return _NORMAL_BACKEND
 
 
-def sens_expand(image: Complex, sens_maps: Complex) -> Complex:
+def coil_copy(x, coil_axis: str = ""):
+    """A replicated ``x`` (Complex or real) entering per-coil work: itself,
+    its gradient summed over the coil group."""
+    ax = mesh_axis(coil_axis)
+    if ax is None:
+        return x
+    if isinstance(x, Complex):
+        return Complex(*copy_to_group(ax, x.re, x.im))
+    return copy_to_group(ax, x)[0]
+
+
+def coil_sum(x, coil_axis: str = ""):
+    """A sum over this rank's coils (Complex or real) completed over the
+    coil group: one all-reduce."""
+    ax = mesh_axis(coil_axis)
+    if ax is None:
+        return x
+    if isinstance(x, Complex):
+        return Complex(*reduce_from_group(ax, x.re, x.im))
+    return reduce_from_group(ax, x)[0]
+
+
+def sens_expand(image: Complex, sens_maps: Complex, coil_axis: str = "") -> Complex:
     """Coil-combined image -> multi-coil k-space: ``F (S ⊙ x)``."""
-    return fft2c(image * sens_maps)
+    return fft2c(coil_copy(image, coil_axis) * sens_maps)
 
 
-def sens_reduce(kspace: Complex, sens_maps: Complex, keepdims: bool = True) -> Complex:
+def sens_reduce(kspace: Complex, sens_maps: Complex, keepdims: bool = True,
+                coil_axis: str = "") -> Complex:
     """Multi-coil k-space -> coil-combined image: ``Σ_c conj(S) ⊙ F⁻¹ k``."""
     image = ifft2c(kspace)
-    return csum(image * sens_maps.conj(), axis=COIL_AXIS, keepdims=keepdims)
+    return coil_sum(csum(image * sens_maps.conj(), axis=COIL_AXIS, keepdims=keepdims), coil_axis)
 
 
 def apply_mask(kspace: Complex, mask: torch.Tensor) -> Complex:
@@ -88,12 +126,13 @@ def soft_dc(model_term: Complex, ref_kspace: Complex, mask: torch.Tensor, v) -> 
     return (1 - mask) * model_term + mask * ((model_term + v * ref_kspace) / (1 + v))
 
 
-def normal_plus_lambda(x: Complex, mask: torch.Tensor, sens_maps: Complex, lam) -> Complex:
+def normal_plus_lambda(x: Complex, mask: torch.Tensor, sens_maps: Complex, lam,
+                       coil_axis: str = "") -> Complex:
     """``H(x) = Aᴴ M A x + λ x``, the CG system operator, in its direct form:
     ``sens_expand``, mask, ``sens_reduce`` (four DFTs per apply). CineNet
     runs it when ``kernel_dc`` is off or the mask is not a line mask."""
-    k = apply_mask(sens_expand(x, sens_maps), mask)
-    return sens_reduce(k, sens_maps, keepdims=True) + lam * x
+    k = apply_mask(sens_expand(x, sens_maps, coil_axis), mask)
+    return sens_reduce(k, sens_maps, keepdims=True, coil_axis=coil_axis) + lam * x
 
 
 def is_line_mask(mask: torch.Tensor) -> bool:
@@ -123,12 +162,13 @@ def masked_normal_kernel(mask: torch.Tensor, norm: str = "ortho") -> Complex:
     return Complex(wir @ ar - wii @ ai, wir @ ai + wii @ ar)
 
 
-def coil_weight(sens_maps: Complex) -> torch.Tensor:
+def coil_weight(sens_maps: Complex, coil_axis: str = "") -> torch.Tensor:
     """``R0 = Σ_c |S_c|²``, a real tensor (b, 1, 1, h, w)."""
-    return sens_maps.abs_sq().sum(dim=COIL_AXIS, keepdim=True)
+    return coil_sum(sens_maps.abs_sq().sum(dim=COIL_AXIS, keepdim=True), coil_axis)
 
 
-def normal_plus_lambda_kernel(x: Complex, kernel: Complex, sens_maps: Complex, lam) -> Complex:
+def normal_plus_lambda_kernel(x: Complex, kernel: Complex, sens_maps: Complex, lam,
+                              coil_axis: str = "") -> Complex:
     """``H(x) = Aᴴ M A x + λ x`` with a precomputed h-axis kernel.
 
     ``x (b, t, 1, h, w)``, ``kernel (b, t|1, h, h)`` from
@@ -146,7 +186,20 @@ def normal_plus_lambda_kernel(x: Complex, kernel: Complex, sens_maps: Complex, l
     the operator many times (CineNet's CG) expand them once beforehand.
     An ``x`` that is not contiguous (XPDNet's head, a slice of its buffer)
     is copied for the kernel, and counted in :data:`COPIES`.
+
+    On a ``coil_axis``, the kernel runs on this rank's coils with λ = 0, the
+    partial sums are all-reduced over the coil group, and ``λ·x`` is added
+    once after the reduction: λ's gradient is taken once, ``x``'s is summed
+    over the group, and the maps' stays on the rank that holds them.
     """
+    ax = mesh_axis(coil_axis)
+    if ax is None:
+        return _normal_apply(x, kernel, sens_maps, lam)
+    out = coil_sum(_normal_apply(coil_copy(x, coil_axis), kernel, sens_maps, 0.0), coil_axis)
+    return out if isinstance(lam, float) and lam == 0.0 else out + lam * x
+
+
+def _normal_apply(x: Complex, kernel: Complex, sens_maps: Complex, lam) -> Complex:
     global COPIES
     b = x.shape[0]
     batched = lambda a: a.expand(b, *a.shape[1:]).contiguous()  # no copy at batch b
@@ -169,7 +222,7 @@ def normal_plus_lambda_kernel(x: Complex, kernel: Complex, sens_maps: Complex, l
 
 def soft_dc_image_kernel(
     model_out: Complex, x_ref: Complex, kernel: Complex, sens_maps: Complex, v,
-    rss_sq: torch.Tensor | None = None,
+    rss_sq: torch.Tensor | None = None, coil_axis: str = "",
 ) -> Complex:
     """The VarNet cascade's k-space round trip collapsed into image space:
     ``R0 ⊙ z − α·N(z) + α·x_ref`` with ``α = v/(1+v)``.
@@ -178,9 +231,9 @@ def soft_dc_image_kernel(
     already multiplied by that mask.
     """
     if rss_sq is None:
-        rss_sq = coil_weight(sens_maps)
+        rss_sq = coil_weight(sens_maps, coil_axis)
     alpha = v / (1 + v)
-    n = normal_plus_lambda_kernel(model_out, kernel, sens_maps, 0.0)
+    n = normal_plus_lambda_kernel(model_out, kernel, sens_maps, 0.0, coil_axis)
     return model_out * rss_sq - alpha * n + alpha * x_ref
 
 

@@ -8,7 +8,10 @@ sensitivity maps (CineNet) gets them with the request, as ``(sens_re,
 sens_im)`` of shape ``(n, 1, c, h, w)``, the JAX artifact's extra two
 arguments. A batch of n volumes is reconstructed one volume at a time
 (:func:`serial_batch`), maps included, as the JAX package serves batches.
-Requests run under ``torch.inference_mode()``.
+Requests run under ``torch.inference_mode()``. A model with a ``coil_axis``
+takes the whole request and keeps this rank's coils of the k-space and maps
+(``parallel.coil_shard``), under the ambient mesh (``parallel.set_mesh``)
+that every rank of its coil group serves in.
 
 The ``torch.export`` artifact is not ported yet (ROADMAP Queue 1, item 14).
 """
@@ -23,6 +26,7 @@ from torch import nn
 
 from cinemri_tpu_torch import resolve_device
 from cinemri_tpu_torch.ops.cplx import Complex
+from cinemri_tpu_torch.parallel.mesh import coil_shard
 
 __all__ = ["serial_batch", "bind_model"]
 
@@ -66,10 +70,13 @@ def bind_model(
         model.load_state_dict(state_dict)
     model.eval()
 
+    coil_axis = getattr(model, "coil_axis", "")
+
     def unit(kre, kim, mask, *sens):
+        k = coil_shard(Complex(kre, kim), coil_axis)
         if sens:
-            return model(Complex(kre, kim), mask, Complex(*sens))
-        return model(Complex(kre, kim), mask)
+            return model(k, mask, coil_shard(Complex(*sens), coil_axis))
+        return model(k, mask)
 
     batched = serial_batch(unit)
 

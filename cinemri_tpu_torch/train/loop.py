@@ -8,20 +8,24 @@ and cine videos, best-checkpoint tracking on ``validation_loss``, resume,
 preemption, and the test-time SSIMs.csv artifact.
 
 Batches come from the Loader as numpy and cross to the device here
-(:meth:`Trainer._place_batch`). With a ``data`` mesh
+(:meth:`Trainer._place_batch`). With a mesh
 (:func:`~cinemri_tpu_torch.parallel.make_mesh`), each process trains on its
-loader's shard through the data-parallel step, and every place where ranks
-could diverge or wait on each other forever agrees first: the weights are
-broadcast from rank 0 after init and restore; each epoch takes as many
-steps on every rank as the longest shard holds (a shard that buckets into
-fewer batches adds zero-weight steps); a SIGTERM on any rank rides the
-step's scalar all-reduce, read a step late so one step stays queued, so
-every rank stops at the same step, and an evaluation pass (whose ranks may
-hold different batch counts) agrees once at its end; the metric reductions
-run in the same order on every rank; rank 0 alone writes checkpoints and
-TensorBoard logs. The ``plane`` and ``coil``
-axes (ROADMAP Queue 1, item 13b), ``profile_steps`` and ``debug_nans``
-(item 14, ``instrument/``) are not ported yet and raise.
+loader's shard (the shard of its ``data`` index) through the parallel step,
+and every place where ranks could diverge or wait on each other forever
+agrees first, over all ranks: the weights are broadcast from rank 0 after
+init and restore; each epoch takes as many steps on every rank as the
+longest shard holds (a shard that buckets into fewer batches adds
+zero-weight steps); a SIGTERM on any rank rides the step's scalar
+all-reduce, read a step late so one step stays queued, so every rank stops
+at the same step, and an evaluation pass (whose ranks may hold different
+batch counts) agrees once at its end; the metric reductions run in the same
+order on every rank; rank 0 alone writes checkpoints and TensorBoard logs.
+On ``plane`` and ``coil`` dims the ranks of a group hold the same volumes:
+the ``reduce_fn`` sums over the ``data`` group
+(``parallel.make_process_sum(mesh)``), and only the ranks at plane and coil
+index 0 write ``SSIMs.csv`` rows, so each volume counts once.
+``profile_steps`` and ``debug_nans`` (ROADMAP Queue 1, item 14,
+``instrument/``) are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -40,7 +44,7 @@ from cinemri_tpu_torch import resolve_device
 from cinemri_tpu_torch.models.init import lecun_normal_init, torch_style_init
 from cinemri_tpu_torch.ops.cplx import Complex
 from cinemri_tpu_torch.parallel import distributed as D
-from cinemri_tpu_torch.parallel.mesh import shard_batch
+from cinemri_tpu_torch.parallel.mesh import mesh_lead, shard_batch
 from cinemri_tpu_torch.train.checkpoint import CheckpointManager
 from cinemri_tpu_torch.train.device_cache import DeviceSampleCache, to_device
 from cinemri_tpu_torch.train.logging import TrainLogger
@@ -97,9 +101,11 @@ class TrainerConfig:
 class Trainer:
     """Fits, evaluates and checkpoints ``model`` on ``device`` (CUDA by
     default; raises without a CUDA device, pass ``device="cpu"`` for the
-    CPU). With a ``data`` ``mesh``, one process of a data-parallel run, on
+    CPU). With a ``mesh``, one process of a parallel run, on
     ``cuda:LOCAL_RANK`` by default; ``reduce_fn`` then sums host scalars
-    over the processes (``parallel.make_process_sum()``)."""
+    over the ``data`` group (``parallel.make_process_sum(mesh)``). A model
+    on a mesh with ``plane`` or ``coil`` dims names them (``plane_axis``,
+    ``coil_axis``)."""
 
     def __init__(
         self,
@@ -112,10 +118,6 @@ class Trainer:
         reduce_fn: Callable[[float], float] = lambda x: x,
         device=None,
     ):
-        if mesh is not None and tuple(mesh.mesh_dim_names) != ("data",):
-            raise NotImplementedError(
-                f"mesh dims {tuple(mesh.mesh_dim_names)}: the Trainer takes a 'data' mesh only "
-                "(ROADMAP Queue 1, item 13b: the plane and coil axes)")
         for name in ("profile_steps", "debug_nans"):
             if getattr(config, name):
                 raise NotImplementedError(
@@ -136,7 +138,8 @@ class Trainer:
             else None
         )
         self._train_step = make_train_step(mesh=mesh)
-        self._eval_step = make_eval_step()
+        self._eval_step = make_eval_step(mesh)
+        self._lead = mesh_lead(mesh)  # writes its data group's SSIMs.csv rows
         self.state = None
         self.rng: Optional[torch.Generator] = None
         self.history: List[Dict[str, float]] = []
@@ -373,7 +376,7 @@ class Trainer:
         the pass short (the caller saves and exits). On a mesh the ranks'
         shards may hold different batch counts, so the pass runs to its end
         on every rank and the ranks agree on a SIGTERM once, after it."""
-        agg = MetricsAggregator(self.reduce_fn, ssim_csv_path=ssim_csv)
+        agg = MetricsAggregator(self.reduce_fn, ssim_csv_path=ssim_csv if self._lead else None)
         cache = self._caches["eval"] if self._caches else None
         step = int(self.state.step)
         logged = 0
@@ -417,12 +420,12 @@ class Trainer:
         self._preempted = True
 
     def _agreed_stop(self) -> bool:
-        """Whether any rank has taken a SIGTERM: one scalar all-reduce on a
-        mesh, the local flag otherwise."""
+        """Whether any rank has taken a SIGTERM: one scalar all-reduce over
+        every rank on a mesh, the local flag otherwise."""
         if self.mesh is None:
             return self._preempted
         flag = torch.full((1,), float(self._preempted), device=self.device)
-        return bool(D.all_reduce_sum(flag, "scalar", self.mesh.get_group("data")).item() > 0)
+        return bool(D.all_reduce_sum(flag, "scalar").item() > 0)
 
     def _stop_before_step(self, stops: List[Callable]) -> bool:
         """Whether to save and exit before the next step: the local flag, or

@@ -19,10 +19,27 @@ update on every rank. Not ``DistributedDataParallel``: DDP averages
 gradients where the JAX step sums contributions over a global denominator
 (padded rows carry weight 0), and its bucket hooks interact with the remat
 replay (``models/remat.py``) and with parameters a call leaves unused.
+
+On a mesh with ``plane`` and ``coil`` dims beside ``data`` (or without
+``data``), the model splits its plane batches and coils over them
+(``plane_axis``, ``coil_axis``) and makes its own collectives in the forward
+and backward (``parallel/autograd.py``); every rank of a plane and coil
+group holds the same rows, and the step keeps two rules. A weight's
+gradient is summed over ``data`` and over each axis whose ranks computed a
+part of it (``model.partial_parameters()``: the plane nets on ``plane``,
+the sens nets on ``coil``), but counted once where every rank of an axis
+computed it whole (λ, the CRNN trunk, the plane nets on ``coil``): each
+gradient is scaled by 1 / (the number of ranks that hold it replicated)
+and the one flat buffer is all-reduced over the whole world, so every rank
+takes the same update and the weights stay bit-identical. And every rank
+agrees on the stop flag: the scalar all-reduces run over the whole world,
+with only the ranks at plane and coil index 0 contributing the weights and
+the loss, so each data shard counts once.
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Callable, Dict
 
@@ -34,6 +51,7 @@ from cinemri_tpu_torch.data.transforms import center_crop_to_smallest
 from cinemri_tpu_torch.ops.cplx import Complex
 from cinemri_tpu_torch.ops.ssim import ssim_loss
 from cinemri_tpu_torch.parallel.distributed import all_reduce_sum
+from cinemri_tpu_torch.parallel.mesh import mesh_lead, set_mesh
 from cinemri_tpu_torch.train.optim import Optimizer, make_optimizer
 
 __all__ = ["TrainState", "create_train_state", "make_train_step", "make_eval_step", "global_norm"]
@@ -93,11 +111,15 @@ def global_norm(tensors) -> torch.Tensor:
     return torch.sqrt(sum((t * t).sum() for t in tensors))
 
 
-def _all_reduce_grads(params, group) -> None:
+def _all_reduce_grads(params, scales, group=None) -> None:
     """THE one gradient all-reduce: every parameter in a fixed layout,
-    zeros where this call left a parameter unused."""
-    flat = torch.cat([(p.grad if p.grad is not None else torch.zeros_like(p)).reshape(-1)
-                      for p in params])
+    zeros where this call left a parameter unused, each gradient scaled by
+    its ``scales`` entry (1 / its replica count) first."""
+    parts = []
+    for p, s in zip(params, scales):
+        g = p.grad if p.grad is not None else torch.zeros_like(p)
+        parts.append((g if s == 1.0 else g * s).reshape(-1))
+    flat = torch.cat(parts)
     all_reduce_sum(flat, "grad", group)
     offset = 0
     for p in params:
@@ -106,46 +128,74 @@ def _all_reduce_grads(params, group) -> None:
         offset += p.numel()
 
 
+def _replica_scales(model: nn.Module, params, sizes: Dict[str, int]):
+    """Per parameter of ``params``, 1 / the number of ranks over the model
+    axes of the mesh (``sizes``, all dims but ``data``) that hold its
+    gradient replicated: the axes not in its ``partial_parameters()``
+    entry. The model must name every one of those axes and, where one has
+    more than one rank, say which of its weights are partial on it."""
+    split = {a: n for a, n in sizes.items() if n > 1}
+    named = set(filter(None, (getattr(model, "plane_axis", ""), getattr(model, "coil_axis", ""))))
+    missing = [a for a in split if a not in named]
+    if missing:
+        raise ValueError(
+            f"mesh dims {missing} are not axes of the model: build it with plane_axis / "
+            "coil_axis naming them (the batch's coils are split over 'coil' by shard_batch)")
+    if split and not hasattr(model, "partial_parameters"):
+        raise ValueError(
+            f"{type(model).__name__} has no partial_parameters(): on the mesh dims {list(split)} "
+            "the step cannot tell which of its gradients each rank holds only a part of")
+    partial = model.partial_parameters() if split else {}
+    by_id = {id(p): partial.get(n, ()) for n, p in model.named_parameters()}
+    return [1.0 / math.prod(n for a, n in split.items() if a not in by_id.get(id(p), ()))
+            for p in params]
+
+
 def make_train_step(mesh=None, data_axis: str = "data") -> Callable:
     """``(state, batch, stop=False) -> (state, aux)`` with aux ``loss``,
     ``output`` and ``target`` (both cropped) and ``grad_norm``, the global
     L2 norm of the gradients before any clip. Without a mesh ``stop`` is
     unused and the step makes no collective.
 
-    With a ``mesh`` whose only dim is ``data_axis``, the data-parallel step:
-    ``batch`` holds this rank's rows, ``loss`` and ``grad_norm`` are the
-    global batch's (the same on every rank), ``output`` and ``target`` this
-    rank's rows, and aux ``stop`` (a device bool) is true on every rank when
-    any rank passed ``stop=True``: the flag rides the step's scalar
-    all-reduce, so the ranks agree on a preemption without another
-    collective. Per step: one gradient all-reduce of Σ numel × 4 bytes and
-    two scalar all-reduces (``parallel.distributed.COLLECTIVES``)."""
-    group = None
-    if mesh is not None:
-        if tuple(mesh.mesh_dim_names) != (data_axis,):
-            raise NotImplementedError(
-                f"mesh dims {tuple(mesh.mesh_dim_names)}: only a {data_axis!r} mesh is ported "
-                "(ROADMAP Queue 1, item 13b: the plane and coil axes)")
-        group = mesh.get_group(data_axis)
+    With a ``mesh`` (:func:`~cinemri_tpu_torch.parallel.make_mesh`), the
+    parallel step, run under :func:`~cinemri_tpu_torch.parallel.set_mesh`:
+    ``batch`` holds this rank's rows (and coils, on a ``coil`` dim),
+    ``loss`` and ``grad_norm`` are the global batch's (the same on every
+    rank), ``output`` and ``target`` this rank's rows, and aux ``stop`` (a
+    device bool) is true on every rank when any rank passed ``stop=True``:
+    the flag rides the step's scalar all-reduce, so the ranks agree on a
+    preemption without another collective. Per step: one gradient
+    all-reduce of Σ numel × 4 bytes and two scalar all-reduces
+    (``parallel.distributed.COLLECTIVES``), plus the model's own ``plane``
+    and ``coil`` collectives (module docstring)."""
+    lead = mesh_lead(mesh, data_axis)
+    sizes = {} if mesh is None else {
+        n: k for n, k in zip(mesh.mesh_dim_names, mesh.shape) if n != data_axis}
+    scales = {}  # the model -> its replica scales on this mesh, taken at its first step
 
     def train_step(state: TrainState, batch: Dict, stop: bool = False):
         opt = state.optimizer
         opt.adam.zero_grad(set_to_none=True)
+        if mesh is not None and scales.get("model") is not state.model:
+            scales.update(model=state.model, of=_replica_scales(state.model, opt.params, sizes))
         gden = None
-        if group is not None:
-            # the global weight denominator first: it depends on no
-            # parameter, so each rank's loss is a contribution whose sum is
-            # the global weighted mean, and the gradients sum the same way
-            dev = next(state.model.parameters()).device
-            gden = all_reduce_sum(_sample_weight(batch, dev).sum().reshape(1), "scalar",
-                                  group).clamp_min(1.0)[0]
-        loss, output, target = _loss_and_output(state.model, batch, gden)
-        loss.backward()
+        with set_mesh(mesh):
+            if mesh is not None:
+                # the global weight denominator first: it depends on no
+                # parameter, so each rank's loss is a contribution whose sum
+                # is the global weighted mean, and the gradients sum the same
+                # way; the ranks at plane and coil index 0 count each row
+                w = _sample_weight(batch, next(state.model.parameters()).device).sum().reshape(1)
+                gden = all_reduce_sum(w if lead else torch.zeros_like(w),
+                                      "scalar").clamp_min(1.0)[0]
+            loss, output, target = _loss_and_output(state.model, batch, gden)
+            loss.backward()
         aux = {}
-        if group is not None:
-            _all_reduce_grads(opt.params, group)
-            scalars = torch.stack([loss.detach(), torch.full((), float(stop), device=loss.device)])
-            all_reduce_sum(scalars, "scalar", group)
+        if mesh is not None:
+            _all_reduce_grads(opt.params, scales["of"])
+            loss = loss.detach() if lead else torch.zeros_like(loss.detach())
+            scalars = torch.stack([loss, torch.full((), float(stop), device=loss.device)])
+            all_reduce_sum(scalars, "scalar")
             loss, aux["stop"] = scalars[0], scalars[1] > 0
         gnorm = global_norm(p.grad for p in opt.params if p.grad is not None)
         opt.step(gnorm)
@@ -156,12 +206,14 @@ def make_train_step(mesh=None, data_axis: str = "data") -> Callable:
     return train_step
 
 
-def make_eval_step() -> Callable:
+def make_eval_step(mesh=None) -> Callable:
     """``(state, batch) -> aux`` with ``loss``, ``output`` and ``target``,
-    without gradients."""
+    without gradients; under :func:`~cinemri_tpu_torch.parallel.set_mesh`
+    with a ``mesh`` (the batch is this rank's part, as in the train step,
+    and ``loss`` this rank's rows')."""
 
     def eval_step(state: TrainState, batch: Dict):
-        with torch.no_grad():
+        with torch.no_grad(), set_mesh(mesh):
             loss, output, target = _loss_and_output(state.model, batch)
         return {"loss": loss, "output": output, "target": target}
 

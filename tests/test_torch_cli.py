@@ -71,12 +71,15 @@ class TestParser:
         assert not caught
 
 
-# (family, argv, error, message): the axes not ported yet name their ROADMAP
-# item; the parallel launch flags, ported, refuse a launch that cannot run
+# (family, argv, error, message): the options not ported yet name their
+# ROADMAP item; the parallel launch flags and mesh axes (items 13 and 13b),
+# ported, refuse a launch that cannot run: a mesh of 2 at one process, and
+# the plane axis of a type without plane batches (the JAX CLI's message)
 _OPTION_CASES = [
     ("varnet", ["--num_devices", "2"], ValueError, "torchrun --nproc_per_node 2"),
-    ("varnet", ["--coil_devices", "2"], NotImplementedError, "item 13b"),
-    ("varnet", ["--plane_devices", "2"], NotImplementedError, "item 13b"),
+    ("varnet", ["--coil_devices", "2"], ValueError, "torchrun --nproc_per_node 2"),
+    ("varnet", ["--plane_devices", "2", "--dynamic_type", "2D"], ValueError,
+     "--plane_devices shards the XT/XF rotated-plane batches; dynamic_type '2D' has none"),
     ("varnet", ["--num_processes", "2"], ValueError, "--coordinator_address host:port"),
     ("varnet", ["--coordinator_address", "localhost:1234", "--process_id", "1"], ValueError,
      r"--process_id 1 is not in \[0, 1\)"),

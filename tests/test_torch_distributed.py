@@ -9,7 +9,8 @@ sends SIGTERM to rank 1 in the middle of an epoch: both ranks stop at the
 same step, rank 0 writes the one checkpoint, and a two-process resume ends
 bit-identical to an uninterrupted two-process run. A third trains volumes of
 two shapes at batch 2, whose shards bucket into different batch counts.
-Then the CLI's checks of the launch and of the axes that are not ported.
+A fourth splits each volume's coils over the two processes (``--coil_devices
+2``). Then the CLI's checks of the launch and of the mesh axes.
 """
 
 import os
@@ -44,6 +45,7 @@ CLI_WORKER = textwrap.dedent("""
 
     torch.set_num_threads(1)
     pid, port, workdir, nproc = int(sys.argv[1]), sys.argv[2], sys.argv[3], int(sys.argv[4])
+    coil = sys.argv[5:] == ["coil"]  # one volume's 2 virtual coils split over the processes
     args = [
         "--mode", "train", "--epochs", "2", "--lr", "1e-4", "--device", "cpu",
         "--num_cascades", "1", "--chans", "4", "--pools", "2",
@@ -52,13 +54,18 @@ CLI_WORKER = textwrap.dedent("""
         "--use_seed", "1", "--num_workers", "2", "--compute_train_metrics", "1",
         "--path_config", f"{workdir}/dirs_path.yaml", "--maps_cache_dir", f"{workdir}/maps",
     ]
-    if nproc > 1:
+    if coil:
+        args += ["--compress_coils", "2", "--num_devices", "1", "--batch_size", "2"]
+        if nproc > 1:
+            args += ["--coil_devices", str(nproc), "--num_processes", str(nproc),
+                     "--coordinator_address", f"localhost:{port}", "--process_id", str(pid)]
+    elif nproc > 1:
         args += ["--num_devices", str(nproc), "--batch_size", "1", "--num_processes", str(nproc),
                  "--coordinator_address", f"localhost:{port}", "--process_id", str(pid)]
     else:  # one process, the same global batch
         args += ["--num_devices", "1", "--batch_size", "2"]
     out = train_test_main("varnet", args)
-    with open(f"{workdir}/cli_p{pid}_n{nproc}.pkl", "wb") as f:
+    with open(f"{workdir}/cli_p{pid}_n{nproc}{'_coil' if coil else ''}.pkl", "wb") as f:
         pickle.dump({"params": [p.detach().numpy() for p in out["trainer"].model.parameters()],
                      "history": out["history"]}, f)
 """)
@@ -288,6 +295,34 @@ def test_two_process_cli_matches_single_process(workdir):
         assert two["history"][-1][k] == pytest.approx(single["history"][-1][k], rel=1e-3), k
 
 
+def test_two_process_cli_on_a_coil_axis_matches_single_process(workdir):
+    """``--coil_devices 2`` through the CLI: two processes hold the 2
+    virtual coils (``--compress_coils 2``) of each batch of 2 volumes, one
+    each, against one process with both coils. The ranks' weights are equal
+    exactly and the one-process run's within 5e-3 of max |w|; the epoch
+    metrics, summed over the data group only, count each volume once: the
+    same on both ranks and the one-process run's."""
+    def two_ranks():
+        port = _free_port()
+        return _run(workdir, CLI_WORKER, [(r, port, workdir, 2, "coil") for r in range(2)], "cli")
+
+    try:
+        two_ranks()
+    except AssertionError:
+        two_ranks()  # one retry on a fresh port, as the data-parallel case
+    _run(workdir, CLI_WORKER, [(0, 0, workdir, 1, "coil")], "cli")
+    two, two_r1, single = (_load(workdir / f"cli_p{p}_n{n}_coil.pkl")
+                           for p, n in ((0, 2), (1, 2), (0, 1)))
+    for a, b in zip(two["params"], two_r1["params"]):
+        np.testing.assert_array_equal(a, b)
+    for a, b in zip(two["params"], single["params"]):
+        scale = float(np.abs(b).max()) + 1e-12
+        np.testing.assert_allclose(a / scale, b / scale, atol=5e-3)
+    for k in ("train_ssim", "train_nmse", "train_loss", "val_ssim", "val_loss"):
+        assert two["history"][-1][k] == two_r1["history"][-1][k], k
+        assert two["history"][-1][k] == pytest.approx(single["history"][-1][k], rel=1e-3), k
+
+
 def test_sigterm_on_one_rank_then_resume_is_bit_identical(workdir):
     """SIGTERM on rank 1 as the first batch of epoch 1 is drawn (3 steps
     per rank an epoch): the flag rides step 1's all-reduce and is read a
@@ -360,8 +395,15 @@ def test_single_process_refuses_more_devices():
 
 @pytest.mark.parametrize("flag", ["--coil_devices", "--plane_devices"])
 def test_coil_and_plane_axes_name_item_13b(flag):
-    with pytest.raises(NotImplementedError, match="item 13b"):
+    """The axes of item 13b, ported: one process with a coil or plane axis
+    of 2 is told the torchrun launch of its 2 processes; a plane axis of a
+    type without plane batches gets the JAX CLI's ValueError first."""
+    with pytest.raises(ValueError, match="torchrun --nproc_per_node 2") as exc:
         TC.train_test_main("varnet", [flag, "2", "--device", "cpu"])
+    assert f"{flag} 2" in str(exc.value)
+    with pytest.raises(ValueError, match="dynamic_type '2D' has none"):
+        TC.train_test_main("varnet", ["--plane_devices", "2", "--dynamic_type", "2D",
+                                      "--device", "cpu"])
 
 
 @pytest.mark.parametrize("n, lr, notice", [(2, "1e-4", True), (1, "1e-4", False),

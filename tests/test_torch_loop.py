@@ -325,9 +325,12 @@ class TestLoop:
         model = build_model("varnet", "XF", device="cpu", **TINY)
         with pytest.raises(NotImplementedError, match=item):
             Trainer(model, TrainerConfig(**cfg), device="cpu")
-        with pytest.raises(NotImplementedError, match="item 13b"):
-            Trainer(model, TrainerConfig(), mesh=SimpleNamespace(mesh_dim_names=("data", "coil")),
-                    device="cpu")
+        # item 13b is ported: a data x coil mesh is taken, without the device
+        # cache, and its rank at coil index 1 writes no SSIMs.csv rows
+        coil = SimpleNamespace(mesh_dim_names=("data", "coil"), shape=(1, 2),
+                               get_local_rank=lambda name: {"data": 0, "coil": 1}[name])
+        trainer = Trainer(model, TrainerConfig(), mesh=coil, device="cpu")
+        assert trainer._caches is None and not trainer._lead
 
     def test_default_device_raises_without_cuda(self):
         if torch.cuda.is_available():

@@ -219,16 +219,21 @@ class TestMesh:
             assert out["specs"] == want
 
     def test_mesh_at_one_rank_and_the_coil_axis(self, world1):
-        """make_mesh() is a data mesh over the one rank; a coil axis is
-        refused, naming its ROADMAP item; the batch lands on the device as
-        Complex pairs."""
+        """make_mesh() is a data mesh over the one rank; on a coil axis the
+        coil dims take JAX's spec (the JAX package's coil mesh at the same
+        sizes); the batch lands on the device as Complex pairs."""
         mesh = make_mesh()
         assert tuple(mesh.mesh_dim_names) == ("data",) and tuple(mesh.shape) == (1,)
         with pytest.raises(ValueError, match="needs 2 devices"):
             make_mesh({"data": 2})
         coil = make_mesh({"data": 1, "coil": 1})
-        with pytest.raises(NotImplementedError, match="item 13b"):
-            batch_partition_spec("masked_kspace", (1, 3, 2, 16, 16), coil)
+        j_coil = j_make_mesh({"data": 1, "coil": 1}, devices=jax.devices()[:1])
+        for key, shape in (("masked_kspace", (1, 3, 2, 16, 16)), ("sens_maps", (1, 1, 2, 16, 16)),
+                           ("mask", (1, 3, 1, 16, 1))):
+            want = tuple(j_batch_partition_spec(key, shape, j_coil))
+            assert batch_partition_spec(key, shape, coil) == want
+        assert batch_partition_spec("masked_kspace", (1, 3, 2, 16, 16), coil) == (
+            "data", None, "coil")
         placed = shard_batch(_batch(np.random.default_rng(0), 2), mesh, device="cpu")
         assert set(placed) == {"masked_kspace", "mask", "target"} <= set(ARRAY_KEYS)
         assert isinstance(placed["masked_kspace"], Complex)

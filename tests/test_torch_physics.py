@@ -380,9 +380,9 @@ class TestSharedKernelAndMaps:
         data_ptrs = set()
         real_kernel = TO.normal_plus_lambda_kernel
 
-        def spy(x, kernel, sens_maps, lam):
+        def spy(x, kernel, sens_maps, lam, coil_axis=""):
             data_ptrs.add((kernel.re.data_ptr(), sens_maps.re.data_ptr()))
-            return real_kernel(x, kernel, sens_maps, lam)
+            return real_kernel(x, kernel, sens_maps, lam, coil_axis)
 
         monkeypatch.setattr("cinemri_tpu_torch.models.cinenet.normal_plus_lambda_kernel", spy)
         with torch.inference_mode():
