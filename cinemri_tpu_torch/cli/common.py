@@ -27,9 +27,17 @@ coils. Unlike the JAX CLI, which forces its XLA normal backend on a coil
 axis, the port keeps the normal-apply kernel there: each rank runs it on its
 own coils and all-reduces.
 
+``--from_torch_ckpt`` starts ``--mode train``, ``test`` or ``export`` from
+a trained reference Lightning checkpoint (``interop.import_torch_checkpoint``).
+``--mode export`` writes the weight-bound forward as a ``torch.export``
+artifact (``serve.export_model``; ``<save_path>/<family>_<type>.pt2`` by
+default), shaped like the first test batch, from the best checkpoint
+(``--load_model`` defaults to 1 there), in one process. ``--profile_steps``
+traces that many training steps into ``--profile_dir``
+(``Trainer``; fold the trace with ``instrument.opstats``).
+
 What is not ported raises ``NotImplementedError`` naming its ROADMAP item
-(Queue 1, item 14): ``--mode export``, ``--from_torch_ckpt``, ``--bf16``,
-``--packed 1`` and ``--profile_steps``.
+(Queue 1): ``--bf16`` (item 14.4) and ``--packed 1`` (item 14.6).
 """
 
 from __future__ import annotations
@@ -43,6 +51,7 @@ import warnings
 from pathlib import Path
 from typing import Dict
 
+import torch
 import torch.distributed as dist
 
 from cinemri_tpu_torch.data import (
@@ -119,21 +128,22 @@ def build_parser(family: str) -> argparse.ArgumentParser:
     p.add_argument("--load_model", default=None, choices=(0, 1), type=int)
     p.add_argument("--from_torch_ckpt", default=None, type=Path,
                    help="initialize weights from a trained reference PyTorch/Lightning "
-                        ".ckpt (not ported yet: ROADMAP Queue 1, item 14)")
+                        ".ckpt; combine with --mode test for drop-in evaluation, --mode "
+                        "train to fine-tune or --mode export to serve it")
     p.add_argument("--inference", default=1, choices=(0, 1), type=int)
     p.add_argument("--export_path", default=None, type=str,
-                   help="output artifact path of --mode export (not ported yet: item 14)")
+                   help="output artifact path (default save_path/<family>_<dynamic>.pt2)")
     p.add_argument("--serial_export", default=0, choices=(0, 1), type=int,
-                   help="bake serve.serial_batch into the export artifact (item 14)")
+                   help="bake serve.serial_batch into the artifact (batch>1 serving)")
     p.add_argument("--kernel_dc", default=1, choices=(0, 1), type=int,
                    help="precomputed-kernel data consistency (the normal-apply "
                         "kernel); 0 = the reference's direct k-space formulation")
     p.add_argument("--packed", default=None, choices=(0, 1), type=int,
                    help="space-to-depth lane packing of the conv stacks; the default "
                         "runs the dense stacks for every dynamic type (numerically the "
-                        "same; 1 is not ported yet: item 14)")
+                        "same; 1 is not ported yet: item 14.6)")
     p.add_argument("--bf16", default=0, choices=(0, 1), type=int,
-                   help="bfloat16 denoiser activations (not ported yet: item 14)")
+                   help="bfloat16 denoiser activations (not ported yet: item 14.4)")
     if family == "xpdnet":
         p.add_argument(
             "--norm_buffers", default=-1, choices=(-1, 0, 1), type=int,
@@ -263,9 +273,11 @@ def build_parser(family: str) -> argparse.ArgumentParser:
              "defers all loss syncs to epoch end",
     )
     p.add_argument("--profile_steps", default=0, type=int,
-                   help="Profile this many training steps (not ported yet: item 14)")
+                   help="Trace this many training steps with torch.profiler (starting at "
+                        "step 1; step 0 builds the kernels) into --profile_dir; fold with "
+                        "cinemri_tpu_torch.instrument.opstats. 0 = off")
     p.add_argument("--profile_dir", default=None, type=Path,
-                   help="Trace output dir (with --profile_steps)")
+                   help="Trace output dir (default: <log_dir>/tensorboard/profile)")
     p.add_argument(
         "--device_data_cache", default=1, choices=(0, 1), type=int,
         help="Keep per-sample constants (raw k-space, targets, stable sens "
@@ -298,12 +310,8 @@ def _check_ported(args) -> None:
     """Raise ``NotImplementedError`` naming the ROADMAP item (Queue 1) of
     the first option whose path the port does not have yet."""
     unported = [
-        (args.mode == "export", "--mode export", "ROADMAP Queue 1, item 14: torch.export"),
-        (args.from_torch_ckpt is not None, "--from_torch_ckpt",
-         "ROADMAP Queue 1, item 14: interop/torch_import.py"),
-        (bool(args.bf16), "--bf16", "ROADMAP Queue 1, item 14: bf16"),
-        (bool(args.packed), "--packed 1", "ROADMAP Queue 1, item 14: packed_unet.py"),
-        (args.profile_steps > 0, "--profile_steps", "ROADMAP Queue 1, item 14: instrument/"),
+        (bool(args.bf16), "--bf16", "ROADMAP Queue 1, item 14.4: bf16"),
+        (bool(args.packed), "--packed 1", "ROADMAP Queue 1, item 14.6: packed_unet.py"),
     ]
     for hit, what, item in unported:
         if hit:
@@ -315,8 +323,14 @@ def _envelope_notices(family: str, args, n_devices: int | None = None) -> None:
     envelope (PARITY.md "Parity envelope notes"): warnings, not errors.
     ``n_devices`` is the data-parallel size (default: the resolved
     ``--num_devices``). The JAX package's bf16 notices come back with bf16
-    (item 14)."""
+    (item 14.4)."""
     n = _resolved_devices(args) if n_devices is None else n_devices
+    if args.profile_steps and args.mode != "train":
+        warnings.warn(
+            "--profile_steps only traces training steps (Trainer.fit); it "
+            f"has no effect in --mode {args.mode}",
+            stacklevel=2,
+        )
     if args.batch_size > 1:
         warnings.warn(
             f"batch_size={args.batch_size} (PER-DEVICE) is outside the "
@@ -390,6 +404,29 @@ def _build_model_from_args(family: str, args):
     return build_model(family, args.dynamic_type, device=args.device, **kwargs)
 
 
+def _apply_torch_ckpt(trainer, family: str, args) -> None:
+    """--from_torch_ckpt: replace the trainer's initialized weights with a
+    trained reference checkpoint's (``interop.import_torch_checkpoint``)."""
+    from cinemri_tpu_torch.interop import check_tree_matches, import_torch_checkpoint
+
+    state_dict, kwargs, fam, dyn = import_torch_checkpoint(args.from_torch_ckpt, family=family)
+    if kwargs or dyn == "CRNN":
+        # the checkpoint knows its own architecture (hparams / CRNN trunk)
+        if dyn != args.dynamic_type:
+            raise ValueError(f"checkpoint is a {fam}-{dyn} model but --dynamic_type is "
+                             f"{args.dynamic_type}")
+    elif args.dynamic_type != "XF" or args.weight_sharing:
+        # a bare state dict without hparams: trust the CLI's architecture flags
+        state_dict, *_ = import_torch_checkpoint(
+            args.from_torch_ckpt, family=family, dynamic_type=args.dynamic_type,
+            weight_sharing=bool(args.weight_sharing))
+    if trainer.state is None:
+        trainer.init_state()
+    check_tree_matches(state_dict, trainer.state.model)
+    trainer.state.model.load_state_dict(state_dict)
+    print(f"Initialized weights from reference checkpoint {args.from_torch_ckpt}")
+
+
 def config_fingerprint(family: str, args) -> str:
     """Short hash of every model-tree-defining argument, the JAX package's
     recipe: the same string for the same argv. Scopes the checkpoint
@@ -412,8 +449,22 @@ def train_test_main(family: str, argv=None) -> Dict:
     args = build_parser(family).parse_args(argv)
     _check_ported(args)
     check_plane_axis(args.dynamic_type, args.plane_devices > 1)  # before the process group
+    if args.from_torch_ckpt and args.resume_training:
+        raise ValueError("--from_torch_ckpt and --resume_training are mutually exclusive")
+    if args.profile_steps < 0:
+        raise ValueError(f"--profile_steps counts the steps to trace, got {args.profile_steps}")
+    if args.mode == "export" and (args.num_devices != 1 or args.num_processes > 1
+                                  or _model_axes(args)):
+        raise ValueError("--mode export runs in one process: the artifact holds the "
+                         "single-device forward")
     if args.load_model is None:
-        args.load_model = 0
+        args.load_model = 1 if args.mode == "export" else 0
+    elif args.mode == "export" and not args.load_model:
+        warnings.warn(
+            "--mode export with --load_model 0 exports RANDOMLY INITIALIZED "
+            "weights — only useful for artifact-format testing",
+            stacklevel=1,
+        )
     # the process group first: the device and the data-parallel size depend on it
     started = not dist.is_initialized()
     rank, world = initialize(args.coordinator_address, args.num_processes, args.process_id,
@@ -535,6 +586,8 @@ def _run(family: str, args, mesh, n_devices: int, coords: Dict[str, int]) -> Dic
         compute_train_metrics=args.compute_train_metrics,
         torch_init=bool(args.torch_init),
         config_fingerprint=fingerprint,
+        profile_steps=args.profile_steps,
+        profile_dir=args.profile_dir,
         log_every_steps=args.log_every_steps,
         device_data_cache=bool(args.device_data_cache),
         device_data_cache_gb=args.device_data_cache_gb,
@@ -551,6 +604,8 @@ def _run(family: str, args, mesh, n_devices: int, coords: Dict[str, int]) -> Dic
     )
 
     results: Dict = {"trainer": trainer}
+    if args.mode == "train" and args.from_torch_ckpt:
+        _apply_torch_ckpt(trainer, family, args)
     if args.mode == "train":
         print(
             f"Training {family} {args.dynamic_type} with {args.num_cascades} "
@@ -562,9 +617,29 @@ def _run(family: str, args, mesh, n_devices: int, coords: Dict[str, int]) -> Dic
         print(f"Training time: {(time.perf_counter() - t0) / 3600.} hours")
         if args.save_checkpoint:
             trainer.ckpt.save(args.epochs, trainer._ckpt_tree(args.epochs))
+    elif args.mode == "export":
+        from cinemri_tpu_torch.ops.cplx import from_complex
+        from cinemri_tpu_torch.serve import export_model
+
+        trainer.init_state()
+        if args.from_torch_ckpt:
+            _apply_torch_ckpt(trainer, family, args)
+        elif args.load_model:
+            trainer.restore_best()  # serve the best-val weights
+        first = trainer.test_loader.first_batch()
+        sens = from_complex(first["sens_maps"]) if family == "cinenet" else None
+        out_path = Path(args.export_path or save_path / f"{family}_{args.dynamic_type}.pt2")
+        out_path.parent.mkdir(parents=True, exist_ok=True)
+        export_model(model, None, from_complex(first["masked_kspace"]),
+                     torch.as_tensor(first["mask"], dtype=torch.float32), path=out_path,
+                     sens_maps=sens, serial=bool(args.serial_export))
+        print(f"Exported serving artifact to {out_path}")
+        results["export_path"] = str(out_path)
     else:  # test
         trainer.init_state()
-        if args.load_model:
+        if args.from_torch_ckpt:
+            _apply_torch_ckpt(trainer, family, args)
+        elif args.load_model:
             trainer.restore_latest()
         results["test_metrics"] = trainer.test()
         print("test metrics:", results["test_metrics"])

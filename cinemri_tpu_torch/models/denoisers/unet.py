@@ -8,6 +8,11 @@ The decoder pads odd sizes at the trailing edge of every spatial axis
 (t = 15 goes 15 -> 7 -> 3 -> 1 and back); the final 1x1 conv has a bias. Convolutions, instance norm and pooling are PyTorch/cuDNN ops: the
 JAX package wrote no Pallas kernel for them.
 
+A level pooled from a size of 1 is empty along that axis, as in the JAX
+package (t = 3 at 2 pools goes 3 -> 1 -> 0): its blocks give empty levels
+with their channel counts, as JAX's convolutions of an empty array do, and
+the decoder's trailing-edge pad fills them back with zeros.
+
 Module names map one to one onto the flax tree (see
 ``interop/flax_params.py``): ``down[j]`` = ``ConvBlock_j``, ``bottom`` =
 ``ConvBlock_{pools}``, ``up_transpose[i]`` = ``TransposeConvBlock_i``,
@@ -28,6 +33,22 @@ _CONV_T = {2: nn.ConvTranspose2d, 3: nn.ConvTranspose3d}
 _POOL = {2: F.avg_pool2d, 3: F.avg_pool3d}
 
 
+def _avg_pool_2x(x: torch.Tensor, dims: int) -> torch.Tensor:
+    """2x average pool with floor semantics, JAX's ``_avg_pool_2x``: the
+    crop to even sizes, then the mean of each 2-window. A level whose result
+    is empty (a spatial size of 1) comes out empty, where ``F.avg_pool``
+    raises; any other goes through ``F.avg_pool``, which floors the same
+    way in one kernel with its own summation order, unchanged."""
+    spatial = x.shape[2:]
+    if min(spatial) >= 2:
+        return _POOL[dims](x, 2)
+    return x.new_zeros((*x.shape[:2], *(s // 2 for s in spatial)))
+
+
+def _is_empty(x: torch.Tensor) -> bool:
+    return 0 in x.shape[2:]
+
+
 class ConvBlock(nn.Module):
     """Two (conv3 -> InstanceNorm -> LeakyReLU(0.2)) stages."""
 
@@ -37,6 +58,8 @@ class ConvBlock(nn.Module):
         self.conv1 = _CONV[dims](out_chans, out_chans, 3, padding=1, bias=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if _is_empty(x):  # an empty level (padding 1 keeps the sizes)
+            return x.new_zeros((x.shape[0], self.conv1.out_channels, *x.shape[2:]))
         for conv in (self.conv0, self.conv1):
             x = F.leaky_relu(F.instance_norm(conv(x), eps=1e-5), 0.2)
         return x
@@ -50,6 +73,8 @@ class TransposeConvBlock(nn.Module):
         self.conv = _CONV_T[dims](in_chans, out_chans, 2, stride=2, bias=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if _is_empty(x):  # an empty level (stride 2 doubles the sizes)
+            return x.new_zeros((x.shape[0], self.conv.out_channels, *(2 * s for s in x.shape[2:])))
         return F.leaky_relu(F.instance_norm(self.conv(x), eps=1e-5), 0.2)
 
 
@@ -101,7 +126,7 @@ class Unet(nn.Module):
         for block in self.down:
             out = block(out)
             stack.append(out)
-            out = _POOL[self.dims](out, 2)  # floor crop on odd sizes
+            out = _avg_pool_2x(out, self.dims)  # floor crop on odd sizes
         out = self.bottom(out)
         for tconv, conv in zip(self.up_transpose, self.up_conv):
             skip = stack.pop()

@@ -34,7 +34,7 @@ import numpy as np
 import torch
 
 from cinemri_tpu_torch.ops.cplx import Complex
-from cinemri_tpu_torch.ops.kernels import dft_cuda
+from cinemri_tpu_torch.ops.kernels import dft_cuda, trace_safe
 
 __all__ = [
     "set_dft_backend",
@@ -137,8 +137,8 @@ def _apply_dft(x: Complex, axis: int, inverse: bool, alt: bool, norm: str) -> Co
     axis = axis % x.ndim
     n = x.shape[axis]
     dev = x.re.device
-    wr, wi = _dft_tensors(n, inverse, alt, norm, dev)
-    whr, whi = _dft_adjoint_tensors(n, inverse, alt, norm, dev)
+    wr, wi = trace_safe(_dft_tensors, n, inverse, alt, norm, dev)
+    whr, whi = trace_safe(_dft_adjoint_tensors, n, inverse, alt, norm, dev)
     plain = _DFT_BACKEND == "torch"
     mr, mi = torch.movedim(x.re, axis, -1), torch.movedim(x.im, axis, -1)
     if mr.is_contiguous() and mi.is_contiguous():

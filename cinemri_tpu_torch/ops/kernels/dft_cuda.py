@@ -23,12 +23,16 @@ read once, y written once).
 Dispatch: a CPU tensor takes :func:`complex_dft_matmul_torch`; a CUDA tensor
 launches the kernel or raises. ``LAUNCHES`` counts kernel launches.
 
-Gradient: :class:`ComplexDFTMatmul` wraps the product for autograd. Its
-backward is ``x̄[o, :, i] = Wᴴ ȳ[o, :, i]``, the same product in the same
-layout with ``Wᴴ`` in ``W``'s place, so it launches the same kernel (or,
-with ``plain``, the plain version); ``W`` gets no gradient. The JAX package
-has no Pallas backward for the DFT: its train step differentiates the XLA
-tensordot chain, whose transpose is this product with ``Wᴴ``.
+Custom op: the product is registered as ``torch.ops.cinemri.dft_matmul``
+(:func:`dft_matmul_op`), so ``torch.export`` and the profiler see one op
+where a ctypes call would be opaque. Its implementation is
+:func:`complex_dft_matmul` (or, with ``plain``, the plain version), looked
+up at each call; its fake implementation gives the result's shape. Its
+gradient is ``x̄[o, :, i] = Wᴴ ȳ[o, :, i]``, the same op in the same layout
+with ``Wᴴ`` in ``W``'s place, so the backward launches the same kernel (or,
+with ``plain``, the plain version); neither matrix gets a gradient. The JAX
+package has no Pallas backward for the DFT: its train step differentiates
+the XLA tensordot chain, whose transpose is this product with ``Wᴴ``.
 """
 
 from __future__ import annotations
@@ -36,10 +40,12 @@ from __future__ import annotations
 from typing import Tuple
 
 import torch
+from torch import Tensor
 
 from cinemri_tpu_torch.ops.kernels import _build
 
-__all__ = ["complex_dft_matmul", "complex_dft_matmul_torch", "ComplexDFTMatmul", "LAUNCHES"]
+__all__ = ["complex_dft_matmul", "complex_dft_matmul_torch", "dft_matmul_op", "ComplexDFTMatmul",
+           "LAUNCHES"]
 
 LAUNCHES = 0
 
@@ -105,27 +111,45 @@ def complex_dft_matmul(
     return yr, yi
 
 
-class ComplexDFTMatmul(torch.autograd.Function):
+@torch.library.custom_op("cinemri::dft_matmul", mutates_args=())
+def dft_matmul_op(xr: Tensor, xi: Tensor, wr: Tensor, wi: Tensor, whr: Tensor, whi: Tensor,
+                  plain: bool) -> Tuple[Tensor, Tensor]:
+    """``y = W x`` along the middle axis of ``x (O, N, I)``: the kernel on a
+    CUDA tensor (the plain version with ``plain``), the plain version on a
+    CPU one. ``(whr, whi)`` is ``Wᴴ``, contiguous, read by the backward."""
+    return (complex_dft_matmul_torch if plain else complex_dft_matmul)(xr, xi, wr, wi)
+
+
+@dft_matmul_op.register_fake
+def _(xr, xi, wr, wi, whr, whi, plain):
+    return torch.empty_like(xr), torch.empty_like(xi)
+
+
+def _dft_setup(ctx, inputs, output):
+    _, _, wr, wi, whr, whi, plain = inputs
+    ctx.save_for_backward(wr, wi, whr, whi)
+    ctx.plain = plain
+
+
+def _dft_backward(ctx, gr, gi):
+    # x̄ = Wᴴ ȳ; the incoming gradient is copied only when it is not contiguous
+    wr, wi, whr, whi = ctx.saved_tensors
+    xbr, xbi = dft_matmul_op(gr.contiguous(), gi.contiguous(), whr, whi, wr, wi, ctx.plain)
+    return xbr, xbi, None, None, None, None, None
+
+
+dft_matmul_op.register_autograd(_dft_backward, setup_context=_dft_setup)
+
+
+class ComplexDFTMatmul:
     """Differentiable product along the middle axis of ``(O, N, I)``:
     ``y = W x`` forward, ``x̄ = Wᴴ ȳ`` backward, both in the layout of x.
 
-    ``apply(xr, xi, wr, wi, whr, whi, plain)``: ``(whr, whi)`` is ``Wᴴ``,
-    contiguous; ``plain`` picks :func:`complex_dft_matmul_torch` over
-    :func:`complex_dft_matmul` in both directions. Neither matrix gets a
-    gradient. The incoming gradient is copied only when it is not
-    contiguous.
+    ``apply(xr, xi, wr, wi, whr, whi, plain)`` calls
+    ``torch.ops.cinemri.dft_matmul`` (:func:`dft_matmul_op`): ``(whr, whi)``
+    is ``Wᴴ``, contiguous; ``plain`` picks :func:`complex_dft_matmul_torch`
+    over :func:`complex_dft_matmul` in both directions. Neither matrix gets
+    a gradient.
     """
 
-    @staticmethod
-    def forward(ctx, xr, xi, wr, wi, whr, whi, plain: bool):
-        ctx.save_for_backward(whr, whi)
-        ctx.plain = plain
-        product = complex_dft_matmul_torch if plain else complex_dft_matmul
-        return product(xr, xi, wr, wi)
-
-    @staticmethod
-    def backward(ctx, gr, gi):
-        whr, whi = ctx.saved_tensors
-        product = complex_dft_matmul_torch if ctx.plain else complex_dft_matmul
-        xbr, xbi = product(gr.contiguous(), gi.contiguous(), whr, whi)
-        return xbr, xbi, None, None, None, None, None
+    apply = staticmethod(dft_matmul_op)

@@ -23,7 +23,9 @@ two 1-D DFT products of ``ops/fft.py``. It has no backward (the Pallas
 kernel has no VJP either).
 
 Dispatch: a CPU tensor takes :func:`fft2_plane_torch`; a CUDA tensor
-launches the kernel or raises. ``LAUNCHES`` counts kernel launches.
+launches the kernel or raises. ``LAUNCHES`` counts kernel launches. The
+product is also registered as the custom op ``torch.ops.cinemri.fft2_plane``
+(:func:`fft2_plane_op`), with a fake implementation and no gradient.
 """
 
 from __future__ import annotations
@@ -31,10 +33,11 @@ from __future__ import annotations
 from typing import Tuple
 
 import torch
+from torch import Tensor
 
 from cinemri_tpu_torch.ops.kernels import _build
 
-__all__ = ["fft2_plane", "fft2_plane_torch", "LAUNCHES", "MAX_W"]
+__all__ = ["fft2_plane", "fft2_plane_torch", "fft2_plane_op", "LAUNCHES", "MAX_W"]
 
 LAUNCHES = 0
 
@@ -102,3 +105,16 @@ def fft2_plane(xr, xi, whr, whi, wwr, wwi) -> Tuple[torch.Tensor, torch.Tensor]:
     global LAUNCHES
     LAUNCHES += 1
     return yr, yi
+
+
+@torch.library.custom_op("cinemri::fft2_plane", mutates_args=())
+def fft2_plane_op(xr: Tensor, xi: Tensor, whr: Tensor, whi: Tensor, wwr: Tensor,
+                  wwi: Tensor) -> Tuple[Tensor, Tensor]:
+    """:func:`fft2_plane` as an op: the kernel on a CUDA tensor, the plain
+    version on a CPU one."""
+    return fft2_plane(xr, xi, whr, whi, wwr, wwi)
+
+
+@fft2_plane_op.register_fake
+def _(xr, xi, whr, whi, wwr, wwi):
+    return torch.empty_like(xr), torch.empty_like(xi)

@@ -41,9 +41,16 @@ a Python float λ (VarNet's ``0.0``) becomes a tensor cached per (value,
 device), so it costs no host-to-device copy per call either.
 
 Dispatch: a CPU tensor takes the plain version; a CUDA tensor launches the
-kernel or raises. :class:`NormalApply` wraps forward and backward for
-autograd; its ``plain`` flag picks the plain versions in both directions.
-``LAUNCHES`` and ``BWD_LAUNCHES`` count kernel launches.
+kernel or raises. ``LAUNCHES`` and ``BWD_LAUNCHES`` count kernel launches.
+
+Custom ops: the forward and the backward are registered as
+``torch.ops.cinemri.normal_apply`` and ``torch.ops.cinemri.normal_apply_bwd``
+(:func:`normal_apply_op`, :func:`normal_apply_bwd_op`), each with a fake
+implementation, so ``torch.export`` and the profiler see them; the forward's
+gradient is the backward op, with the same ``plain`` flag, which picks the
+plain versions in both directions. :class:`NormalApply` calls the forward op
+with λ as the one-element tensor the kernels read, keeping a tensor λ's
+autograd link.
 """
 
 from __future__ import annotations
@@ -52,8 +59,9 @@ from functools import lru_cache
 from typing import Tuple
 
 import torch
+from torch import Tensor
 
-from cinemri_tpu_torch.ops.kernels import _build
+from cinemri_tpu_torch.ops.kernels import _build, trace_safe
 
 __all__ = [
     "normal_apply",
@@ -68,6 +76,8 @@ __all__ = [
     "normal_apply_passes",
     "normal_apply_bwd_passes",
     "lambda_tensor",
+    "normal_apply_op",
+    "normal_apply_bwd_op",
     "NormalApply",
     "LAUNCHES",
     "BWD_LAUNCHES",
@@ -239,7 +249,7 @@ def lambda_tensor(lam, device: torch.device) -> torch.Tensor:
         if lam.numel() != 1:
             raise ValueError(f"λ must have one element, got shape {tuple(lam.shape)}")
         return lam.detach().reshape(1).to(device=device, dtype=torch.float32)
-    return _constant_lambda(lam, device)
+    return trace_safe(_constant_lambda, lam, device)
 
 
 def _planes(scratch):
@@ -329,30 +339,70 @@ def normal_apply_bwd(xr, xi, gr, gi, kr, ki, sr, si, lam):
     return xbr, xbi, sbr, sbi, lb
 
 
-class NormalApply(torch.autograd.Function):
+@torch.library.custom_op("cinemri::normal_apply", mutates_args=())
+def normal_apply_op(xr: Tensor, xi: Tensor, kr: Tensor, ki: Tensor, sr: Tensor, si: Tensor,
+                    lam: Tensor, plain: bool) -> Tuple[Tensor, Tensor]:
+    """:func:`normal_apply` (with ``plain``, :func:`normal_apply_torch`) as
+    an op; ``lam`` is the one-element f32 tensor of :func:`lambda_tensor`."""
+    return (normal_apply_torch if plain else normal_apply)(xr, xi, kr, ki, sr, si, lam)
+
+
+@normal_apply_op.register_fake
+def _(xr, xi, kr, ki, sr, si, lam, plain):
+    return torch.empty_like(xr), torch.empty_like(xi)
+
+
+@torch.library.custom_op("cinemri::normal_apply_bwd", mutates_args=())
+def normal_apply_bwd_op(xr: Tensor, xi: Tensor, gr: Tensor, gi: Tensor, kr: Tensor, ki: Tensor,
+                        sr: Tensor, si: Tensor, lam: Tensor,
+                        plain: bool) -> Tuple[Tensor, Tensor, Tensor, Tensor, Tensor]:
+    """:func:`normal_apply_bwd` (with ``plain``, :func:`normal_apply_bwd_torch`)
+    as an op: ``(x̄_re, x̄_im, s̄_re, s̄_im, λ̄ partials (b, t))``."""
+    return (normal_apply_bwd_torch if plain else normal_apply_bwd)(xr, xi, gr, gi, kr, ki, sr, si,
+                                                                   lam)
+
+
+@normal_apply_bwd_op.register_fake
+def _(xr, xi, gr, gi, kr, ki, sr, si, lam, plain):
+    return (torch.empty_like(xr), torch.empty_like(xi), torch.empty_like(sr),
+            torch.empty_like(si), xr.new_empty(xr.shape[:2]))
+
+
+def _normal_setup(ctx, inputs, output):
+    *operands, plain = inputs
+    ctx.save_for_backward(*operands)
+    ctx.plain = plain
+
+
+def _normal_backward(ctx, gr, gi):
+    xr, xi, kr, ki, sr, si, lam = ctx.saved_tensors
+    xbr, xbi, sbr, sbi, lb = normal_apply_bwd_op(xr, xi, gr.contiguous(), gi.contiguous(),
+                                                 kr, ki, sr, si, lam, ctx.plain)
+    lam_bar = lb.sum().reshape(1) if ctx.needs_input_grad[6] else None
+    return xbr, xbi, None, None, sbr, sbi, lam_bar, None
+
+
+normal_apply_op.register_autograd(_normal_backward, setup_context=_normal_setup)
+
+
+class NormalApply:
     """Differentiable normal apply, the counterpart of the JAX custom VJP.
 
-    ``apply(xr, xi, kr, ki, sr, si, lam, plain)``: ``lam`` is a Python
-    number or a one-element tensor; either way it reaches both directions
-    as the device tensor of :func:`lambda_tensor`, saved for the backward.
-    ``plain`` picks the plain versions over the kernels in both directions.
-    ``K`` gets no gradient (the caller detaches it).
+    ``apply(xr, xi, kr, ki, sr, si, lam, plain)`` calls
+    ``torch.ops.cinemri.normal_apply`` (:func:`normal_apply_op`): ``lam`` is
+    a Python number or a one-element tensor; a tensor reaches the op
+    reshaped to one element, so its gradient flows back to it, and a number
+    as the cached device tensor of :func:`lambda_tensor`. ``plain`` picks
+    the plain versions over the kernels in both directions. ``K`` gets no
+    gradient (the caller detaches it).
     """
 
     @staticmethod
-    def forward(ctx, xr, xi, kr, ki, sr, si, lam, plain: bool):
-        lam_t = lambda_tensor(lam, xr.device)
-        ctx.save_for_backward(xr, xi, kr, ki, sr, si, lam_t)
-        ctx.lam_shape = lam.shape if torch.is_tensor(lam) else None
-        ctx.plain = plain
-        apply = normal_apply_torch if plain else normal_apply
-        return apply(xr, xi, kr, ki, sr, si, lam_t)
-
-    @staticmethod
-    def backward(ctx, gr, gi):
-        xr, xi, kr, ki, sr, si, lam_t = ctx.saved_tensors
-        bwd = normal_apply_bwd_torch if ctx.plain else normal_apply_bwd
-        xbr, xbi, sbr, sbi, lb = bwd(xr, xi, gr.contiguous(), gi.contiguous(),
-                                     kr, ki, sr, si, lam_t)
-        lam_bar = lb.sum().reshape(ctx.lam_shape) if ctx.needs_input_grad[6] else None
-        return xbr, xbi, None, None, sbr, sbi, lam_bar, None
+    def apply(xr, xi, kr, ki, sr, si, lam, plain: bool):
+        if torch.is_tensor(lam):
+            if lam.numel() != 1:
+                raise ValueError(f"λ must have one element, got shape {tuple(lam.shape)}")
+            lam_t = lam.reshape(1).to(device=xr.device, dtype=xr.dtype)
+        else:
+            lam_t = lambda_tensor(lam, xr.device)
+        return normal_apply_op(xr, xi, kr, ki, sr, si, lam_t, plain)

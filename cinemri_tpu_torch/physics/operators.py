@@ -32,7 +32,7 @@ import torch
 
 from cinemri_tpu_torch.ops.cplx import Complex, csum
 from cinemri_tpu_torch.ops.fft import _dft_tensors, fft2c, ifft2c
-from cinemri_tpu_torch.ops.kernels import normal_cuda
+from cinemri_tpu_torch.ops.kernels import normal_cuda, trace_safe
 from cinemri_tpu_torch.parallel.autograd import copy_to_group, reduce_from_group
 from cinemri_tpu_torch.parallel.mesh import mesh_axis
 from cinemri_tpu_torch.physics.cg import conj_grad
@@ -153,8 +153,8 @@ def masked_normal_kernel(mask: torch.Tensor, norm: str = "ortho") -> Complex:
     if not is_line_mask(mask):
         raise ValueError(f"expected a line mask (b, t|1, 1, h, 1), got {tuple(mask.shape)}")
     h = mask.shape[3]
-    wfr, wfi = _dft_tensors(h, False, False, norm, mask.device)
-    wir, wii = _dft_tensors(h, True, False, norm, mask.device)
+    wfr, wfi = trace_safe(_dft_tensors, h, False, False, norm, mask.device)
+    wir, wii = trace_safe(_dft_tensors, h, True, False, norm, mask.device)
     m = mask[:, :, 0, :, 0].to(torch.float32)  # (b, t|1, h)
     # A = diag(m) @ W_f (row scaling), then T = W_i @ A
     ar = m[..., :, None] * wfr

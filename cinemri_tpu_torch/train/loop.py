@@ -24,8 +24,10 @@ On ``plane`` and ``coil`` dims the ranks of a group hold the same volumes:
 the ``reduce_fn`` sums over the ``data`` group
 (``parallel.make_process_sum(mesh)``), and only the ranks at plane and coil
 index 0 write ``SSIMs.csv`` rows, so each volume counts once.
-``profile_steps`` and ``debug_nans`` (ROADMAP Queue 1, item 14,
-``instrument/``) are not ported yet and raise.
+``profile_steps`` traces that many train steps with ``instrument.trace``
+(the window skips this process's first step, and each traced step ends on
+its loss, so the trace holds its device work); ``debug_nans`` turns on
+``instrument.enable_nan_checks`` for ``fit`` and ``test``.
 """
 
 from __future__ import annotations
@@ -41,6 +43,7 @@ import numpy as np
 import torch
 
 from cinemri_tpu_torch import resolve_device
+from cinemri_tpu_torch.instrument import enable_nan_checks, trace
 from cinemri_tpu_torch.models.init import lecun_normal_init, torch_style_init
 from cinemri_tpu_torch.ops.cplx import Complex
 from cinemri_tpu_torch.parallel import distributed as D
@@ -76,7 +79,7 @@ class TrainerConfig:
     compute_train_metrics: bool = True
     num_log_images: int = 1
     max_checkpoints: int = 3
-    debug_nans: bool = False  # not ported yet (ROADMAP Queue 1, item 14)
+    debug_nans: bool = False  # raise at the first non-finite module output or gradient
     checkpoint_on_preemption: bool = True  # SIGTERM -> save before exiting
     # init_state redraws the model's convs from a generator seeded with
     # ``seed``: the reference's torch reset_parameters statistics, or with
@@ -89,7 +92,11 @@ class TrainerConfig:
     # per-epoch aggregate (with compute_train_metrics off, the loss syncs
     # then wait for the end of the epoch)
     log_every_steps: int = 1
-    profile_steps: int = 0  # not ported yet (ROADMAP Queue 1, item 14)
+    # trace this many training steps (instrument.trace) into profile_dir,
+    # starting at this process's second step; fold the trace with
+    # instrument.opstats. 0 = off. The reference has no profiler
+    profile_steps: int = 0
+    profile_dir: Optional[Path] = None  # default: log_dir/"profile"
     # device-resident per-sample constants (train/device_cache.py): a step
     # sends its mask instead of the masked k-space; one cache for the train
     # loader and one for the evaluation loaders, each with this budget, so
@@ -118,11 +125,6 @@ class Trainer:
         reduce_fn: Callable[[float], float] = lambda x: x,
         device=None,
     ):
-        for name in ("profile_steps", "debug_nans"):
-            if getattr(config, name):
-                raise NotImplementedError(
-                    f"TrainerConfig.{name} is not ported yet (ROADMAP Queue 1, item 14: "
-                    "instrument/)")
         self.mesh = mesh
         self.device = resolve_device(device) if mesh is None else D.local_device(device)
         self.model = model.to(self.device)
@@ -484,6 +486,10 @@ class Trainer:
         # scalars stay on the device, one copy at the end of the epoch
         defer_loss = not self.cfg.compute_train_metrics and not self.cfg.log_every_steps
         pending: List = []
+        # the profiler window skips this process's first step (it builds the
+        # kernels and the caches, even on resume)
+        prof, prof_left, steps_here = None, max(0, self.cfg.profile_steps), 0
+        nan_checks = enable_nan_checks(True) if self.cfg.debug_nans else None
         t0 = time.perf_counter()
         try:
             for epoch in range(start_epoch, self.cfg.epochs):
@@ -498,6 +504,10 @@ class Trainer:
                         continue
                     if self._stop_before_step(stops):
                         self._preempt(epoch, done, agg, pending)
+                    if prof_left and prof is None and steps_here >= 1:
+                        prof = trace(self.cfg.profile_dir
+                                     or Path(self.cfg.log_dir or ".") / "profile")
+                        prof.__enter__()
                     arrays = self._place_batch(batch, self.train_loader, cache)
                     if self.mesh is None:
                         self.state, aux = self._train_step(self.state, arrays)
@@ -506,6 +516,13 @@ class Trainer:
                                                            stop=self._preempted)
                         stops.append(self._fetch(aux["stop"]))
                     done += 1
+                    steps_here += 1
+                    if prof is not None:
+                        float(aux["loss"])  # the step's device work ends inside the window
+                        prof_left -= 1
+                        if not prof_left:
+                            prof.__exit__(None, None, None)
+                            prof = None
                     n_real = (int(np.sum(batch["sample_weight"] > 0))
                               if "sample_weight" in batch else len(batch["fname"]))
                     if not n_real:  # a zero-weight step of a short shard
@@ -554,6 +571,11 @@ class Trainer:
                         metrics={"val_loss": record.get("val_loss", record.get("train_loss", 0.0))},
                     )
         finally:
+            # a partial window (an error, a preemption) still writes its trace
+            if prof is not None:
+                prof.__exit__(None, None, None)
+            if nan_checks is not None:
+                enable_nan_checks(nan_checks)
             self._preempted = False
             if prev_handler is not None:
                 signal.signal(signal.SIGTERM, prev_handler)
@@ -563,4 +585,9 @@ class Trainer:
     def test(self, epoch: int = 0) -> Dict[str, float]:
         assert self.test_loader is not None, "test() needs a test loader"
         csv = Path(self.cfg.save_path) / "SSIMs.csv" if self.cfg.save_path is not None else None
-        return self._run_eval(self.test_loader, epoch, "test", ssim_csv=csv)
+        nan_checks = enable_nan_checks(True) if self.cfg.debug_nans else None
+        try:
+            return self._run_eval(self.test_loader, epoch, "test", ssim_csv=csv)
+        finally:
+            if nan_checks is not None:
+                enable_nan_checks(nan_checks)

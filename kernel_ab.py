@@ -15,10 +15,13 @@ synchronize, the device running behind), in the same turns. Kernels:
 the normal apply and its backward at ``chip_smoke.py``'s four cases, the
 DFT at its eight ``(O, N, I)`` layouts and ``fft2_plane`` at its four
 shapes. Each result is checked against this checkout's plain version at
-``chip_smoke.py``'s tolerances. Then the full-width CineNet-XF and
-VarNet-XF forwards and the CineNet-XF train step run through either
-checkout's normal-apply kernels, in the same turns (the rest of the path
-is this checkout's).
+``chip_smoke.py``'s tolerances. Then the entries the models call,
+``dft_cuda.ComplexDFTMatmul.apply`` at (1, 15, 40000) and
+``normal_cuda.NormalApply.apply`` at the flagship shape (autograd Functions
+or custom ops, with the wrappers and kernels behind them), the host's time
+per call in the same turns. Then the full-width CineNet-XF and VarNet-XF
+forwards and train steps run through either checkout's entries, in the
+same turns (the rest of the path is this checkout's).
 
 Prints one ``[ab]`` line per shape and, last, the card's nvidia-smi line and
 one JSON object with every time; ``--out`` also writes that object to a
@@ -64,16 +67,20 @@ def load_port(root: Path):
     return dict(normal_apply=mods["normal_cuda"].normal_apply,
                 normal_apply_bwd=mods["normal_cuda"].normal_apply_bwd,
                 complex_dft_matmul=mods["dft_cuda"].complex_dft_matmul,
-                fft2_plane=mods["fft2_cuda"].fft2_plane)
+                fft2_plane=mods["fft2_cuda"].fft2_plane,
+                ComplexDFTMatmul=mods["dft_cuda"].ComplexDFTMatmul,
+                NormalApply=mods["normal_cuda"].NormalApply)
 
 
-def end_to_end(torch, dev, ports, normal_cuda):
-    """The full-width CineNet-XF and VarNet-XF forwards and the CineNet-XF
-    train step of ``chip_smoke.py`` (this checkout's models, random weights
-    from seed 0) through either checkout's normal-apply kernels, in turns
-    other, this, this, other: per turn, after one warm call, the median of
-    E2E_FORWARDS forwards or E2E_STEPS steps (device ms and the host's ms to
-    issue each) and the cudaMallocs of the caching allocator among them."""
+def end_to_end(torch, dev, ports, dft_cuda, normal_cuda):
+    """The full-width CineNet-XF and VarNet-XF forwards and train steps of
+    ``chip_smoke.py`` (this checkout's models, random weights from seed 0)
+    through either checkout's DFT and normal-apply entries
+    (``ComplexDFTMatmul``, ``NormalApply``) and the kernels behind them, in
+    turns other, this, this, other: per turn, after one warm call, the
+    median of E2E_FORWARDS forwards or E2E_STEPS steps (device ms and the
+    host's ms to issue each) and the cudaMallocs of the caching allocator
+    among them."""
     from cinemri_tpu_torch.data.masks import RandomMask
     from cinemri_tpu_torch.models import build_model
     from cinemri_tpu_torch.ops.cplx import Complex
@@ -92,15 +99,21 @@ def end_to_end(torch, dev, ports, normal_cuda):
     runs = {"cinenet forward": forward_of("cinenet", CS.CINENET, Complex(kre, kim), mask,
                                           Complex(*CS.rss_maps(torch, 0, dev))),
             "varnet forward": forward_of("varnet", CS.FLAGSHIP, Complex(kre, kim), mask)}
-    tmodel = build_model("cinenet", "XF", device=dev, generator=torch.Generator().manual_seed(0),
-                         **CS.CINENET)
-    state = create_train_state(tmodel, device=dev)
-    batch, step = CS.train_batch(torch, dev, sens_maps=True), make_train_step()
+    step = make_train_step()
 
-    def train_step():
-        nonlocal state
-        state, _ = step(state, batch)
-    runs["cinenet train step"] = train_step
+    def train_step_of(family, config):
+        state = create_train_state(build_model(family, "XF", device=dev,
+                                               generator=torch.Generator().manual_seed(0),
+                                               **config), device=dev)
+        batch = CS.train_batch(torch, dev, sens_maps=family == "cinenet")
+
+        def train_step():
+            nonlocal state
+            state, _ = step(state, batch)
+        return train_step
+
+    runs["cinenet train step"] = train_step_of("cinenet", CS.CINENET)
+    runs["varnet train step"] = train_step_of("varnet", CS.FLAGSHIP)
 
     def timed(fn):
         """(device ms between CUDA events, host ms to issue the work) of one
@@ -116,15 +129,15 @@ def end_to_end(torch, dev, ports, normal_cuda):
         e1.synchronize()
         return e0.elapsed_time(e1), host
 
-    saved = normal_cuda.normal_apply, normal_cuda.normal_apply_bwd
+    saved = dft_cuda.ComplexDFTMatmul, normal_cuda.NormalApply
     out = {}
     try:
         for label, fn in runs.items():
             n = E2E_STEPS if "train" in label else E2E_FORWARDS
             rec = {key: {"other": [], "this": []} for key in ("ms", "host_ms", "cuda_mallocs")}
             for side in ("other", "this", "this", "other"):
-                normal_cuda.normal_apply = ports[side]["normal_apply"]
-                normal_cuda.normal_apply_bwd = ports[side]["normal_apply_bwd"]
+                dft_cuda.ComplexDFTMatmul = ports[side]["ComplexDFTMatmul"]
+                normal_cuda.NormalApply = ports[side]["NormalApply"]
                 fn()  # warm
                 segments = torch.cuda.memory_stats()["segment.all.allocated"]
                 ms, host = zip(*(timed(fn) for _ in range(n)))
@@ -136,7 +149,48 @@ def end_to_end(torch, dev, ports, normal_cuda):
                   f"host ms to issue it other {rec['host_ms']['other']} this {rec['host_ms']['this']}; "
                   f"cudaMallocs other {rec['cuda_mallocs']['other']} this {rec['cuda_mallocs']['this']}")
     finally:
-        normal_cuda.normal_apply, normal_cuda.normal_apply_bwd = saved
+        dft_cuda.ComplexDFTMatmul, normal_cuda.NormalApply = saved
+    return out
+
+
+def entries(torch, dev, ports, randn):
+    """The host's time per call (µs, HOST_CALLS calls after a synchronize,
+    the device running behind) of each checkout's entries as the models call
+    them, in turns other, this, this, other: the DFT at (1, 15, 40000) with
+    and without autograd recording, and the normal apply at the flagship
+    shape with λ = 0.0."""
+    from cinemri_tpu_torch.data.masks import RandomMask
+    from cinemri_tpu_torch.ops import fft as FFT
+    from cinemri_tpu_torch.physics import operators as OPS
+
+    T, C, H, W = CS.T, CS.C, CS.H, CS.W
+    mats = FFT._dft_tensors(T, False, False, "ortho", dev) + FFT._dft_adjoint_tensors(
+        T, False, False, "ortho", dev)
+    xr, xi = randn(1, T, H * W), randn(1, T, H * W)
+    xg = xr.clone().requires_grad_()
+    kern = OPS.masked_normal_kernel(torch.from_numpy(RandomMask([10], [4])(T, H, seed=1)[None]).to(dev))
+    n_args = (randn(1, T, H, W), randn(1, T, H, W), kern.re.contiguous(), kern.im.contiguous(),
+              randn(1, C, H, W), randn(1, C, H, W), 0.0, False)
+    calls = {"ComplexDFTMatmul.apply (1, 15, 40000)":
+             lambda p: p["ComplexDFTMatmul"].apply(xr, xi, *mats, False),
+             "ComplexDFTMatmul.apply (1, 15, 40000), autograd recording":
+             lambda p: p["ComplexDFTMatmul"].apply(xg, xi, *mats, False),
+             "NormalApply.apply b=1 kt=15 lam=0.0": lambda p: p["NormalApply"].apply(*n_args)}
+    out = {}
+    for label, call in calls.items():
+        host = {"other": [], "this": []}
+        for side in ("other", "this", "this", "other"):
+            call(ports[side])  # untimed: allocations cached
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(HOST_CALLS):
+                call(ports[side])
+            host[side].append((time.perf_counter() - t0) / HOST_CALLS * 1e6)
+            torch.cuda.synchronize()
+        mean = {k: statistics.mean(v) for k, v in host.items()}
+        out[label] = dict(host_us=host, mean_host_us=mean)
+        print(f"[ab] entry {label}: host per call µs other {mean['other']:.1f} ({host['other']}) "
+              f"this {mean['this']:.1f} ({host['this']})")
     return out
 
 
@@ -243,7 +297,8 @@ def main() -> int:
     del cases
     torch.cuda.empty_cache()
     report = dict(device=smi, other=str(args.other), results=results,
-                  end_to_end=end_to_end(torch, dev, ports, normal_cuda))
+                  entries=entries(torch, dev, ports, randn),
+                  end_to_end=end_to_end(torch, dev, ports, dft_cuda, normal_cuda))
     if args.out:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps(report, indent=1))

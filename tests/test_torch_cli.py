@@ -2,6 +2,8 @@
 the CPU: the parser, the config fingerprint, the artifact names of the
 train -> test (with inference) -> visualize flow, the inference helpers,
 the options whose path is not ported yet, and a CRNN run of each family.
+The reference-checkpoint import and export flows are in
+tests/test_torch_interop.py.
 """
 
 import warnings
@@ -74,7 +76,10 @@ class TestParser:
 # (family, argv, error, message): the options not ported yet name their
 # ROADMAP item; the parallel launch flags and mesh axes (items 13 and 13b),
 # ported, refuse a launch that cannot run: a mesh of 2 at one process, and
-# the plane axis of a type without plane batches (the JAX CLI's message)
+# the plane axis of a type without plane batches (the JAX CLI's message);
+# export, the checkpoint import and the profiler (items 14.1-14.3), ported,
+# refuse an export on a mesh, an import that would be overwritten by a
+# resume, and a negative step count
 _OPTION_CASES = [
     ("varnet", ["--num_devices", "2"], ValueError, "torchrun --nproc_per_node 2"),
     ("varnet", ["--coil_devices", "2"], ValueError, "torchrun --nproc_per_node 2"),
@@ -83,13 +88,15 @@ _OPTION_CASES = [
     ("varnet", ["--num_processes", "2"], ValueError, "--coordinator_address host:port"),
     ("varnet", ["--coordinator_address", "localhost:1234", "--process_id", "1"], ValueError,
      r"--process_id 1 is not in \[0, 1\)"),
-    ("varnet", ["--mode", "export"], NotImplementedError, "item 14"),
-    ("varnet", ["--from_torch_ckpt", "model.ckpt"], NotImplementedError, "item 14"),
-    ("varnet", ["--bf16", "1"], NotImplementedError, "item 14"),
-    ("varnet", ["--packed", "1"], NotImplementedError, "item 14"),
-    ("varnet", ["--profile_steps", "2"], NotImplementedError, "item 14"),
-    ("cinenet", ["--bf16", "1"], NotImplementedError, "item 14"),
-    ("xpdnet", ["--packed", "1", "--dynamic_type", "2D"], NotImplementedError, "item 14"),
+    ("varnet", ["--mode", "export", "--coil_devices", "2"], ValueError,
+     "--mode export runs in one process"),
+    ("varnet", ["--from_torch_ckpt", "model.ckpt", "--resume_training", "1"], ValueError,
+     "mutually exclusive"),
+    ("varnet", ["--bf16", "1"], NotImplementedError, "item 14.4"),
+    ("varnet", ["--packed", "1"], NotImplementedError, "item 14.6"),
+    ("varnet", ["--profile_steps", "-1"], ValueError, "--profile_steps counts the steps"),
+    ("cinenet", ["--bf16", "1"], NotImplementedError, "item 14.4"),
+    ("xpdnet", ["--packed", "1", "--dynamic_type", "2D"], NotImplementedError, "item 14.6"),
 ]
 
 

@@ -85,7 +85,12 @@ def test_port_imports_no_jax_and_builds_nothing():
                  "cinemri_tpu_torch.models.denoisers.kspace_cnn",
                  "cinemri_tpu_torch.ops.wavelet",
                  "cinemri_tpu_torch.cli.inference",
-                 "cinemri_tpu_torch.cli.visualize"):
+                 "cinemri_tpu_torch.cli.visualize",
+                 "cinemri_tpu_torch.interop.port",
+                 "cinemri_tpu_torch.interop.torch_import",
+                 "cinemri_tpu_torch.interop.reference_layout",
+                 "cinemri_tpu_torch.instrument",
+                 "cinemri_tpu_torch.instrument.opstats"):
         assert name in out["modules"]
     assert out["bad"] == []  # no JAX, no JAX package, no h5py/tensorboardX/yaml/matplotlib
     assert out["loaded"] == []  # no kernel library loaded

@@ -25,6 +25,7 @@ from cinemri_tpu.ops.cplx import to_numpy as j_to_numpy
 
 from cinemri_tpu_torch.interop.flax_params import (
     conv_transpose_weight,
+    cinenet_state_dict,
     conv_weight,
     unet_state_dict,
     varnet_state_dict,
@@ -110,6 +111,45 @@ class TestDenoisers:
             NormUnet(4, 2, packed=True)
         with pytest.raises(NotImplementedError, match="item 14"):
             MWCNN(4, 4, packed=True)
+
+
+class TestEmptyLevel:
+    """A U-Net level pooled from a size of 1 is empty, as in the JAX package
+    (ROADMAP Queue 3, repaired): the port gives JAX's output where
+    ``F.avg_pool`` and the convolutions raised."""
+
+    @pytest.mark.parametrize("dims,shape", [(2, (2, 3, 20)), (3, (1, 3, 12, 8))])
+    def test_unet_with_an_empty_level_matches_jax(self, rng, dims, shape):
+        x = rng.standard_normal((*shape, 2)).astype(np.float32)
+        jm = JUnet(chans=4, num_pool_layers=2, in_chans=2, out_chans=2, dims=dims)
+        params = jm.init(jax.random.PRNGKey(3), jnp.asarray(x))
+        want = np.asarray(jm.apply(params, jnp.asarray(x)))
+        tm = Unet(chans=4, num_pool_layers=2, dims=dims)
+        tm.load_state_dict(unet_state_dict(to_np_tree(params)["params"], ""))
+        with torch.no_grad():
+            got = tm(torch.from_numpy(x).movedim(-1, 1)).movedim(1, -1).numpy()
+        assert np.isfinite(got).all()
+        assert_model_close(got, want)
+
+    def test_cinenet_xf_at_three_frames_matches_jax(self):
+        """Queue 3's input: CineNet-XF (1 cascade, cg 2, chans 4, pools 2) on
+        a (1, 3, 2, 18, 16) volume at seed 0; its (w, t) planes have t = 3,
+        pooled to 1 and then 0."""
+        rng = np.random.default_rng(0)
+        kw = dict(num_cascades=1, cg_iters=2, chans=4, pools=2)
+        mask = JRandomMask([4], [2])(3, 18, seed=0)[None].astype(np.float32)
+        k = c64(rng, 1, 3, 2, 18, 16) * mask
+        s = c64(rng, 1, 1, 2, 18, 16)
+        s /= np.sqrt((np.abs(s) ** 2).sum(2, keepdims=True))
+        jm = j_build_model("cinenet", "XF", **kw)
+        params = jm.init(jax.random.PRNGKey(0), jc(k), jnp.asarray(mask), jc(s))
+        want = np.asarray(jm.apply(params, jc(k), jnp.asarray(mask), jc(s)))
+        tm = build_model("cinenet", "XF", device="cpu", **kw)
+        tm.load_state_dict(cinenet_state_dict(to_np_tree(params)))
+        with torch.no_grad():
+            got = tm(from_complex(k), torch.from_numpy(mask), from_complex(s)).numpy()
+        assert got.shape == (1, 3, 18, 16) and np.isfinite(got).all()
+        assert_model_close(got, want)
 
 
 class TestSensitivityModel:
