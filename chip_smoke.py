@@ -124,6 +124,25 @@ and served, 4 requests each, through ``serve.bind_model`` and through a
 ``serve.load_exported``) with equal launches and images, then timed in
 turns; it must take under 120 s.
 
+Then the precision modes, bf16 activations and remat policies.
+``[precision]``: the DFT at (150, 200, 200), (30000, 200, 1), (1, 15, 40000)
+and (40000, 15, 1) and the normal apply and its backward at the flagship
+shape in the TF32 modes 'high' (3xTF32) and 'default' (1xTF32) of the
+tensor-core tile (the N = 15 DFTs run the FP32 kernel in every mode), each
+against its emulating plain version (TF32_TOL), against 'highest', timed
+beside its TF32 bound and the complex64 library call (TF32 for 'default').
+``[bf16]``: the flagship VarNet-XF served (4 requests) and fitted (3 steps)
+in f32 at 'highest' and in bf16 at 'highest', 'high' and 'default' (ms per
+volume, ms per step, peak memory, the bf16 images against f32 at the JAX
+package's bound, the launches at each mode); the 'high' and 'default' runs
+timed call by call and repeated through the plain versions (held against
+the kernels' run) and the library calls; and one bf16 forward each of
+CineNet-XF and XPDNet-XF.
+``[remat]``: under each remat policy, one flagship train step with cuDNN's
+deterministic algorithms (its gradients against full replay's), then three
+timed steps with cuDNN's defaults. The ``[build]`` line names the
+compile cache's directory, and a second build of the run must be a hit.
+
 It checks that each kernel run launched every kernel as many times as the
 path calls it and that the runs agree. Any failure ends the run with a
 non-zero exit code.
@@ -136,14 +155,18 @@ Output, last three lines: one JSON object with a row per kernel and run
 ``cinenet-crnn`` and ``xpdnet-crnn``, ``"xpdnet-crnn-dual"`` (its DFT only),
 ``"data-serve"``, ``"soft-sense"``, ``"loop"``, ``"ddp"``, ``"mesh"`` (rank 0's 2
 steps on ``{coil: 2}``) and, for ``fft2_plane``,
-``"check"``), the card's name and power limit as nvidia-smi
+``"check"``; the TF32 modes as their own rows, ``complex_dft_matmul[high]``
+... ``normal_apply_bwd[default]``, from ``[bf16]``'s run at that mode and
+its repeats through the plain versions and the library calls, with the
+largest error of ``[precision]``'s checks), the card's
+name and power limit as nvidia-smi
 reports them, and ``{"ok": true, "device": {...}}``. A row's ``ms``,
 ``plain_ms`` and ``library_ms`` sum CUDA-event times taken around every
 call of that function in its run (the four serve requests, the four train
 steps, the whole ``[loop]`` fit, the 3 data-parallel steps of ``[ddp]``, rank
-0's 2 coil-axis steps of ``[mesh]``, or
-one call at each of the four check shapes); ``bound_ms`` sums the
-bound of each call of the kernel run. The line before them, ``[details]
+0's 2 coil-axis steps of ``[mesh]``, ``[bf16]``'s serving and fit at a TF32
+mode, or one call at each of the four check shapes); ``bound_ms`` sums the
+bound of each call of the kernel run (at the TF32 rate for the TF32 rows). The line before them, ``[details]
 {...}``, holds the per-shape microbenchmarks and every other number.
 
 Imports nothing of JAX. Exits non-zero without a CUDA device, or when the
@@ -295,13 +318,14 @@ def graph_ms(torch, fn, iters: int = 20) -> float:
 
 # (FLOP, bytes) of one call, from its inputs: the 4-multiplication complex
 # product (8 FLOP per complex multiply-add); each input read once, each
-# output written once.
-def dft_cost(xr, xi, wr, wi):
+# output written once. The wrappers take a trailing precision, which the
+# costs, the library preps and the stand-ins below accept and ignore.
+def dft_cost(xr, xi, wr, wi, precision="highest"):
     o, n, i = xr.shape
     return 8.0 * o * n * n * i, 4.0 * (4 * o * n * i + 2 * n * n)
 
 
-def normal_cost(xr, xi, kr, ki, sr, si, lam):
+def normal_cost(xr, xi, kr, ki, sr, si, lam, precision="highest"):
     """The h-contraction per coil, the products around it and ``+ λx``
     (which the kernel computes whatever λ is); λ's four bytes are left out."""
     b, t, h, w = xr.shape
@@ -317,7 +341,7 @@ def fft2_cost(xr, xi, whr, whi, wwr, wwi):
     return 8.0 * b * (h * h * w + h * w * w), 4.0 * (4 * b * h * w + 2 * h * h + 2 * w * w)
 
 
-def normal_bwd_cost(xr, xi, gr, gi, kr, ki, sr, si, lam):
+def normal_bwd_cost(xr, xi, gr, gi, kr, ki, sr, si, lam, precision="highest"):
     """Two h-contractions per coil (ȳ = Kᴴ(S⊙g) and the recomputed
     z = K(S⊙x)), the elementwise products around them (36 FLOP per
     (b,t,c,h,w) element), x̄ + λg and λ̄; reads x, g, K, S, writes x̄, s̄, λ̄."""
@@ -337,7 +361,7 @@ def bound(cost, peak_flops: float, peak_bw: float):
 def dft_library(torch):
     """One complex64 ``matmul`` in the layout of the input: rows times ``Wᵀ``
     for ``I == 1``, ``W`` from the left on each ``(N, I)`` slab otherwise."""
-    def prep(xr, xi, wr, wi):
+    def prep(xr, xi, wr, wi, precision="highest"):
         x, w = torch.complex(xr, xi), torch.complex(wr, wi)
         return x, w, xr.shape[2] > 1
 
@@ -350,7 +374,7 @@ def dft_library(torch):
 
 
 def normal_library(torch):
-    def prep(xr, xi, kr, ki, sr, si, lam):
+    def prep(xr, xi, kr, ki, sr, si, lam, precision="highest"):
         b, t, h, _ = xr.shape
         s = torch.complex(sr, si)
         return torch.complex(xr, xi), torch.complex(kr, ki).expand(b, t, h, h), s, s.conj(), lam
@@ -390,7 +414,7 @@ def normal_bwd_library(torch):
     """``torch.autograd.grad`` through the one-einsum complex64 forward of
     :func:`normal_library` (the forward included): no single PyTorch call
     computes this backward."""
-    def prep(xr, xi, gr, gi, kr, ki, sr, si, lam):
+    def prep(xr, xi, gr, gi, kr, ki, sr, si, lam, precision="highest"):
         b, t, h, _ = xr.shape
         lam = (lam.detach().reshape(()) if torch.is_tensor(lam)
                else torch.tensor(lam, dtype=torch.float32, device=xr.device))
@@ -409,17 +433,19 @@ def normal_bwd_library(torch):
 
 def normal_bwd_op_library(torch):
     """:func:`normal_bwd_library` in the slot of the op
-    ``normal_cuda.normal_apply_bwd_op`` (its last argument is the ``plain``
-    flag), which the normal apply's gradient calls with autograd on: inside
-    the op's own implementation autograd's dispatch keys are excluded, and
-    the yardstick's ``autograd.grad`` could not record there."""
+    ``normal_cuda.normal_apply_bwd_op`` (its last two arguments are the
+    ``plain`` flag and the precision), which the normal apply's gradient
+    calls with autograd on: inside the op's own implementation autograd's
+    dispatch keys are excluded, and the yardstick's ``autograd.grad`` could
+    not record there."""
     prep, call = normal_bwd_library(torch)
-    return (lambda *args: prep(*args[:-1])), call
+    return (lambda *args: prep(*args[:-2])), call
 
 
 def normal_bwd_op_cost(*args):
-    """:func:`normal_bwd_cost` of the op's arguments (the ``plain`` flag last)."""
-    return normal_bwd_cost(*args[:-1])
+    """:func:`normal_bwd_cost` of the op's arguments (the ``plain`` flag and
+    the precision last)."""
+    return normal_bwd_cost(*args[:-2])
 
 
 class Timed:
@@ -2102,6 +2128,448 @@ def profile_phase(torch, dev, data, launches):
     return report
 
 
+def tf32_library(torch, mode, library):
+    """A library yardstick ``(prep, call)`` at a TF32 mode's nearest library
+    arithmetic: the complex64 call with ``allow_tf32`` on for 'default' (one
+    TF32 pass) and off for 'high' (f32)."""
+    prep, call = library
+
+    def run(*args):
+        saved = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = mode == "default"
+        try:
+            return call(*args)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = saved
+
+    return prep, run
+
+
+# Dense TF32 rate of the H100 SXM's tensor cores (NVIDIA data sheet), the
+# bound of the 'high' (3 passes) and 'default' (1 pass) modes.
+TF32_PEAK = 495e12
+TF32_PASSES = {"high": 3, "default": 1}
+# A TF32 kernel against its emulating plain version (the same TF32 operands
+# and partial products, another summation order), relative to max |plain|.
+TF32_TOL = 1e-5
+# bf16 against f32 (the JAX package's tests/test_models.py bound): the
+# largest difference and the mean one, relative to max |f32|.
+BF16_MAX_TOL = 0.05
+BF16_MEAN_TOL = 1e-2
+# A bf16 fit's per-step losses through the kernels against the plain
+# versions at the same mode (relative)
+BF16_LOSS_RTOL = 1e-3
+# Remat policies against full replay, first-step gradients (JAX's bound).
+REMAT_RTOL, REMAT_ATOL = 1e-5, 1e-7
+
+
+def precision_phase(torch, dev, peak_bw):
+    """``[precision]``: the DFT (at the flagship layouts (150, 200, 200),
+    (30000, 200, 1), (1, 15, 40000), (40000, 15, 1)) and the normal apply
+    and its backward (b=1, t=15, c=10, 200x200, kt=15) in the TF32 modes
+    'high' (3xTF32) and 'default' (1xTF32): each against its emulating plain
+    version (TF32_TOL x max |out|), printed against the 'highest' plain
+    version, timed (event loop and CUDA graph), beside its bound (the mode's
+    FLOP over TF32_PEAK, 'high' three times the FLOP, or the bytes over the
+    memory rate) and the nearest library call: one complex64 ``matmul`` /
+    ``einsum``, with ``allow_tf32`` on for 'default' and in f32 for 'high'.
+    The DFT at N = 15 runs the FP32 kernel in every mode. Returns the report
+    and, per (kernel, mode), the largest error against the emulation over
+    the shapes (the ``kernels`` rows' ``max_abs_err``)."""
+    from cinemri_tpu_torch.data.masks import RandomMask
+    from cinemri_tpu_torch.ops import fft as FFT
+    from cinemri_tpu_torch.ops.kernels import dft_cuda, normal_cuda
+    from cinemri_tpu_torch.physics.operators import masked_normal_kernel
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(13)
+    randn = lambda *shape: torch.randn(shape, generator=gen, device=dev)
+    cases, errs_by_row = [], {}
+
+    def check(kernel, shape, args, fn, plain, library, cost, mode, parts):
+        got, want, highest = fn(*args, mode), plain(*args, mode), plain(*args, "highest")
+        prep, lib_fn = tf32_library(torch, mode, library)
+        lib_in = prep(*args)
+        lib_fn(*lib_in)
+        torch.cuda.synchronize()
+        errs, moved = [], []
+        for sl in parts:
+            scale = max(a.abs().max().item() for a in want[sl])
+            err = max((a - b_).abs().max().item() for a, b_ in zip(got[sl], want[sl]))
+            errs.append((err, scale))
+            moved.append(max((a - b_).abs().max().item() for a, b_ in zip(got[sl], highest[sl])) / scale)
+            if not err <= TF32_TOL * scale:
+                fail(f"{kernel}[{mode}] disagrees with its emulating plain version at {shape}: "
+                     f"{err} > {TF32_TOL * scale}")
+        if kernel == "normal_apply_bwd":
+            lam_err = abs(got[4].sum().item() - want[4].sum().item()) / abs(want[4].sum().item())
+            if not lam_err <= LAM_TOL:
+                fail(f"normal_apply_bwd[{mode}] λ̄ disagrees at {shape}: rel {lam_err} > {LAM_TOL}")
+        flops, nbytes = cost(*args)
+        t_ops, t_bytes = flops * TF32_PASSES[mode] / TF32_PEAK * 1e3, nbytes / peak_bw * 1e3
+        case = dict(kernel=kernel, mode=mode, **shape, max_abs_err=max(e for e, _ in errs),
+                    max_rel_err=max(e / s for e, s in errs), vs_highest_rel=max(moved),
+                    ms=cuda_ms(torch, lambda: fn(*args, mode)),
+                    device_ms=graph_ms(torch, lambda: fn(*args, mode)),
+                    plain_ms=cuda_ms(torch, lambda: plain(*args, mode), iters=10),
+                    library_ms=cuda_ms(torch, lambda: lib_fn(*lib_in), iters=10),
+                    bound_ms=max(t_ops, t_bytes),
+                    bound_by="operations" if t_ops >= t_bytes else "bytes",
+                    library=f"complex64 {'TF32' if mode == 'default' else 'f32'}")
+        cases.append(case)
+        print(f"[precision] {kernel}[{mode}] {shape}: vs its emulation max_abs_err "
+              f"{case['max_abs_err']:.3e} rel {case['max_rel_err']:.3e} (tol {TF32_TOL:.0e}); vs "
+              f"'highest' rel {case['vs_highest_rel']:.3e}; kernel {case['ms']:.4f} ms (device alone "
+              f"{case['device_ms']:.4f}) plain {case['plain_ms']:.4f} ms library "
+              f"({case['library']}) {case['library_ms']:.4f} ms bound {case['bound_ms']:.4f} ms "
+              f"({case['bound_by']})")
+        errs_by_row[kernel, mode] = max(errs_by_row.get((kernel, mode), 0.0), case["max_abs_err"])
+
+    for mode in TF32_PASSES:
+        for o, n, i in ((T * C, H, W), (T * C * H, W, 1), (1, T, H * W), (H * W, T, 1)):
+            wr, wi = FFT._dft_tensors(n, False, False, "ortho", dev)
+            check("complex_dft_matmul", dict(O=o, N=n, I=i), (randn(o, n, i), randn(o, n, i), wr, wi),
+                  dft_cuda.complex_dft_matmul, dft_cuda.complex_dft_matmul_torch, dft_library(torch),
+                  dft_cost, mode, (slice(0, 2),))
+    mask = torch.from_numpy(RandomMask([10], [4])(T, H, seed=0)[None].astype(np.float32)).to(dev)
+    kern = masked_normal_kernel(mask)
+    sr, si = randn(1, C, H, W), randn(1, C, H, W)
+    rss = torch.sqrt((sr * sr + si * si).sum(1, keepdim=True))
+    xr, xi = randn(1, T, H, W), randn(1, T, H, W)
+    ops = (kern.re.contiguous(), kern.im.contiguous(), sr / rss, si / rss)
+    shape = dict(b=1, t=T, c=C, h=H, w=W, kt=T)
+    for mode in TF32_PASSES:
+        check("normal_apply", dict(shape, lam=0.0), (xr, xi) + ops + (0.0,), normal_cuda.normal_apply,
+              normal_cuda.normal_apply_torch, normal_library(torch), normal_cost, mode, (slice(0, 2),))
+        # a cotangent correlated with x, so that λ̄ does not cancel
+        check("normal_apply_bwd", dict(shape, lam=0.37),
+              (xr, xi, xr + randn(1, T, H, W), xi + randn(1, T, H, W)) + ops + (0.37,),
+              normal_cuda.normal_apply_bwd, normal_cuda.normal_apply_bwd_torch,
+              normal_bwd_library(torch), normal_bwd_cost, mode, (slice(0, 2), slice(2, 4)))
+    wall = time.perf_counter() - t_phase
+    print(f"[precision] phase wall time {wall:.1f} s")
+    return dict(cases=cases, wall_s=wall), errs_by_row
+
+
+def request_profile(torch, fn):
+    """One call of ``fn`` under the profiler: host ms, device busy ms, the
+    device's idle share of the host time and the device ms of the three
+    largest kernel kinds (``instrument/opstats.py``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from cinemri_tpu_torch.instrument import opstats
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3
+    with tempfile.TemporaryDirectory() as tmp:
+        prof.export_chrome_trace(str(Path(tmp) / "trace.json"))
+        events = opstats.kernel_events(Path(tmp) / "trace.json")
+    if not events:
+        fail("the profiler recorded no device events")
+    busy, _ = opstats.busy_share(events)
+    top = list(opstats.fold_by_kind(events).items())[:3]
+    return dict(host_ms=host_ms, device_busy_ms=busy, idle_share=1 - busy / host_ms,
+                top_kinds={k: round(v["ms"], 3) for k, v in top})
+
+
+def bf16_phase(torch, dev, data):
+    """``[bf16]``: the flagship VarNet-XF (10 cascades, chans 16, pools 3,
+    sens 8/3; RandomMask([10], [4]) requests) served through
+    ``serve.bind_model`` (one warm request, then the four requests of
+    ``[serve]``, then one profiled: the device's idle share) and fitted by
+    ``Trainer.fit`` (1 epoch of 3 steps over ``[data]``'s volumes 0, 1, 0),
+    from the same weights, in f32 at 'highest', in bf16 at 'highest', 'high'
+    and 'default'; then one CineNet-XF and one XPDNet-XF (norm_buffers on)
+    forward in bf16 beside f32. Each bf16 output against the f32 one of the
+    same request: max <= BF16_MAX_TOL and mean < BF16_MEAN_TOL of max |f32|
+    (the JAX package's bound). Params and gradients stay f32, losses finite;
+    the launches of each kernel at each mode are counted (the 'high' and
+    'default' runs must launch all three at their mode).
+
+    The 'high' and 'default' runs are the TF32 kernels' main path: each
+    kernel call in them is timed (``Timed``), and the same run is repeated
+    through the plain versions at that mode and through the library calls
+    (``tf32_library``), each timed the same way, for the ``kernels`` rows.
+    The plain run's served images and losses are held against the kernel
+    run's: the same arithmetic in another summation order, which bf16
+    activations carry up to their own rounding (BF16_MAX_TOL /
+    BF16_MEAN_TOL of max |out|, losses within BF16_LOSS_RTOL)."""
+    from cinemri_tpu_torch.data import EquispacedMask, RandomMask, VarNetDataTransform
+    from cinemri_tpu_torch.models import build_model
+    from cinemri_tpu_torch.ops import fft as FFT
+    from cinemri_tpu_torch.ops.cplx import Complex
+    from cinemri_tpu_torch.ops.kernels import dft_cuda, normal_cuda
+    from cinemri_tpu_torch.physics import operators as OPS
+    from cinemri_tpu_torch.serve import bind_model
+    from cinemri_tpu_torch.train import Loader, Trainer, TrainerConfig
+
+    t_phase = time.perf_counter()
+    requests = [flagship_inputs(torch, mf, s, dev) for mf, s in
+                [(RandomMask([10], [4]), s) for s in (0, 1, 2)] + [(EquispacedMask([0.08], [4]), 3)]]
+    transform = VarNetDataTransform(RandomMask([10], [4]), use_seed=False)
+    ds = MemoryDataset([data["decoded"][i] for i in (0, 1, 0)], ["bf16_0", "bf16_1", "bf16_2"],
+                       transform)
+    counters = (dft_cuda.LAUNCHES_BY_PRECISION, normal_cuda.LAUNCHES_BY_PRECISION,
+                normal_cuda.BWD_LAUNCHES_BY_PRECISION)
+
+    def counts():
+        return [dict(c) for c in counters]
+
+    def grads_f32(model):
+        for name, p in model.named_parameters():
+            if p.dtype != torch.float32 or (p.grad is not None and p.grad.dtype != torch.float32):
+                fail(f"bf16: {name} is {p.dtype} with a {p.grad.dtype} gradient, not f32")
+
+    def set_backends(backend):
+        FFT.set_dft_backend(backend)
+        OPS.set_normal_backend(backend)
+
+    def run(label, bf16, mode, timers=(), backend="kernel"):
+        """Serve and fit at ``mode`` through ``backend``, with ``timers``
+        standing in for the wrappers; returns the run's record."""
+        FFT.set_dft_precision(mode)
+        set_backends(backend)
+        try:
+            with contextlib.ExitStack() as stack:
+                for timer in timers:
+                    stack.enter_context(timer)
+                before = counts()
+                model = build_model("varnet", "XF", device=dev,
+                                    generator=torch.Generator().manual_seed(0), bf16=bf16,
+                                    **FLAGSHIP).eval()
+                serve = bind_model(model, device=dev)
+                serve(*requests[0])
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                latency, outs = [], []
+                for request in requests:
+                    t0 = time.perf_counter()
+                    outs.append(serve(*request))
+                    torch.cuda.synchronize()
+                    latency.append((time.perf_counter() - t0) * 1e3)
+                serve_peak = torch.cuda.max_memory_allocated()
+                profiled = request_profile(torch, lambda: serve(*requests[0]))
+                del serve, model
+                torch.cuda.empty_cache()
+                trainer = Trainer(build_model("varnet", "XF", device=dev,
+                                              generator=torch.Generator().manual_seed(0), bf16=bf16,
+                                              **FLAGSHIP),
+                                  TrainerConfig(epochs=1), device=dev,
+                                  train_loader=Loader(ds, batch_size=1, shuffle=False, seed=42,
+                                                      prefetch_size=2, num_workers=4))
+                step = trainer._train_step
+                rec = dict(ms=[], loss=[])
+
+                def timed_step(state, batch):
+                    e0 = torch.cuda.Event(enable_timing=True)
+                    e1 = torch.cuda.Event(enable_timing=True)
+                    e0.record()
+                    state, aux = step(state, batch)
+                    e1.record()
+                    e1.synchronize()
+                    rec["ms"].append(e0.elapsed_time(e1))
+                    rec["loss"].append(aux["loss"].item())
+                    grads_f32(state.model)
+                    return state, aux
+
+                trainer._train_step = timed_step
+                torch.cuda.reset_peak_memory_stats()
+                trainer.fit()
+                fit_peak = torch.cuda.max_memory_allocated()
+                grads_f32(trainer.state.model)
+                after = counts()
+        finally:
+            FFT.set_dft_precision("highest")
+            set_backends("kernel")
+        if len(rec["loss"]) != 3 or not all(math.isfinite(x) for x in rec["loss"]):
+            fail(f"bf16 ({label}): the fit took {len(rec['loss'])} steps with losses {rec['loss']}")
+        launches = {k: {m: a[m] - b_[m] for m in a} for k, a, b_ in zip(("dft", "normal", "normal_bwd"),
+                                                                       after, before)}
+        del trainer
+        torch.cuda.empty_cache()
+        return dict(outs=outs, latency_ms=latency, ms_per_volume=statistics.median(latency),
+                    profile=profiled, serve_peak_mib=serve_peak / 2**20, step_ms=rec["ms"],
+                    ms_per_step=statistics.median(rec["ms"][1:]), losses=rec["loss"],
+                    fit_peak_mib=fit_peak / 2**20, launches=launches)
+
+    runs, timers, plain_vs_kernels = {}, {}, {}
+    for label, bf16, mode in (("f32 highest", False, "highest"), ("bf16 highest", True, "highest"),
+                              ("bf16 high", True, "high"), ("bf16 default", True, "default")):
+        if mode == "highest":
+            runs[label] = run(label, bf16, mode)
+        else:
+            tkern = (Timed(torch, dft_cuda, "complex_dft_matmul", dft_cost),
+                     Timed(torch, normal_cuda, "normal_apply", normal_cost),
+                     Timed(torch, normal_cuda, "normal_apply_bwd", normal_bwd_cost))
+            runs[label] = run(label, bf16, mode, tkern)
+            tplain = (Timed(torch, dft_cuda, "complex_dft_matmul_torch", dft_cost),
+                      Timed(torch, normal_cuda, "normal_apply_torch", normal_cost),
+                      Timed(torch, normal_cuda, "normal_apply_bwd_torch", normal_bwd_cost))
+            plain = run(f"{label}, plain versions", bf16, mode, tplain, backend="torch")
+            tlib = tuple(Timed(torch, mod, attr, cost, *tf32_library(torch, mode, lib)[::-1])
+                         for mod, attr, cost, lib in (
+                (dft_cuda, "complex_dft_matmul_torch", dft_cost, dft_library(torch)),
+                (normal_cuda, "normal_apply_torch", normal_cost, normal_library(torch)),
+                (normal_cuda, "normal_apply_bwd_op", normal_bwd_op_cost, normal_bwd_op_library(torch))))
+            lib = run(f"{label}, library calls", bf16, mode, tlib, backend="torch")
+            timers[mode] = (tkern, tplain, tlib)
+            errs = []
+            for a, b_ in zip(plain["outs"], runs[label]["outs"]):
+                scale = b_.abs().max().item()
+                errs.append(((a - b_).abs().max().item() / scale, (a - b_).abs().mean().item() / scale))
+            loss_rel = max(abs(a - b_) / abs(b_) for a, b_ in zip(plain["losses"], runs[label]["losses"]))
+            plain_vs_kernels[mode] = dict(vs_kernels=errs, loss_rel=loss_rel,
+                                          plain_ms_per_volume=plain["ms_per_volume"],
+                                          plain_ms_per_step=plain["ms_per_step"],
+                                          library_ms_per_volume=lib["ms_per_volume"],
+                                          library_ms_per_step=lib["ms_per_step"])
+            print(f"[bf16] VarNet-XF {label} through the plain versions at {mode!r}: "
+                  f"{plain['ms_per_volume']:.3f} ms per volume, {plain['ms_per_step']:.3f} ms per step "
+                  f"(library calls {lib['ms_per_volume']:.3f} / {lib['ms_per_step']:.3f}); served "
+                  f"images vs the kernels' max / mean over max |out| "
+                  f"{[(f'{m:.3e}', f'{a:.3e}') for m, a in errs]}, losses rel {loss_rel:.3e} (tol "
+                  f"{BF16_LOSS_RTOL:.0e})")
+            if not (all(m <= BF16_MAX_TOL and a < BF16_MEAN_TOL for m, a in errs)
+                    and loss_rel <= BF16_LOSS_RTOL):
+                fail(f"bf16 ({label}): the plain versions at {mode!r} disagree with the kernels: "
+                     f"{errs}, losses rel {loss_rel}")
+            if any(plain["launches"][k][m] or lib["launches"][k][m] for k in plain["launches"]
+                   for m in plain["launches"][k]):
+                fail(f"bf16 ({label}): the plain or library run launched a kernel")
+            del plain, lib
+        launches = runs[label]["launches"]
+        if mode != "highest" and not all(launches[k][mode] > 0 for k in launches):
+            fail(f"bf16 ({label}): the run did not launch every kernel at {mode!r}: {launches}")
+        if any(launches[k][m] for k in launches for m in launches[k] if m != mode):
+            fail(f"bf16 ({label}): launches at another precision than {mode!r}: {launches}")
+    ref = runs["f32 highest"]
+    ref_outs = ref["outs"]
+    for label, run_ in runs.items():
+        errs = []
+        for a, b_ in zip(run_.pop("outs"), ref_outs):
+            scale = b_.abs().max().item()
+            errs.append(((a - b_).abs().max().item() / scale, (a - b_).abs().mean().item() / scale))
+        run_["vs_f32"] = errs
+        if label != "f32 highest" and not all(m <= BF16_MAX_TOL and a < BF16_MEAN_TOL for m, a in errs):
+            fail(f"bf16 ({label}): the served images leave the bound against f32: {errs}")
+        print(f"[bf16] VarNet-XF {label}: {run_['ms_per_volume']:.3f} ms per volume (f32 "
+              f"{ref['ms_per_volume']:.3f}), serving peak {run_['serve_peak_mib']:.1f} MiB (f32 "
+              f"{ref['serve_peak_mib']:.1f}); Trainer.fit {run_['ms_per_step']:.3f} ms per step (f32 "
+              f"{ref['ms_per_step']:.3f}), peak {run_['fit_peak_mib']:.1f} MiB (f32 "
+              f"{ref['fit_peak_mib']:.1f}), losses {[round(x, 6) for x in run_['losses']]}; one "
+              f"profiled request: device busy {run_['profile']['device_busy_ms']:.3f} of "
+              f"{run_['profile']['host_ms']:.3f} host ms, idle {run_['profile']['idle_share']:.1%}, "
+              f"top kinds {run_['profile']['top_kinds']}; vs f32 "
+              f"max / mean over max |f32| {[(f'{m:.3e}', f'{a:.3e}') for m, a in errs]}; launches "
+              f"{run_['launches']}")
+    del ref_outs
+
+    others = {}
+    kre, kim, mask = requests[0]
+    k = Complex(kre, kim)
+    # XPDNet's bf16 normalizes its MWCNN buffers (norm_buffers=None resolves
+    # to bf16): the f32 run takes the same function, as the JAX package's test
+    for family, config, args in (("cinenet", CINENET, (k, mask, Complex(*rss_maps(torch, 0, dev)))),
+                                 ("xpdnet", dict(XPDNET, norm_buffers=True), (k, mask))):
+        rec = {}
+        for bf16 in (False, True):
+            model = build_model(family, "XF", device=dev, generator=torch.Generator().manual_seed(0),
+                                bf16=bf16, **config).eval()
+            with torch.inference_mode():
+                model(*args)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                out = model(*args)
+                torch.cuda.synchronize()
+            rec[bf16] = dict(out=out, ms=(time.perf_counter() - t0) * 1e3,
+                             peak_mib=torch.cuda.max_memory_allocated() / 2**20)
+            del model
+            torch.cuda.empty_cache()
+        scale = rec[False]["out"].abs().max().item()
+        diff = (rec[True].pop("out") - rec[False].pop("out")).abs()
+        errs = (diff.max().item() / scale, diff.mean().item() / scale)
+        others[family] = dict(f32=rec[False], bf16=rec[True], vs_f32=errs)
+        print(f"[bf16] {family}-XF forward in bf16: {rec[True]['ms']:.3f} ms (f32 {rec[False]['ms']:.3f}), "
+              f"peak {rec[True]['peak_mib']:.1f} MiB (f32 {rec[False]['peak_mib']:.1f}); vs f32 max / "
+              f"mean over max |f32| {errs[0]:.3e} / {errs[1]:.3e}")
+        if not (errs[0] <= BF16_MAX_TOL and errs[1] < BF16_MEAN_TOL):
+            fail(f"bf16: the {family}-XF forward leaves the bound against f32: {errs}")
+    wall = time.perf_counter() - t_phase
+    print(f"[bf16] phase wall time {wall:.1f} s")
+    return dict(varnet=runs, others=others, plain_vs_kernels=plain_vs_kernels, wall_s=wall), timers
+
+
+def remat_phase(torch, dev):
+    """``[remat]``: the flagship VarNet-XF train step (``train_batch``, Adam
+    1e-4) under each remat policy, from the same weights. First one step
+    with cuDNN's deterministic algorithms, so that two runs of the same work
+    agree bit for bit: its gradients against full replay's (``""``) within
+    REMAT_RTOL / REMAT_ATOL. Then three steps with cuDNN's defaults, as
+    training runs: ms per step (CUDA events, median of steps 2-3), peak
+    memory and the outputs each policy kept per step."""
+    from cinemri_tpu_torch.models import build_model, remat
+    from cinemri_tpu_torch.train import create_train_state, make_train_step
+
+    t_phase = time.perf_counter()
+    batch = train_batch(torch, dev)
+    step = make_train_step()
+
+    def steps(policy, n):
+        model = build_model("varnet", "XF", device=dev, generator=torch.Generator().manual_seed(0),
+                            remat_policy=policy, **FLAGSHIP)
+        state = create_train_state(model, device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        rec, kept = dict(ms=[], loss=[]), remat.SAVED[policy]
+        for i in range(n):
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            state, aux = step(state, batch)
+            e1.record()
+            e1.synchronize()
+            rec["ms"].append(e0.elapsed_time(e1))
+            rec["loss"].append(aux["loss"].item())
+            if i == 0:
+                rec["grads"] = {k: p.grad.detach().clone() for k, p in model.named_parameters()}
+        rec.update(peak_mib=torch.cuda.max_memory_allocated() / 2**20,
+                   kept_per_step=(remat.SAVED[policy] - kept) / n)
+        del model, state
+        torch.cuda.empty_cache()
+        return rec
+
+    saved_det = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        first = {policy: steps(policy, 1)["grads"] for policy in remat.REMAT_POLICIES}
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved_det
+    runs = {}
+    for policy in remat.REMAT_POLICIES:
+        rec = steps(policy, 3)
+        rec.pop("grads")
+        runs[policy or "full replay"] = dict(rec, ms_per_step=statistics.median(rec["ms"][1:]))
+    for policy in remat.REMAT_POLICIES[1:]:
+        worst = max(((first[policy][n] - g).abs() - REMAT_RTOL * g.abs()).max().item()
+                    for n, g in first[""].items())
+        runs[policy]["grad_excess"] = worst
+        if not worst <= REMAT_ATOL:
+            fail(f"remat {policy!r}: first-step gradients leave rtol {REMAT_RTOL} / atol "
+                 f"{REMAT_ATOL} of full replay's (excess {worst})")
+    for label, run in runs.items():
+        print(f"[remat] {label!r}: {run['ms_per_step']:.3f} ms per step ({[round(x, 3) for x in run['ms']]}), "
+              f"peak {run['peak_mib']:.1f} MiB, outputs kept per step {run['kept_per_step']:.0f}, "
+              f"losses {[round(x, 6) for x in run['loss']]}"
+              + (f"; first-step gradients vs full replay (cuDNN deterministic): excess over rtol "
+                 f"{run['grad_excess']:.3e}" if "grad_excess" in run else ""))
+    wall = time.perf_counter() - t_phase
+    print(f"[remat] phase wall time {wall:.1f} s")
+    return dict(runs=runs, wall_s=wall)
+
+
 def main() -> int:
     import torch
 
@@ -2125,6 +2593,7 @@ def main() -> int:
     from cinemri_tpu_torch.physics import operators as OPS
     from cinemri_tpu_torch.serve import bind_model
     from cinemri_tpu_torch.train import create_train_state, make_train_step
+    from cinemri_tpu_torch.utils import compile_cache
 
     dev = torch.device("cuda", 0)
     cases = []
@@ -2142,13 +2611,21 @@ def main() -> int:
 
     # -- 1. build -----------------------------------------------------------------
     t0 = time.perf_counter()
-    built = _build.build(verbose=True)
-    print(f"[build] {time.perf_counter() - t0:.2f} s for {sorted(built)} (one nvcc each, in parallel)")
+    built = _build.build(verbose=True, force=True)
+    print(f"[build] {time.perf_counter() - t0:.2f} s for {sorted(built)} (one nvcc each, in parallel) "
+          f"into {compile_cache.build_dir()} (compile cache, host fingerprint "
+          f"{compile_cache.host_fingerprint()})")
     for kname, info in built.items():
-        print(f"[build] {kname}: {info['seconds']:.2f} s")
+        print(f"[build] {kname}: {info['seconds']:.2f} s -> {_build.library_path(kname).name}")
         for line in info["log"].splitlines():
             if "registers" in line or "spill" in line:
                 print(f"[build]   {line.strip()}")
+    t0 = time.perf_counter()
+    again = _build.build()
+    print(f"[build] second build of the run: {time.perf_counter() - t0:.3f} s, hits "
+          f"{ {k: v['hit'] for k, v in again.items()} }")
+    if not all(v["hit"] for v in again.values()):
+        fail(f"the second build of the run missed the compile cache: {again}")
 
     gen = torch.Generator(device=dev).manual_seed(0)
 
@@ -2472,9 +2949,9 @@ def main() -> int:
         seen = collections.Counter()
         saved = dft_cuda.complex_dft_matmul
 
-        def record(xr, xi, wr, wi):
+        def record(xr, xi, wr, wi, precision="highest"):
             seen[tuple(xr.shape)] += 1
-            return saved(xr, xi, wr, wi)
+            return saved(xr, xi, wr, wi, precision)
 
         dft_cuda.complex_dft_matmul = record
         FFT.COPIES = OPS.COPIES = 0
@@ -3515,6 +3992,11 @@ def main() -> int:
 
     # -- 12d. the profiler in Trainer.fit: profile_steps=2 -------------------------------
     prof = profile_phase(torch, dev, data, launches)
+
+    # -- 12f. the TF32 modes of the kernels, bf16 activations, the remat policies --------
+    precision, tf32_errs = precision_phase(torch, dev, peak_bw)
+    bf16, tf32_timers = bf16_phase(torch, dev, data)
+    remat_report = remat_phase(torch, dev)
     del data["decoded"]
 
     # -- 12e. a reference checkpoint served from a torch.export artifact ----------------
@@ -3561,6 +4043,23 @@ def main() -> int:
                     crnn["xpdnet_dual"]["lib"][0]))
     rows.append(row(*dft_src, "soft-sense", ss_launches, skern, splain, slib))
     rows.append(row(*fft2_src, "check", fft2_launches, *fft2_runs))
+    # the TF32 modes: launches and times of [bf16]'s run at that mode (the
+    # plain and library times of its repeats through them), the errors of
+    # [precision]'s checks at the flagship shapes; the bound at the TF32 rate
+    # (the N = 15 DFTs, FP32 in every mode, are bound by bytes at either rate)
+    for mode in TF32_PASSES:
+        tkern, tplain, tlib = tf32_timers[mode]
+        for i, ((kernel, source, replaces), key) in enumerate(((dft_src, "dft"), (fwd_src, "normal"),
+                                                               (bwd_src, "normal_bwd"))):
+            launched = bf16["varnet"][f"bf16 {mode}"]["launches"][key][mode]
+            if launched != len(tkern[i].calls):
+                fail(f"{kernel}[{mode}]: {launched} launches but {len(tkern[i].calls)} timed calls")
+            b_ms, b_by = tkern[i].bound(TF32_PEAK / TF32_PASSES[mode], peak_bw)
+            rows.append(dict(name=f"{kernel}[{mode}]", route="cuda", source=source, replaces=replaces,
+                             run=f"bf16 {mode}", launches=launched,
+                             max_abs_err=tf32_errs[kernel, mode], ms=tkern[i].ms(),
+                             plain_ms=tplain[i].ms(), bound_ms=b_ms, bound_by=b_by,
+                             library_ms=tlib[i].ms()))
     for srv in (vserve, cserve, xserve, xvariants, c2d3d, dserve, crnn["xpdnet_dual"],
                 *(crnn[fam]["serve"] for fam in ("varnet", "cinenet", "xpdnet"))):
         for key in ("kern", "plain", "lib"):
@@ -3573,7 +4072,8 @@ def main() -> int:
         crnn=dict(crnn, wall_s=crnn_wall),
         data=data, data_serve=dserve, soft_sense=soft_sense, queue3=queue3,
         data_phases_wall_s=data_wall, loop=loop, ddp=ddp, mesh=mesh, custom_op=op_cost,
-        cinenet_dft_trace=cinenet_dft_trace, profile=prof, interop_export=interop)))
+        cinenet_dft_trace=cinenet_dft_trace, profile=prof, interop_export=interop,
+        precision=precision, bf16=bf16, remat=remat_report)))
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -36,8 +36,21 @@ default), shaped like the first test batch, from the best checkpoint
 traces that many training steps into ``--profile_dir``
 (``Trainer``; fold the trace with ``instrument.opstats``).
 
+``--bf16 1`` builds the model with bf16 denoiser activations (the JAX
+package's ``bf16``; ``models/denoisers/activations.py``). The DFT and
+normal-apply precision is ``CINEMRI_DFT_PRECISION`` (``ops.fft.
+set_dft_precision``: ``highest``, ``high``, ``default``).
+
+At start-up the CLI sets ``torch.backends.cudnn.allow_tf32`` and
+``torch.backends.cuda.matmul.allow_tf32`` to False, so f32 convolutions and
+matmuls run in full f32 on the card, as every test and chip run of the port
+does (torch's own default rounds convolution inputs to TF32), and prints the
+setting; it also enables the compile cache (``utils/compile_cache.py``),
+where the JAX CLI enables its. Library callers (``build_model``,
+``Trainer``, ``bind_model``) set no global flag.
+
 What is not ported raises ``NotImplementedError`` naming its ROADMAP item
-(Queue 1): ``--bf16`` (item 14.4) and ``--packed 1`` (item 14.6).
+(Queue 1): ``--packed 1`` (item 14.6).
 """
 
 from __future__ import annotations
@@ -64,6 +77,7 @@ from cinemri_tpu_torch.data import (
     create_mask_for_mask_type,
 )
 from cinemri_tpu_torch.models import build_model, check_plane_axis
+from cinemri_tpu_torch.ops.fft import get_dft_precision
 from cinemri_tpu_torch.parallel import (
     initialize,
     make_mesh,
@@ -75,9 +89,10 @@ from cinemri_tpu_torch.parallel import (
 )
 from cinemri_tpu_torch.parallel.distributed import local_device
 from cinemri_tpu_torch.train import Loader, Trainer, TrainerConfig
+from cinemri_tpu_torch.utils.compile_cache import enable_compile_cache
 from cinemri_tpu_torch.utils.paths import fetch_dir
 
-__all__ = ["build_parser", "train_test_main", "config_fingerprint"]
+__all__ = ["build_parser", "train_test_main", "config_fingerprint", "full_f32"]
 
 TRANSFORMS = {
     "varnet": VarNetDataTransform,
@@ -143,7 +158,9 @@ def build_parser(family: str) -> argparse.ArgumentParser:
                         "runs the dense stacks for every dynamic type (numerically the "
                         "same; 1 is not ported yet: item 14.6)")
     p.add_argument("--bf16", default=0, choices=(0, 1), type=int,
-                   help="bfloat16 denoiser activations (not ported yet: item 14.4)")
+                   help="bfloat16 denoiser activations (norm statistics, data consistency "
+                        "and the kernels stay f32); trained quality is certified for the "
+                        "dynamic types in cli.common.BF16_CERTIFIED")
     if family == "xpdnet":
         p.add_argument(
             "--norm_buffers", default=-1, choices=(-1, 0, 1), type=int,
@@ -308,22 +325,36 @@ def _resolved_devices(args) -> int:
 
 def _check_ported(args) -> None:
     """Raise ``NotImplementedError`` naming the ROADMAP item (Queue 1) of
-    the first option whose path the port does not have yet."""
-    unported = [
-        (bool(args.bf16), "--bf16", "ROADMAP Queue 1, item 14.4: bf16"),
-        (bool(args.packed), "--packed 1", "ROADMAP Queue 1, item 14.6: packed_unet.py"),
-    ]
-    for hit, what, item in unported:
-        if hit:
-            raise NotImplementedError(f"{what} is not ported yet ({item})")
+    an option whose path the port does not have yet."""
+    if args.packed:
+        raise NotImplementedError(
+            "--packed 1 is not ported yet (ROADMAP Queue 1, item 14.6: packed_unet.py)")
+
+
+def full_f32() -> None:
+    """Run f32 convolutions and matmuls in full f32 on the card (torch's
+    default rounds convolution inputs to TF32), and print the setting with
+    the DFT precision. The CLI's start-up; library code sets no global flag."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print("float32 convolutions and matmuls in full float32 (torch.backends.cudnn.allow_tf32 = "
+          "False, torch.backends.cuda.matmul.allow_tf32 = False); DFT and normal-apply "
+          f"precision {get_dft_precision()!r}")
+
+
+# (family, dynamic_type) pairs whose bf16 TRAINED quality carries a measured
+# head-to-head ΔSSIM row in the JAX package (BASELINE.md "Trained parity" bf16
+# sections); other combinations run, with no quality row
+BF16_CERTIFIED = {
+    ("varnet", "XF"), ("varnet", "CRNN"), ("cinenet", "XF"), ("xpdnet", "XF"),
+}
 
 
 def _envelope_notices(family: str, args, n_devices: int | None = None) -> None:
     """One-line runtime notices when a run leaves the certified parity
     envelope (PARITY.md "Parity envelope notes"): warnings, not errors.
     ``n_devices`` is the data-parallel size (default: the resolved
-    ``--num_devices``). The JAX package's bf16 notices come back with bf16
-    (item 14.4)."""
+    ``--num_devices``)."""
     n = _resolved_devices(args) if n_devices is None else n_devices
     if args.profile_steps and args.mode != "train":
         warnings.warn(
@@ -349,6 +380,16 @@ def _envelope_notices(family: str, args, n_devices: int | None = None) -> None:
             "batch 8')".format(1e-4 * n),
             stacklevel=2,
         )
+    if args.bf16 and (family, args.dynamic_type) not in BF16_CERTIFIED and args.mode == "train":
+        certified = ", ".join(f"{f}-{d}" for f, d in sorted(BF16_CERTIFIED) if f == family)
+        warnings.warn(
+            f"--bf16 with --dynamic_type {args.dynamic_type}: trained "
+            f"quality for this {family} variant has no head-to-head ΔSSIM "
+            f"row (certified: {certified}); inference throughput was "
+            "measured, training works, but the <0.001 parity claim does "
+            "not extend to it (BASELINE.md 'Trained parity')",
+            stacklevel=2,
+        )
     if args.compress_coils:
         warnings.warn(
             f"--compress_coils {args.compress_coils} trades quality for "
@@ -366,10 +407,13 @@ def _envelope_notices(family: str, args, n_devices: int | None = None) -> None:
     if (family == "xpdnet" and args.norm_buffers != -1 and args.dynamic_type != "CRNN"
             and bool(args.norm_buffers) != bool(args.bf16)):
         warnings.warn(
-            f"--norm_buffers {args.norm_buffers} overrides the certified pairing "
-            "(normalization on exactly under --bf16): f32 with normalized buffers is a "
-            "function change against the reference's raw-buffer semantics — intended "
-            "only for evaluating a checkpoint trained with this setting",
+            f"--norm_buffers {args.norm_buffers} overrides the certified "
+            f"pairing (normalization on exactly under --bf16): bf16 on raw "
+            "buffers deviates beyond the parity budget, and f32+norm is a "
+            "function change vs the reference's raw-buffer semantics "
+            "(xpdnet.py:474-489) — intended only for evaluating a "
+            "checkpoint trained with this setting (BASELINE.md 'bf16 "
+            "activation mode')",
             stacklevel=2,
         )
 
@@ -399,7 +443,7 @@ def _build_model_from_args(family: str, args):
         kwargs.update(weight_sharing=args.weight_sharing)
         if family != "xpdnet":
             kwargs.update(pools=args.pools)
-    kwargs.update(kernel_dc=bool(args.kernel_dc))
+    kwargs.update(kernel_dc=bool(args.kernel_dc), bf16=bool(args.bf16))
     kwargs.update({f"{axis}_axis": axis for axis in _model_axes(args)})
     return build_model(family, args.dynamic_type, device=args.device, **kwargs)
 
@@ -446,6 +490,8 @@ def config_fingerprint(family: str, args) -> str:
 def train_test_main(family: str, argv=None) -> Dict:
     """The reference's train_test_main (train_test_varnet.py:22-136); one
     process of a data-parallel run when started as one (module docstring)."""
+    full_f32()
+    enable_compile_cache()
     args = build_parser(family).parse_args(argv)
     _check_ported(args)
     check_plane_axis(args.dynamic_type, args.plane_devices > 1)  # before the process group

@@ -7,9 +7,9 @@
 // cores (FMA, no TF32), the port's 'highest' precision (the JAX package's
 // Precision.HIGHEST):
 //   cr += ar·br − ai·bi;   ci += ar·bi + ai·br
-// The tensor cores are not used: TF32 keeps 10 mantissa bits, and the
-// 3xTF32 split that recovers f32 accuracy on them is the route for a
-// 'high' precision mode of the DFT, not built yet.
+// The tensor cores are not used here: the 'high' (3xTF32) and 'default'
+// (1xTF32) modes run on the tile of cgemm_tf32.cuh, which stages its
+// operands through this header's cp.async ring.
 //
 // Operands. Each is k-contiguous (row r at a[r·ld + k]: W, the rows of x,
 // fft2_plane's strip held in shared memory) or column-contiguous (column c

@@ -8,9 +8,16 @@
 // complex_dft_matmul_pallas (cinemri_tpu/ops/kernels/dft_pallas.py, body
 // _kernel), which computes the I == 1 case on rows moved last.
 //
-// Arithmetic: the 4-multiplication complex product in full f32 on CUDA cores
-// (FMA, no TF32), matching the JAX package's Precision.HIGHEST:
-//   yr += wr·xr − wi·xi;   yi += wr·xi + wi·xr.
+// Arithmetic, by the launch's mode:
+// - 0, 'highest' (the default): the 4-multiplication complex product in full
+//   f32 on CUDA cores (FMA, no TF32), the JAX package's Precision.HIGHEST:
+//     yr += wr·xr − wi·xi;   yi += wr·xi + wi·xr;
+// - 1, 'high': 3xTF32 on the tensor cores, Precision.HIGH's counterpart;
+// - 2, 'default': 1xTF32 on the tensor cores, Precision.DEFAULT's.
+// The two TF32 modes run N > 16 on the tile of cgemm_tf32.cuh (128 x 40 or
+// 64 x 40) in both tile instances below. N <= 16 takes the FP32 small kernel
+// in every mode: it is bound by memory, so the tensor cores would buy no
+// time, and it stays more exact than the mode asks.
 //
 // What bounds it on the H100: at N = 200 (the image-axis transforms) 8·N
 // FLOP per output against 16 bytes moved, so the FP32 rate; at N ≤ 16 (the
@@ -35,7 +42,7 @@
 // Rows that are not 16-byte aligned (N or I not a multiple of 4) take 4-byte
 // copies in the tile engine.
 
-#include "cgemm_tile.cuh"
+#include "cgemm_tf32.cuh"
 
 namespace {
 
@@ -199,25 +206,69 @@ dft_small_cols_kernel(const float* __restrict__ xr, const float* __restrict__ xi
   }
 }
 
+// The TF32 modes: the instances of dft_kernel on the tensor-core tile.
+template <class T, bool ROWS, int VEC, int PASSES>
+__global__ void __launch_bounds__(T::THREADS, T::MINB)
+dft_kernel_tf32(const float* __restrict__ xr, const float* __restrict__ xi,
+                const float* __restrict__ wr, const float* __restrict__ wi,
+                float* __restrict__ yr, float* __restrict__ yi, long M, int N, int I,
+                int n_tiles) {
+  const long m0 = static_cast<long>(blockIdx.x / n_tiles) * T::BM;
+  const int n0 = blockIdx.x % n_tiles * T::BN;
+  const int rows = M - m0 < T::BM ? static_cast<int>(M - m0) : T::BM;
+  if constexpr (ROWS) {
+    tf32::rows_tile<T, VEC, PASSES>(xr, xi, wr, wi, yr, yi, m0, rows, n0, N);
+  } else {
+    tf32::slab_tile<T, VEC, true, false, PASSES>(xr, xi, wr, wi, yr, yi, m0, rows, n0, N, I);
+  }
+}
+
 using cgemm::Large;
 using cgemm::Small;
+
+// One launch of a tile kernel over M rows (I == 1) or slab columns (I > 1).
+template <class T, auto RowsKernel, auto SlabKernel>
+int launch_grid(const float* xr, const float* xi, const float* wr, const float* wi, float* yr,
+                float* yi, int O, int N, int I, cudaStream_t s) {
+  const int n_tiles = (N + T::BN - 1) / T::BN;
+  if (I == 1) {
+    constexpr int smem = T::STAGES * T::template stage_floats<false, true, true>() * sizeof(float);
+    const dim3 grid(static_cast<unsigned>((O + T::BM - 1) / T::BM * n_tiles));
+    return cgemm::launch<RowsKernel>(grid, T::THREADS, smem, s, xr, xi, wr, wi, yr, yi,
+                                     static_cast<long>(O), N, I, n_tiles);
+  }
+  constexpr int smem = T::STAGES * T::template stage_floats<false, false, true>() * sizeof(float);
+  const long columns = static_cast<long>(O) * I;
+  const dim3 grid(static_cast<unsigned>((columns + T::BM - 1) / T::BM * n_tiles));
+  return cgemm::launch<SlabKernel>(grid, T::THREADS, smem, s, xr, xi, wr, wi, yr, yi, columns, N,
+                                   I, n_tiles);
+}
 
 template <class T, int VEC>
 int launch_tiles(const float* xr, const float* xi, const float* wr, const float* wi, float* yr,
                  float* yi, int O, int N, int I, cudaStream_t s) {
-  if (I == 1) {
-    constexpr int smem = T::STAGES * T::template stage_floats<false, true, true>() * sizeof(float);
-    const int n_tiles = (N + T::BN - 1) / T::BN;
-    const dim3 grid(static_cast<unsigned>((O + T::BM - 1) / T::BM * n_tiles));
-    return cgemm::launch<dft_kernel<T, true, VEC>>(grid, T::THREADS, smem, s, xr, xi, wr, wi, yr,
-                                                   yi, static_cast<long>(O), N, I, n_tiles);
-  }
-  constexpr int smem = T::STAGES * T::template stage_floats<false, false, true>() * sizeof(float);
-  const long columns = static_cast<long>(O) * I;
-  const int n_tiles = (N + T::BN - 1) / T::BN;
-  const dim3 grid(static_cast<unsigned>((columns + T::BM - 1) / T::BM * n_tiles));
-  return cgemm::launch<dft_kernel<T, false, VEC>>(grid, T::THREADS, smem, s, xr, xi, wr, wi, yr,
-                                                  yi, columns, N, I, n_tiles);
+  return launch_grid<T, dft_kernel<T, true, VEC>, dft_kernel<T, false, VEC>>(xr, xi, wr, wi, yr,
+                                                                          yi, O, N, I, s);
+}
+
+// The TF32 modes at N > 16: the tile and copies the FP32 path picks.
+template <int PASSES>
+int launch_tf32(const float* xr, const float* xi, const float* wr, const float* wi, float* yr,
+                float* yi, int O, int N, int I, bool aligned, cudaStream_t s) {
+  using TS = tf32::Small;
+  using TL = tf32::Large;
+  if (!(aligned && N % 4 == 0 && (I == 1 || I % 4 == 0)))
+    return launch_grid<TS, dft_kernel_tf32<TS, true, 1, PASSES>,
+                       dft_kernel_tf32<TS, false, 1, PASSES>>(xr, xi, wr, wi, yr, yi, O, N, I, s);
+  const long rows = static_cast<long>(O) * I;
+  const long large = (rows + TL::BM - 1) / TL::BM * ((N + TL::BN - 1) / TL::BN);
+  return large >= 2L * cgemm::sm_count()
+             ? launch_grid<TL, dft_kernel_tf32<TL, true, 4, PASSES>,
+                           dft_kernel_tf32<TL, false, 4, PASSES>>(xr, xi, wr, wi, yr, yi, O, N, I,
+                                                                  s)
+             : launch_grid<TS, dft_kernel_tf32<TS, true, 4, PASSES>,
+                           dft_kernel_tf32<TS, false, 4, PASSES>>(xr, xi, wr, wi, yr, yi, O, N, I,
+                                                                  s);
 }
 
 int launch_small(const float* xr, const float* xi, const float* wr, const float* wi, float* yr,
@@ -238,13 +289,17 @@ int launch_small(const float* xr, const float* xi, const float* wr, const float*
 
 }  // namespace
 
+// mode: 0 'highest', 1 'high', 2 'default' (module comment)
 extern "C" int cinemri_dft_matmul(const float* xr, const float* xi, const float* wr,
                                   const float* wi, float* yr, float* yi, int O, int N, int I,
-                                  void* stream) {
+                                  int mode, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool aligned = cgemm::aligned16(xr) && cgemm::aligned16(xi) && cgemm::aligned16(wr) &&
                        cgemm::aligned16(wi) && cgemm::aligned16(yr) && cgemm::aligned16(yi);
+  if (mode < 0 || mode > 2) return static_cast<int>(cudaErrorInvalidValue);
   if (N <= SMALL_N) return launch_small(xr, xi, wr, wi, yr, yi, O, N, I, aligned, s);
+  if (mode == 1) return launch_tf32<3>(xr, xi, wr, wi, yr, yi, O, N, I, aligned, s);
+  if (mode == 2) return launch_tf32<1>(xr, xi, wr, wi, yr, yi, O, N, I, aligned, s);
   if (!(aligned && N % 4 == 0 && (I == 1 || I % 4 == 0)))
     return launch_tiles<Small, 1>(xr, xi, wr, wi, yr, yi, O, N, I, s);
   // the large tile when it gives every SM at least two blocks

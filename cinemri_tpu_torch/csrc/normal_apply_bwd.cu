@@ -16,8 +16,11 @@
 // kernels/normal_pallas.py:203, body _bwd_kernel) of normal_apply_pallas,
 // the custom VJP that carries the normal apply through the train steps.
 //
-// Arithmetic: the 4-multiplication complex product in full f32 on CUDA
-// cores (FMA, no TF32), matching the JAX package's Precision.HIGHEST.
+// Arithmetic of the two contractions, by the launch's mode, as in the
+// forward (csrc/normal_apply.cu): 0, 'highest', full f32 FMA on CUDA cores;
+// 1, 'high', 3xTF32 and 2, 'default', 1xTF32 on the tensor cores
+// (cgemm_tf32.cuh). The products and the passes after the contractions stay
+// f32 in every mode.
 //
 // What bounds it on the H100: two h-contractions per coil, 16·t·c·h·h·w
 // FLOP (19.2 GFLOP at t=15, c=10, h=w=200) against about 30 MB of inputs
@@ -45,30 +48,30 @@
 // registers: too few warps to cover the memory latency, and it measured
 // slower than the two passes together on the H100.
 
+#include <type_traits>
+
 #include "normal_passes.cuh"
 
 namespace {
 
-using cgemm::Large;
-using cgemm::Small;
 using normal::Pack;
 
-template <int VEC>
+template <int VEC, bool UNFUSED>
 __global__ void __launch_bounds__(normal::PASS_THREADS)
 normal_apply_bwd_products_kernel(const float* __restrict__ ur, const float* __restrict__ ui,
                                  const float* __restrict__ sr, const float* __restrict__ si,
                                  float* __restrict__ yr, float* __restrict__ yi, int T, int C,
                                  long P, long n) {
-  normal::products<VEC>(ur, ui, sr, si, yr, yi, T, C, P, n);
+  normal::products<VEC, UNFUSED>(ur, ui, sr, si, yr, yi, T, C, P, n);
 }
 
-template <class T, int VEC, bool ADJOINT>
+template <class T, int VEC, bool ADJOINT, int PASSES>
 __global__ void __launch_bounds__(T::THREADS, T::MINB)
 normal_apply_bwd_contract_kernel(const float* __restrict__ yr, const float* __restrict__ yi,
                                  const float* __restrict__ kr, const float* __restrict__ ki,
                                  float* __restrict__ zr, float* __restrict__ zi, int H, int W,
                                  int G, int n_tiles) {
-  normal::contract<T, VEC, ADJOINT>(yr, yi, kr, ki, zr, zi, H, W, G, n_tiles);
+  normal::contract<T, VEC, ADJOINT, PASSES>(yr, yi, kr, ki, zr, zi, H, W, G, n_tiles);
 }
 
 // Step 5: x̄[f] = Σ_c conj(S_c) ⊙ ȳ[f, c] + λ·g[f], the forward's coil
@@ -147,19 +150,43 @@ normal_apply_bwd_lambda_kernel(const float* __restrict__ xr, const float* __rest
   }
 }
 
+// y = S ⊙ u, with no FMA contraction in the TF32 modes (normal_passes.cuh)
 template <int VEC>
 int products(const float* ur, const float* ui, const float* sr, const float* si, float* yr,
-             float* yi, int b, int t, int c, long P, cudaStream_t s) {
+             float* yi, int b, int t, int c, long P, int mode, cudaStream_t s) {
   const long n = static_cast<long>(b) * t * c * (P / VEC);
-  return normal::launch_pass<normal_apply_bwd_products_kernel<VEC>>(n, s, ur, ui, sr, si, yr, yi,
-                                                                    t, c, P, n);
+  return mode == 0 ? normal::launch_pass<normal_apply_bwd_products_kernel<VEC, false>>(
+                         n, s, ur, ui, sr, si, yr, yi, t, c, P, n)
+                   : normal::launch_pass<normal_apply_bwd_products_kernel<VEC, true>>(
+                         n, s, ur, ui, sr, si, yr, yi, t, c, P, n);
 }
 
-template <class T, int VEC, bool ADJOINT>
+template <class T, int VEC, bool ADJOINT, int PASSES>
 int contract(const float* yr, const float* yi, const float* kr, const float* ki, float* zr,
              float* zi, int groups, int G, int h, int w, cudaStream_t s) {
-  return normal::launch_contract<T, ADJOINT, normal_apply_bwd_contract_kernel<T, VEC, ADJOINT>>(
+  return normal::launch_contract<T, ADJOINT,
+                                 normal_apply_bwd_contract_kernel<T, VEC, ADJOINT, PASSES>>(
       yr, yi, kr, ki, zr, zi, groups, G, h, w, s);
+}
+
+// The contraction with K (ADJOINT: Kᴴ) in the mode's engine: the FP32 tiles
+// (PASSES 0; the adjoint's own wide tile) or the TF32 tiles (1, 3).
+template <bool ADJOINT, int PASSES>
+int contract_in(const float* yr, const float* yi, const float* kr, const float* ki, float* zr,
+                float* zi, int groups, int G, int h, int w, bool wide, cudaStream_t s) {
+  using FL = std::conditional_t<ADJOINT, normal::Adjoint, cgemm::Large>;
+  using TL = std::conditional_t<PASSES == 0, FL, tf32::Large>;
+  using TS = std::conditional_t<PASSES == 0, cgemm::Small, tf32::Small>;
+  return wide ? contract<TL, 4, ADJOINT, PASSES>(yr, yi, kr, ki, zr, zi, groups, G, h, w, s)
+              : contract<TS, 1, ADJOINT, PASSES>(yr, yi, kr, ki, zr, zi, groups, G, h, w, s);
+}
+
+template <bool ADJOINT>
+int contraction(const float* yr, const float* yi, const float* kr, const float* ki, float* zr,
+                float* zi, int groups, int G, int h, int w, bool wide, int mode, cudaStream_t s) {
+  return mode == 0   ? contract_in<ADJOINT, 0>(yr, yi, kr, ki, zr, zi, groups, G, h, w, wide, s)
+         : mode == 1 ? contract_in<ADJOINT, 3>(yr, yi, kr, ki, zr, zi, groups, G, h, w, wide, s)
+                     : contract_in<ADJOINT, 1>(yr, yi, kr, ki, zr, zi, groups, G, h, w, wide, s);
 }
 
 template <int VEC>
@@ -181,14 +208,15 @@ int passes(const float* xr, const float* xi, const float* gr, const float* gi, c
 }  // namespace
 
 // pr, pi, ybr, ybi, zr, zi: scratch of b·t·c·h·w floats each, allocated by
-// the caller.
+// the caller. mode: 0 'highest', 1 'high', 2 'default'.
 extern "C" int cinemri_normal_apply_bwd(const float* xr, const float* xi, const float* gr,
                                         const float* gi, const float* kr, const float* ki,
                                         const float* sr, const float* si, const float* lam,
                                         float* xbr, float* xbi, float* sbr, float* sbi, float* lb,
                                         float* pr, float* pi, float* ybr, float* ybi, float* zr,
                                         float* zi, int b, int t, int c, int h, int w, int kt,
-                                        void* stream) {
+                                        int mode, void* stream) {
+  if (mode < 0 || mode > 2) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long P = static_cast<long>(h) * w;
   const bool vec = P % 4 == 0 && cgemm::aligned16(xr) && cgemm::aligned16(xi) &&
@@ -201,18 +229,16 @@ extern "C" int cinemri_normal_apply_bwd(const float* xr, const float* xi, const 
                     cgemm::aligned16(zr) && cgemm::aligned16(zi);
   const int groups = b * kt, G = t * c / kt;  // slabs sharing one K
   // 1-2: ȳ = Kᴴ ·_h (S ⊙ g)
-  int err = vec ? products<4>(gr, gi, sr, si, pr, pi, b, t, c, P, s)
-                : products<1>(gr, gi, sr, si, pr, pi, b, t, c, P, s);
+  int err = vec ? products<4>(gr, gi, sr, si, pr, pi, b, t, c, P, mode, s)
+                : products<1>(gr, gi, sr, si, pr, pi, b, t, c, P, mode, s);
   if (err) return err;
-  err = wide ? contract<normal::Adjoint, 4, true>(pr, pi, kr, ki, ybr, ybi, groups, G, h, w, s)
-             : contract<Small, 1, true>(pr, pi, kr, ki, ybr, ybi, groups, G, h, w, s);
+  err = contraction<true>(pr, pi, kr, ki, ybr, ybi, groups, G, h, w, wide, mode, s);
   if (err) return err;
   // 3-4: z = K ·_h (S ⊙ x)
-  err = vec ? products<4>(xr, xi, sr, si, pr, pi, b, t, c, P, s)
-            : products<1>(xr, xi, sr, si, pr, pi, b, t, c, P, s);
+  err = vec ? products<4>(xr, xi, sr, si, pr, pi, b, t, c, P, mode, s)
+            : products<1>(xr, xi, sr, si, pr, pi, b, t, c, P, mode, s);
   if (err) return err;
-  err = wide ? contract<Large, 4, false>(pr, pi, kr, ki, zr, zi, groups, G, h, w, s)
-             : contract<Small, 1, false>(pr, pi, kr, ki, zr, zi, groups, G, h, w, s);
+  err = contraction<false>(pr, pi, kr, ki, zr, zi, groups, G, h, w, wide, mode, s);
   if (err) return err;
   // 5-7: x̄, s̄ and λ̄'s partials
   return vec ? passes<4>(xr, xi, gr, gi, sr, si, lam, xbr, xbi, sbr, sbi, lb, ybr, ybi, zr, zi, b,

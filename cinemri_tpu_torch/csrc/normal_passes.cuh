@@ -3,7 +3,12 @@
 // with frames f = b·T + t, coils c and P = H·W pixels a plane:
 //
 // - products: y[f, c] = S[b, c] ⊙ u[f], written as (B·T·C, H, W) slabs
-//   (u = x, or the cotangent g); one memory pass.
+//   (u = x, or the cotangent g); one memory pass. With UNFUSED (the TF32
+//   modes) each product and the sum are rounded on their own, with no FMA
+//   contraction, as PyTorch computes ``sr * ur - si * ui``: those modes round
+//   y to TF32 in the contraction, so a one-ulp difference in y would move a
+//   TF32 operand by 2⁻¹⁰ and the plain version could not reproduce the
+//   kernel. 'highest' keeps the compiler's FMA contraction.
 // - contraction: z[f, c] = K_f ·_h y[f, c], or K_fᴴ ·_h y[f, c]. For one
 //   frame the contraction over all coils is one complex product,
 //   K_f (H x H) · [y[f, 1] | … | y[f, C]] (H x C·W): the tile engine's
@@ -14,14 +19,16 @@
 //   straddles two groups: tiles are clipped at group boundaries (the last
 //   tile of a group is partial: 80 of 128 slab columns at C·W = 2000), so
 //   a block reads one K. Kᴴ is read in place as a column-contiguous,
-//   conjugated B: no transposed copy of K.
+//   conjugated B: no transposed copy of K. With PASSES = 1 or 3 (the
+//   'default' and 'high' modes) the contraction runs on the TF32 tensor-core
+//   tile of cgemm_tf32.cuh, else on the FP32 engine of cgemm_tile.cuh.
 //
 // Each __global__ kernel is defined in the .cu that launches it, under a
 // name that the profiler fold (instrument/opstats.py) maps to its kind.
 
 #pragma once
 
-#include "cgemm_tile.cuh"
+#include "cgemm_tf32.cuh"
 
 namespace normal {
 
@@ -56,7 +63,7 @@ __device__ __forceinline__ void store(float* p, const Pack<VEC>& r) {
 
 // One thread's VEC pixels of y[f, c] = S[b, c] ⊙ u[f]: thread e of the
 // B·T·C·P / VEC.
-template <int VEC>
+template <int VEC, bool UNFUSED>
 __device__ __forceinline__ void products(const float* __restrict__ ur, const float* __restrict__ ui,
                                          const float* __restrict__ sr, const float* __restrict__ si,
                                          float* __restrict__ yr, float* __restrict__ yi, int T,
@@ -72,8 +79,13 @@ __device__ __forceinline__ void products(const float* __restrict__ ur, const flo
   Pack<VEC> y_r, y_i;
 #pragma unroll
   for (int v = 0; v < VEC; ++v) {
-    y_r.v[v] = s_r.v[v] * u_r.v[v] - s_i.v[v] * u_i.v[v];
-    y_i.v[v] = s_r.v[v] * u_i.v[v] + s_i.v[v] * u_r.v[v];
+    if constexpr (UNFUSED) {
+      y_r.v[v] = __fsub_rn(__fmul_rn(s_r.v[v], u_r.v[v]), __fmul_rn(s_i.v[v], u_i.v[v]));
+      y_i.v[v] = __fadd_rn(__fmul_rn(s_r.v[v], u_i.v[v]), __fmul_rn(s_i.v[v], u_r.v[v]));
+    } else {
+      y_r.v[v] = s_r.v[v] * u_r.v[v] - s_i.v[v] * u_i.v[v];
+      y_i.v[v] = s_r.v[v] * u_i.v[v] + s_i.v[v] * u_r.v[v];
+    }
   }
   store<VEC>(yr + yo, y_r);
   store<VEC>(yi + yo, y_i);
@@ -82,8 +94,9 @@ __device__ __forceinline__ void products(const float* __restrict__ ur, const flo
 // One block's tile of the contraction over the (B·T·C, H, W) slabs: blocks
 // run over (row tile of a group, column tile) along x, the column tiles of a
 // row tile side by side as in the DFT kernel, and over the groups along y;
-// G slabs a group, whose K is K + group·H·H.
-template <class T, int VEC, bool ADJOINT>
+// G slabs a group, whose K is K + group·H·H. PASSES 0: the FP32 engine
+// (T a cgemm::Tile); 1 or 3: the TF32 tile (T a tf32::Tile).
+template <class T, int VEC, bool ADJOINT, int PASSES = 0>
 __device__ __forceinline__ void contract(const float* __restrict__ yr, const float* __restrict__ yi,
                                          const float* __restrict__ kr, const float* __restrict__ ki,
                                          float* __restrict__ zr, float* __restrict__ zi, int H,
@@ -93,8 +106,13 @@ __device__ __forceinline__ void contract(const float* __restrict__ yr, const flo
   const int n0 = blockIdx.x % n_tiles * T::BN;
   const int rows = cols - m0 < T::BM ? static_cast<int>(cols - m0) : T::BM;
   const long k = static_cast<long>(blockIdx.y) * H * H;
-  cgemm::slab_tile<T, VEC, !ADJOINT, ADJOINT>(yr, yi, kr + k, ki + k, zr, zi, blockIdx.y * cols + m0,
-                                              rows, n0, H, W);
+  if constexpr (PASSES == 0) {
+    cgemm::slab_tile<T, VEC, !ADJOINT, ADJOINT>(yr, yi, kr + k, ki + k, zr, zi,
+                                                blockIdx.y * cols + m0, rows, n0, H, W);
+  } else {
+    tf32::slab_tile<T, VEC, !ADJOINT, ADJOINT, PASSES>(yr, yi, kr + k, ki + k, zr, zi,
+                                                       blockIdx.y * cols + m0, rows, n0, H, W);
+  }
 }
 
 // One thread's VEC pixels of out[f] = Σ_c conj(S[b, c]) ⊙ z[f, c] + λ·u[f]:

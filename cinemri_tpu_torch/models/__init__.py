@@ -2,8 +2,9 @@
 
 Every variant of the three families is ported: VarNet and CineNet 2D / 3D
 / XT / XF / CRNN, XPDNet 2D / XT / XF / CRNN (the CRNN hybrids are
-``models/recurrent.py``). What is not ported of them (the packed layouts,
-bf16) raises ``NotImplementedError`` naming its ROADMAP item.
+``models/recurrent.py``), with the JAX package's ``bf16`` activation mode
+and remat policies. What is not ported of them (the packed layouts) raises
+``NotImplementedError`` naming its ROADMAP item (14.6).
 """
 
 from __future__ import annotations
@@ -65,10 +66,11 @@ def build_model(
     ``device="cpu"`` to build on the CPU. ``generator`` draws the initial
     weights (a CPU ``torch.Generator`` seeded 0 when omitted). Keyword
     arguments go to the model class under the JAX package's names
-    (VarNet: ``num_cascades``, ``sens_chans``, ``sens_pools``, ``chans``,
-    ``pools``, ...; CineNet: ``num_cascades``, ``cg_iters``, ``chans``,
-    ``pools``, ``weight_sharing``, ``kernel_dc``, ``remat``,
-    ``remat_policy``; XPDNet: ``num_cascades``, ``sens_chans``,
+    (every family: ``bf16``, ``remat``, ``remat_policy``,
+    ``remat_prevent_cse``; VarNet: ``num_cascades``, ``sens_chans``,
+    ``sens_pools``, ``chans``, ``pools``, ...; CineNet: ``num_cascades``,
+    ``cg_iters``, ``chans``, ``pools``, ``weight_sharing``, ``kernel_dc``;
+    XPDNet: ``num_cascades``, ``sens_chans``,
     ``sens_pools``, ``n_scales``, ``n_filters_per_scale``,
     ``n_convs_per_scale``, ``n_first_convs``, ``first_conv_n_filters``,
     ``res``, ``primal_only``, ``n_primal``, ``n_dual``, ``norm_buffers``,

@@ -16,7 +16,10 @@ One :class:`CineNetCascade` module serves every cascade (the flax
 h-axis normal kernel (``physics.normal_plus_lambda_kernel``, the CUDA
 kernel on the card); otherwise through the direct operator
 (``physics.normal_plus_lambda``). With ``remat`` (the default, as in the
-JAX package) each cascade is checkpointed when autograd records.
+JAX package) each cascade is checkpointed when autograd records, under
+``remat_policy`` (``models/remat.py``). ``bf16`` stores the U-Nets'
+activations in bf16 (``models/denoisers/activations.py``); the CG solve, the
+normal-apply kernel and the output stay f32, as in the JAX package.
 ``plane_axis`` and ``coil_axis`` split the plane batches and the coils over
 dims of the ambient mesh, as in ``models/varnet.py``: on a coil axis the maps
 and k-space hold this rank's coils, and each CG apply runs the kernel on them
@@ -34,6 +37,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from cinemri_tpu_torch.models.denoisers.activations import resolve_dtype
 from cinemri_tpu_torch.models.denoisers.unet import Unet
 from cinemri_tpu_torch.models.remat import call_remat, check_remat_policy
 from cinemri_tpu_torch.models.varnet import DYNAMIC_TYPES, LAMBDA_INIT
@@ -66,7 +70,8 @@ class CineNetCascade(nn.Module):
     """Denoise, then a CG solve; a single instance serves every cascade."""
 
     def __init__(self, chans: int, pools: int, cg_iters: int = 4, dynamic_type: str = "XF",
-                 weight_sharing: bool = False, plane_axis: str = "", coil_axis: str = ""):
+                 weight_sharing: bool = False, plane_axis: str = "", coil_axis: str = "",
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         if dynamic_type not in DYNAMIC_TYPES:
             raise ValueError(f"unknown dynamic_type {dynamic_type!r}")
@@ -76,12 +81,12 @@ class CineNetCascade(nn.Module):
         self.dynamic_type = dynamic_type
         self.weight_sharing = weight_sharing
         if dynamic_type in ("2D", "3D"):
-            self.net = Unet(chans, pools, dims=3 if dynamic_type == "3D" else 2)
+            self.net = Unet(chans, pools, dims=3 if dynamic_type == "3D" else 2, dtype=dtype)
         elif weight_sharing:
-            self.plane_net = Unet(chans, pools)
+            self.plane_net = Unet(chans, pools, dtype=dtype)
         else:
-            self.net_xf = Unet(chans, pools)
-            self.net_yf = Unet(chans, pools)
+            self.net_xf = Unet(chans, pools, dtype=dtype)
+            self.net_yf = Unet(chans, pools, dtype=dtype)
 
     def _xfyf(self, x: Complex) -> Complex:
         """Rotated-plane regularization on raw channels: temporal-mean
@@ -131,7 +136,8 @@ class CineNetCascade(nn.Module):
 
 
 class CineNet(nn.Module):
-    """Full dynamic CineNet (2D / 3D / XT / XF)."""
+    """Full dynamic CineNet (2D / 3D / XT / XF). ``remat_prevent_cse`` is
+    accepted and does nothing (``models/remat.py``)."""
 
     def __init__(
         self,
@@ -144,6 +150,8 @@ class CineNet(nn.Module):
         kernel_dc: bool = True,
         remat: bool = True,
         remat_policy: str = "",
+        remat_prevent_cse: bool = True,
+        bf16: bool = False,
         plane_axis: str = "",
         coil_axis: str = "",
     ):
@@ -156,10 +164,12 @@ class CineNet(nn.Module):
         self.num_cascades = num_cascades
         self.kernel_dc = kernel_dc
         self.remat = remat
+        self.remat_policy = remat_policy
+        self.bf16 = bf16
         self.plane_axis = plane_axis
         self.coil_axis = coil_axis
         self.cascades = CineNetCascade(chans, pools, cg_iters, dynamic_type, weight_sharing,
-                                       plane_axis, coil_axis)
+                                       plane_axis, coil_axis, resolve_dtype(bf16))
         self.lambda_reg = nn.Parameter(torch.full((num_cascades,), LAMBDA_INIT))
 
     def partial_parameters(self) -> Dict[str, Tuple[str, ...]]:
@@ -176,6 +186,6 @@ class CineNet(nn.Module):
             dc_kernel, sens_maps = batched_kernel_and_maps(mask, sens_maps, masked_kspace.shape[0])
         x = image_ref
         for i in range(self.num_cascades):
-            x = call_remat(self.cascades, self.remat, x, self.lambda_reg[i], image_ref, mask,
-                           sens_maps, dc_kernel)
+            x = call_remat(self.cascades, self.remat, self.remat_policy, x, self.lambda_reg[i],
+                           image_ref, mask, sens_maps, dc_kernel)
         return x[:, :, 0].abs()

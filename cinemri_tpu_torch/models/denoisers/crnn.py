@@ -17,7 +17,13 @@ initial hidden state; the result is ``out[:, :b] + flip_t(out[:, b:])``.
 
 Layout: NCHW, with t leading: ``x (t, b, ch, h, w)``. The packed (space to
 depth) layout, ``pack2`` / ``unpack2`` and the packed fused conv, is not
-ported (ROADMAP Queue 1, item 14).
+ported (ROADMAP Queue 1, item 14.6).
+
+``dtype`` is the activation dtype (``models/denoisers/activations.py``): in
+bf16, :class:`BCRNN` casts its inputs and starts from a bf16 hidden state, and
+every fused convolution runs in bf16, as in the JAX package. Each fused
+convolution's output is tagged for the ``"convs"`` remat policy
+(``models/remat.py::tag_conv_out``).
 """
 
 from __future__ import annotations
@@ -28,32 +34,43 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from cinemri_tpu_torch.models.denoisers.activations import act_dtype, conv
+from cinemri_tpu_torch.models.remat import tag_conv_out
+
 __all__ = ["FusedSumConv2d", "CRNNCell", "BCRNN"]
 
 
 class FusedSumConv2d(nn.Conv2d):
     """``Σᵢ convᵢ(inputsᵢ)`` as one ``k x k`` convolution (same padding) over
     the inputs concatenated on the channel axis, in the order of
-    ``sizes``, the per-input channel counts."""
+    ``sizes``, the per-input channel counts; computed in ``dtype`` and
+    tagged for the ``"convs"`` remat policy."""
 
-    def __init__(self, sizes: Sequence[int], out_channels: int, kernel_size: int = 3):
+    def __init__(self, sizes: Sequence[int], out_channels: int, kernel_size: int = 3,
+                 dtype: torch.dtype = torch.float32):
         super().__init__(sum(sizes), out_channels, kernel_size, padding=kernel_size // 2)
         self.sizes = tuple(int(s) for s in sizes)
+        self.dtype = dtype
 
     def forward(self, *inputs: torch.Tensor) -> torch.Tensor:
         if tuple(x.shape[1] for x in inputs) != self.sizes:
             raise ValueError(f"expected inputs of {self.sizes} channels, got "
                              f"{tuple(x.shape[1] for x in inputs)}")
-        return super().forward(torch.cat(inputs, dim=1) if len(inputs) > 1 else inputs[0])
+        x = torch.cat(inputs, dim=1) if len(inputs) > 1 else inputs[0]
+        with tag_conv_out():
+            if self.dtype == torch.float32:
+                return super().forward(x)
+            return conv(self, x, self.dtype)
 
 
 class CRNNCell(nn.Module):
     """One CRNN step: ``relu(conv([x, h_time, h_iteration]))``, NCHW."""
 
-    def __init__(self, in_channels: int, hidden_size: int, kernel_size: int = 3):
+    def __init__(self, in_channels: int, hidden_size: int, kernel_size: int = 3,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.conv = FusedSumConv2d((in_channels, hidden_size, hidden_size), hidden_size,
-                                   kernel_size)
+                                   kernel_size, dtype)
 
     def forward(self, x: torch.Tensor, hidden: torch.Tensor,
                 hidden_iteration: torch.Tensor) -> torch.Tensor:
@@ -64,15 +81,20 @@ class BCRNN(nn.Module):
     """Bidirectional CRNN layer: ``x (t, b, ch, h, w)`` and this layer's
     output at the previous iteration ``hidden_iteration (t, b, hidden, h,
     w)`` -> ``(t, b, hidden, h, w)``, the forward sweep plus the backward
-    sweep of one shared cell."""
+    sweep of one shared cell; the inputs are cast to ``dtype``, the
+    activation dtype, and the initial hidden state is zeros of it."""
 
-    def __init__(self, in_channels: int, hidden_size: int, kernel_size: int = 3):
+    def __init__(self, in_channels: int, hidden_size: int, kernel_size: int = 3,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.hidden_size = hidden_size
-        self.cell = CRNNCell(in_channels, hidden_size, kernel_size)
+        self.dtype = dtype
+        self.cell = CRNNCell(in_channels, hidden_size, kernel_size, dtype)
 
     def forward(self, x: torch.Tensor, hidden_iteration: torch.Tensor) -> torch.Tensor:
         t, b, _, h, w = x.shape
+        dtype = act_dtype(self.dtype, x)
+        x, hidden_iteration = x.to(dtype), hidden_iteration.to(dtype)
         xx = torch.cat([x, torch.flip(x, (0,))], dim=1)  # (t, 2b, ch, h, w)
         hh = torch.cat([hidden_iteration, torch.flip(hidden_iteration, (0,))], dim=1)
         hidden = x.new_zeros((2 * b, self.hidden_size, h, w))

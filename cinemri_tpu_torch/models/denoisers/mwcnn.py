@@ -13,6 +13,12 @@ Module names map onto the flax tree (``interop/flax_params.py``):
 (the last conv with a bias: after the first-conv skip, or, with
 ``n_first_convs < 1``, the plain conv to ``4 * out_chans`` before the
 last IWT).
+
+``dtype`` is the activation dtype (``models/denoisers/activations.py``): in
+bf16 the convolutions, the DWT / IWT and the skips run on bf16 activations,
+instance norm takes f32 statistics, and the output (before the residual) is
+cast to f32, as in the JAX package. Its convolutions are not tagged for the
+``"convs"`` remat policy, as the JAX package does not tag them.
 """
 
 from __future__ import annotations
@@ -20,9 +26,9 @@ from __future__ import annotations
 from typing import Sequence
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
+from cinemri_tpu_torch.models.denoisers.activations import conv, instance_norm, leaky_relu, output
 from cinemri_tpu_torch.ops.wavelet import dwt2, iwt2
 
 __all__ = ["MWCNN", "MWConvBlock"]
@@ -30,14 +36,15 @@ __all__ = ["MWCNN", "MWConvBlock"]
 
 class MWConvBlock(nn.Module):
     """conv3x3 (no bias) -> InstanceNorm (eps 1e-5, no affine; flax's
-    GroupNorm with one group per channel) -> LeakyReLU(0.2)."""
+    GroupNorm with one group per channel) -> LeakyReLU(0.2), in ``dtype``."""
 
-    def __init__(self, in_chans: int, n_filters: int):
+    def __init__(self, in_chans: int, n_filters: int, dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.conv = nn.Conv2d(in_chans, n_filters, 3, padding=1, bias=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.leaky_relu(F.instance_norm(self.conv(x), eps=1e-5), 0.2)
+        return leaky_relu(instance_norm(conv(self.conv, x, self.dtype)), 0.2)
 
 
 class MWCNN(nn.Module):
@@ -55,6 +62,7 @@ class MWCNN(nn.Module):
         first_conv_n_filters: int = 16,
         res: bool = False,
         packed: bool = False,
+        dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
         if packed:
@@ -66,6 +74,7 @@ class MWCNN(nn.Module):
         self.n_convs = tuple(n_convs_per_scale)
         self.n_first_convs = n_first_convs
         self.res = res
+        self.dtype = dtype
         nf, f0 = tuple(n_filters_per_scale), first_conv_n_filters
 
         def chans_for(i_scale: int, i_conv: int) -> int:
@@ -78,7 +87,7 @@ class MWCNN(nn.Module):
         blocks = []
 
         def block(cin: int, cout: int) -> int:
-            blocks.append(MWConvBlock(cin, cout))
+            blocks.append(MWConvBlock(cin, cout, dtype))
             return cout
 
         # the blocks in call order, tracking the channels between them
@@ -128,7 +137,7 @@ class MWCNN(nn.Module):
             n = self.n_convs[i_scale]
             for i_conv in range(n, 2 * n):
                 if i_scale == 0 and i_conv == 2 * n - 1 and self.n_first_convs < 1:
-                    cur = self.final(cur)  # plain conv straight to 4 * out_chans
+                    cur = conv(self.final, cur, self.dtype)  # plain conv straight to 4 * out_chans
                 else:
                     cur = next(blocks)(cur)
         cur = iwt2(cur, channel_axis=1)
@@ -136,5 +145,6 @@ class MWCNN(nn.Module):
             cur = cur + first_conv_feature
             for _ in range(self.n_first_convs - 1):
                 cur = next(blocks)(cur)
-            cur = self.final(cur)
+            cur = conv(self.final, cur, self.dtype)
+        cur = output(cur, self.dtype)
         return x + cur if self.res else cur

@@ -9,6 +9,9 @@ de-normalized.
   * :class:`NormUnet`   — input ``(n, h, w)`` Complex, a 2-D U-Net;
   * :class:`NormUnet3D` — input ``(n, t, h, w)`` Complex, a 3-D U-Net over
     ``(t, h, w)`` (t padded too).
+
+``dtype`` is the U-Net's activation dtype; the normalization around it stays
+f32.
 """
 
 from __future__ import annotations
@@ -47,10 +50,11 @@ class NormUnet(nn.Module):
 
     dims = 2
 
-    def __init__(self, chans: int, num_pools: int, packed: bool = False):
+    def __init__(self, chans: int, num_pools: int, packed: bool = False,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.unet = Unet(chans=chans, num_pool_layers=num_pools, in_chans=2,
-                         out_chans=2, dims=self.dims, packed=packed)
+                         out_chans=2, dims=self.dims, packed=packed, dtype=dtype)
 
     def forward(self, x: Complex) -> Complex:
         if not isinstance(x, Complex) or x.ndim != self.dims + 1:

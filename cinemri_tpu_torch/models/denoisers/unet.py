@@ -8,6 +8,12 @@ The decoder pads odd sizes at the trailing edge of every spatial axis
 (t = 15 goes 15 -> 7 -> 3 -> 1 and back); the final 1x1 conv has a bias. Convolutions, instance norm and pooling are PyTorch/cuDNN ops: the
 JAX package wrote no Pallas kernel for them.
 
+``dtype`` is the activation dtype (``models/denoisers/activations.py``): in
+bf16 every activation is stored in bf16, instance norm takes f32 statistics,
+and the output is f32. Each convolution's output is tagged for the
+``"convs"`` remat policy (``models/remat.py::tag_conv_out``), as in the JAX
+package.
+
 A level pooled from a size of 1 is empty along that axis, as in the JAX
 package (t = 3 at 2 pools goes 3 -> 1 -> 0): its blocks give empty levels
 with their channel counts, as JAX's convolutions of an empty array do, and
@@ -25,6 +31,16 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from cinemri_tpu_torch.models.denoisers.activations import (
+    act_dtype,
+    conv,
+    instance_norm,
+    is_reduced,
+    leaky_relu,
+    output,
+)
+from cinemri_tpu_torch.models.remat import tag_conv_out
+
 __all__ = ["Unet", "ConvBlock", "TransposeConvBlock"]
 
 
@@ -38,11 +54,17 @@ def _avg_pool_2x(x: torch.Tensor, dims: int) -> torch.Tensor:
     crop to even sizes, then the mean of each 2-window. A level whose result
     is empty (a spatial size of 1) comes out empty, where ``F.avg_pool``
     raises; any other goes through ``F.avg_pool``, which floors the same
-    way in one kernel with its own summation order, unchanged."""
+    way in one kernel with its own summation order, unchanged. A 3-D bf16
+    input (which the CPU's ``avg_pool3d`` does not take) is pooled as JAX
+    pools it: crop, then the f32 mean of each window, rounded to bf16."""
     spatial = x.shape[2:]
-    if min(spatial) >= 2:
-        return _POOL[dims](x, 2)
-    return x.new_zeros((*x.shape[:2], *(s // 2 for s in spatial)))
+    if min(spatial) < 2:
+        return x.new_zeros((*x.shape[:2], *(s // 2 for s in spatial)))
+    if dims == 3 and is_reduced(x):
+        n, c, t, h, w = x.shape
+        y = x[:, :, : t // 2 * 2, : h // 2 * 2, : w // 2 * 2].float()
+        return y.reshape(n, c, t // 2, 2, h // 2, 2, w // 2, 2).mean(dim=(3, 5, 7)).to(x.dtype)
+    return _POOL[dims](x, 2)
 
 
 def _is_empty(x: torch.Tensor) -> bool:
@@ -50,37 +72,48 @@ def _is_empty(x: torch.Tensor) -> bool:
 
 
 class ConvBlock(nn.Module):
-    """Two (conv3 -> InstanceNorm -> LeakyReLU(0.2)) stages."""
+    """Two (conv3 -> InstanceNorm -> LeakyReLU(0.2)) stages, activations in
+    ``dtype``."""
 
-    def __init__(self, in_chans: int, out_chans: int, dims: int = 2):
+    def __init__(self, in_chans: int, out_chans: int, dims: int = 2,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.conv0 = _CONV[dims](in_chans, out_chans, 3, padding=1, bias=False)
         self.conv1 = _CONV[dims](out_chans, out_chans, 3, padding=1, bias=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if _is_empty(x):  # an empty level (padding 1 keeps the sizes)
-            return x.new_zeros((x.shape[0], self.conv1.out_channels, *x.shape[2:]))
-        for conv in (self.conv0, self.conv1):
-            x = F.leaky_relu(F.instance_norm(conv(x), eps=1e-5), 0.2)
+            return x.new_zeros((x.shape[0], self.conv1.out_channels, *x.shape[2:]),
+                               dtype=act_dtype(self.dtype, x))
+        for module in (self.conv0, self.conv1):
+            with tag_conv_out():
+                x = conv(module, x, self.dtype)
+            x = leaky_relu(instance_norm(x), 0.2)
         return x
 
 
 class TransposeConvBlock(nn.Module):
-    """convT(k=2, s=2, no bias) -> InstanceNorm -> LeakyReLU(0.2)."""
+    """convT(k=2, s=2, no bias) -> InstanceNorm -> LeakyReLU(0.2), in ``dtype``."""
 
-    def __init__(self, in_chans: int, out_chans: int, dims: int = 2):
+    def __init__(self, in_chans: int, out_chans: int, dims: int = 2,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.conv = _CONV_T[dims](in_chans, out_chans, 2, stride=2, bias=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if _is_empty(x):  # an empty level (stride 2 doubles the sizes)
-            return x.new_zeros((x.shape[0], self.conv.out_channels, *(2 * s for s in x.shape[2:])))
-        return F.leaky_relu(F.instance_norm(self.conv(x), eps=1e-5), 0.2)
+            return x.new_zeros((x.shape[0], self.conv.out_channels, *(2 * s for s in x.shape[2:])),
+                               dtype=act_dtype(self.dtype, x))
+        with tag_conv_out():
+            x = conv(self.conv, x, self.dtype)
+        return leaky_relu(instance_norm(x), 0.2)
 
 
 class Unet(nn.Module):
     """Input/output ``(n, chans, h, w)``, or ``(n, chans, t, h, w)`` with
-    ``dims=3``."""
+    ``dims=3``; the output is f32 from bf16 activations."""
 
     def __init__(
         self,
@@ -90,6 +123,7 @@ class Unet(nn.Module):
         out_chans: int = 2,
         dims: int = 2,
         packed: bool = False,
+        dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
         if dims not in (2, 3):
@@ -100,21 +134,22 @@ class Unet(nn.Module):
                 "models/denoisers/packed_unet.py)"
             )
         self.dims = dims
+        self.dtype = dtype
         self.num_pool_layers = num_pool_layers
         ch = chans
-        self.down = nn.ModuleList([ConvBlock(in_chans, ch, dims)])
+        self.down = nn.ModuleList([ConvBlock(in_chans, ch, dims, dtype)])
         for _ in range(num_pool_layers - 1):
-            self.down.append(ConvBlock(ch, ch * 2, dims))
+            self.down.append(ConvBlock(ch, ch * 2, dims, dtype))
             ch *= 2
-        self.bottom = ConvBlock(ch, ch * 2, dims)
+        self.bottom = ConvBlock(ch, ch * 2, dims, dtype)
         self.up_transpose = nn.ModuleList()
         self.up_conv = nn.ModuleList()
         for _ in range(num_pool_layers - 1):
-            self.up_transpose.append(TransposeConvBlock(ch * 2, ch, dims))
-            self.up_conv.append(ConvBlock(ch * 2, ch, dims))
+            self.up_transpose.append(TransposeConvBlock(ch * 2, ch, dims, dtype))
+            self.up_conv.append(ConvBlock(ch * 2, ch, dims, dtype))
             ch //= 2
-        self.up_transpose.append(TransposeConvBlock(ch * 2, ch, dims))
-        self.up_conv.append(ConvBlock(ch * 2, ch, dims))
+        self.up_transpose.append(TransposeConvBlock(ch * 2, ch, dims, dtype))
+        self.up_conv.append(ConvBlock(ch * 2, ch, dims, dtype))
         self.final = _CONV[dims](ch, out_chans, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -128,7 +163,7 @@ class Unet(nn.Module):
             stack.append(out)
             out = _avg_pool_2x(out, self.dims)  # floor crop on odd sizes
         out = self.bottom(out)
-        for tconv, conv in zip(self.up_transpose, self.up_conv):
+        for tconv, block in zip(self.up_transpose, self.up_conv):
             skip = stack.pop()
             out = tconv(out)
             # trailing-edge pad where the encoder level was odd (F.pad: last axis first)
@@ -136,5 +171,5 @@ class Unet(nn.Module):
                     for p in (0, skip.shape[a] - out.shape[a])]
             if any(pads):
                 out = F.pad(out, pads)
-            out = conv(torch.cat([out, skip], dim=1))
-        return self.final(out)
+            out = block(torch.cat([out, skip], dim=1))
+        return output(conv(self.final, out, self.dtype), self.dtype)

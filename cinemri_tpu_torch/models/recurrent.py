@@ -26,8 +26,16 @@ as the trunk sees it, ``(t, b, 2n, h, w)`` real with the n real channels
 then the n imaginary ones (``to_multi_channels``); its head, complex slot 0,
 is channels ``0`` and ``n``.
 
-The packed (space-to-depth) trunk, ``trunk_block`` and ``bf16`` are not
-ported (ROADMAP Queue 1, item 14). The packed trunk is exact with the same
+``bf16`` runs the trunk in bf16 (``models/denoisers/activations.py``): its
+hidden states are bf16 from the zeros on, the BCRNN casts its inputs, every
+fused convolution runs in bf16, and the correction is cast to f32 before the
+residual, as in the JAX package; the sens nets stay as the non-recurrent
+families have them (VarNet's NormUnet in bf16, XPDNet's U-Net in f32). Each
+iteration is checkpointed under ``remat_policy`` (``models/remat.py``);
+``remat_prevent_cse`` is accepted and does nothing.
+
+The packed (space-to-depth) trunk and ``trunk_block`` are not ported
+(ROADMAP Queue 1, item 14.6). The packed trunk is exact with the same
 parameters, so the dense one here computes the JAX package's packed
 models too.
 
@@ -49,9 +57,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from cinemri_tpu_torch.models.cinenet import batched_kernel_and_maps
+from cinemri_tpu_torch.models.denoisers.activations import act_dtype, conv, output, resolve_dtype
 from cinemri_tpu_torch.models.denoisers.crnn import BCRNN, FusedSumConv2d
 from cinemri_tpu_torch.models.denoisers.kspace_cnn import KSpaceCNN
-from cinemri_tpu_torch.models.remat import call_remat, check_remat_policy
+from cinemri_tpu_torch.models.remat import call_remat, check_remat_policy, tag_conv_out
 from cinemri_tpu_torch.models.varnet import LAMBDA_INIT, SensitivityModel
 from cinemri_tpu_torch.models.xpdnet import XPDNetSensitivityModel
 from cinemri_tpu_torch.ops.cplx import (
@@ -85,22 +94,24 @@ def _check_unported(packed: bool, trunk_block) -> None:
     if packed or tuple(trunk_block):
         raise NotImplementedError(
             "the packed CRNN trunk (packed=True, trunk_block) is not ported yet (ROADMAP "
-            "Queue 1, item 14: packed_unet.py); the dense trunk computes the same function")
+            "Queue 1, item 14.6: packed_unet.py); the dense trunk computes the same function")
 
 
 class CRNNTrunk(nn.Module):
     """BCRNN, three ``relu(conv([x, h]))`` layers and an output conv.
 
     ``x_in (t, b, in_ch, h, w)``; hiddens ``h0 (t, b, chans, h, w)`` and
-    ``h1..h3 (t·b, chans, h, w)``. Returns the correction ``(t·b, out_ch, h,
-    w)`` and the new hiddens."""
+    ``h1..h3 (t·b, chans, h, w)``, in ``dtype``. Returns the correction
+    ``(t·b, out_ch, h, w)``, f32 from bf16 activations, and the new hiddens."""
 
-    def __init__(self, chans: int, in_ch: int = 2, out_ch: int = 2):
+    def __init__(self, chans: int, in_ch: int = 2, out_ch: int = 2,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.bcrnn = BCRNN(in_ch, chans)
-        self.conv1 = FusedSumConv2d((chans, chans), chans)
-        self.conv2 = FusedSumConv2d((chans, chans), chans)
-        self.conv3 = FusedSumConv2d((chans, chans), chans)
+        self.dtype = dtype
+        self.bcrnn = BCRNN(in_ch, chans, dtype=dtype)
+        self.conv1 = FusedSumConv2d((chans, chans), chans, dtype=dtype)
+        self.conv2 = FusedSumConv2d((chans, chans), chans, dtype=dtype)
+        self.conv3 = FusedSumConv2d((chans, chans), chans, dtype=dtype)
         self.conv4 = nn.Conv2d(chans, out_ch, 3, padding=1)
 
     def forward(self, x_in: torch.Tensor, hiddens: Hiddens):
@@ -110,11 +121,14 @@ class CRNNTrunk(nn.Module):
         x1 = F.relu(self.conv1(x0.reshape(t * b, *x0.shape[2:]), h1))
         x2 = F.relu(self.conv2(x1, h2))
         x3 = F.relu(self.conv3(x2, h3))
-        return self.conv4(x3), (x0, x1, x2, x3)
+        with tag_conv_out():  # the JAX package's conv4_x is a tagged fused conv
+            x4 = conv(self.conv4, x3, self.dtype)
+        return output(x4, self.dtype), (x0, x1, x2, x3)
 
 
-def _zero_hiddens(like: torch.Tensor, t: int, b: int, h: int, w: int, chans: int) -> Hiddens:
-    z = lambda *shape: like.new_zeros(shape)
+def _zero_hiddens(like: torch.Tensor, t: int, b: int, h: int, w: int, chans: int,
+                  dtype: torch.dtype) -> Hiddens:
+    z = lambda *shape: like.new_zeros(shape, dtype=act_dtype(dtype, like))
     return (z(t, b, chans, h, w), z(t * b, chans, h, w), z(t * b, chans, h, w),
             z(t * b, chans, h, w))
 
@@ -153,6 +167,8 @@ class VarNetRNN(nn.Module):
         trunk_block: tuple = (),
         remat: bool = True,
         remat_policy: str = "",
+        remat_prevent_cse: bool = True,
+        bf16: bool = False,
         coil_axis: str = "",
     ):
         super().__init__()
@@ -162,9 +178,12 @@ class VarNetRNN(nn.Module):
         self.chans = chans
         self.kernel_dc = kernel_dc
         self.remat = remat
+        self.remat_policy = remat_policy
+        self.dtype = resolve_dtype(bf16)
         self.coil_axis = coil_axis
-        self.sens_net = SensitivityModel(sens_chans, sens_pools, coil_axis=coil_axis)
-        self.trunk = CRNNTrunk(chans)
+        self.sens_net = SensitivityModel(sens_chans, sens_pools, coil_axis=coil_axis,
+                                         dtype=self.dtype)
+        self.trunk = CRNNTrunk(chans, dtype=self.dtype)
         self.lambda_reg = nn.Parameter(torch.tensor(LAMBDA_INIT))
 
     def partial_parameters(self) -> Dict[str, Tuple[str, ...]]:
@@ -190,14 +209,14 @@ class VarNetRNN(nn.Module):
         x_ref = sens_reduce(masked_kspace, sens_maps, coil_axis=coil)  # (b, t, 1, h, w)
         x = x_ref[:, :, 0]
         b, t, h, w = x.shape
-        hiddens = _zero_hiddens(x.re, t, b, h, w, self.chans)
+        hiddens = _zero_hiddens(x.re, t, b, h, w, self.chans, self.dtype)
         if self.kernel_dc and is_line_mask(mask):
             dc_kernel, rss0, ref = masked_normal_kernel(mask), coil_weight(sens_maps, coil), x_ref
         else:
             dc_kernel, rss0, ref = None, None, masked_kspace
         for _ in range(self.num_cascades):
-            x, hiddens = call_remat(self._iteration, self.remat, x, hiddens, ref, mask, sens_maps,
-                                    dc_kernel, rss0)
+            x, hiddens = call_remat(self._iteration, self.remat, self.remat_policy, x, hiddens,
+                                    ref, mask, sens_maps, dc_kernel, rss0)
         return x.abs()
 
 
@@ -216,6 +235,8 @@ class CineNetRNN(nn.Module):
         trunk_block: tuple = (),
         remat: bool = True,
         remat_policy: str = "",
+        remat_prevent_cse: bool = True,
+        bf16: bool = False,
         coil_axis: str = "",
     ):
         super().__init__()
@@ -226,8 +247,10 @@ class CineNetRNN(nn.Module):
         self.chans = chans
         self.kernel_dc = kernel_dc
         self.remat = remat
+        self.remat_policy = remat_policy
+        self.dtype = resolve_dtype(bf16)
         self.coil_axis = coil_axis
-        self.trunk = CRNNTrunk(chans)
+        self.trunk = CRNNTrunk(chans, dtype=self.dtype)
         self.lambda_reg = nn.Parameter(torch.tensor(LAMBDA_INIT))
 
     def partial_parameters(self) -> Dict[str, Tuple[str, ...]]:
@@ -253,13 +276,13 @@ class CineNetRNN(nn.Module):
         x_ref = sens_reduce(masked_kspace, sens_maps, coil_axis=self.coil_axis)  # (b, t, 1, h, w)
         x = x_ref[:, :, 0]
         b, t, h, w = x.shape
-        hiddens = _zero_hiddens(x.re, t, b, h, w, self.chans)
+        hiddens = _zero_hiddens(x.re, t, b, h, w, self.chans, self.dtype)
         dc_kernel = None
         if self.kernel_dc and is_line_mask(mask):
             dc_kernel, sens_maps = batched_kernel_and_maps(mask, sens_maps, b)
         for _ in range(self.num_cascades):
-            x, hiddens = call_remat(self._iteration, self.remat, x, hiddens, x_ref, mask,
-                                    sens_maps, dc_kernel)
+            x, hiddens = call_remat(self._iteration, self.remat, self.remat_policy, x, hiddens,
+                                    x_ref, mask, sens_maps, dc_kernel)
         return x.abs()
 
 
@@ -285,6 +308,8 @@ class XPDNetRNN(nn.Module):
         trunk_block: tuple = (),
         remat: bool = True,
         remat_policy: str = "",
+        remat_prevent_cse: bool = True,
+        bf16: bool = False,
         coil_axis: str = "",
     ):
         super().__init__()
@@ -297,9 +322,12 @@ class XPDNetRNN(nn.Module):
         self.n_dual = n_dual
         self.kernel_dc = kernel_dc
         self.remat = remat
+        self.remat_policy = remat_policy
+        self.dtype = resolve_dtype(bf16)
         self.coil_axis = coil_axis
         self.sens_net = XPDNetSensitivityModel(sens_chans, sens_pools, coil_axis=coil_axis)
-        self.trunk = CRNNTrunk(chans, in_ch=2 * (n_primal + 1), out_ch=2 * n_primal)
+        self.trunk = CRNNTrunk(chans, in_ch=2 * (n_primal + 1), out_ch=2 * n_primal,
+                               dtype=self.dtype)
         if not primal_only:
             self.kspace_nets = nn.ModuleList(
                 KSpaceCNN(2 * (n_dual + 2), 2 * n_dual) for _ in range(num_cascades))
@@ -356,13 +384,14 @@ class XPDNetRNN(nn.Module):
         image = x_ref[:, :, 0]
         buf = torch.cat([image.re.transpose(0, 1)[:, :, None].expand(t, b, n, h, w),
                          image.im.transpose(0, 1)[:, :, None].expand(t, b, n, h, w)], dim=2)
-        hiddens = _zero_hiddens(buf, t, b, h, w, self.chans)
+        hiddens = _zero_hiddens(buf, t, b, h, w, self.chans, self.dtype)
         if self.primal_only:
             dc_kernel = (masked_normal_kernel(mask) if self.kernel_dc and is_line_mask(mask)
                          else None)
             for _ in range(self.num_cascades):
-                buf, _, hiddens = call_remat(self._iteration, self.remat, buf, None, hiddens,
-                                             masked_kspace, mask, sens_maps, x_ref, dc_kernel)
+                buf, _, hiddens = call_remat(self._iteration, self.remat, self.remat_policy, buf,
+                                             None, hiddens, masked_kspace, mask, sens_maps, x_ref,
+                                             dc_kernel)
         else:
             kspace_buffer = crepeat(masked_kspace[..., None], self.n_dual, axis=-1)
             for kspace_net in self.kspace_nets:

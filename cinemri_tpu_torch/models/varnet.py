@@ -12,7 +12,11 @@ otherwise they run the direct k-space form through ``sens_expand`` /
 ``soft_dc``. The regularizer: XT / XF, NormUnets over the rotated (w, t)
 and (h, t) planes; 2D, a NormUnet per frame (frames folded into the
 batch); 3D, a NormUnet3D over ``(t, h, w)``. With ``remat`` (the default, as in the JAX package) each
-cascade is checkpointed when autograd records (``models/remat.py``).
+cascade is checkpointed when autograd records, under ``remat_policy``
+(``models/remat.py``). ``bf16`` stores the activations of every NormUnet
+(the sens net's and the regularizer's) in bf16 (``models/denoisers/
+activations.py``); the parameters, data consistency, the DFT and
+normal-apply kernels and the output stay f32, as in the JAX package.
 
 On a mesh (``parallel.set_mesh``), ``plane_axis`` splits the XT / XF
 plane batches over that dim: each rank runs the plane nets on its share of
@@ -36,6 +40,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from cinemri_tpu_torch.models.denoisers.activations import resolve_dtype
 from cinemri_tpu_torch.models.denoisers.norm_unet import NormUnet, NormUnet3D
 from cinemri_tpu_torch.models.remat import call_remat, check_remat_policy
 from cinemri_tpu_torch.ops.coil import rss_complex
@@ -69,10 +74,11 @@ class SensitivityModel(nn.Module):
     batch), then RSS normalization. Output ``(b, 1, c, h, w)``; on a
     ``coil_axis``, of this rank's coils, normalized by the RSS of all."""
 
-    def __init__(self, chans: int, num_pools: int, packed: bool = False, coil_axis: str = ""):
+    def __init__(self, chans: int, num_pools: int, packed: bool = False, coil_axis: str = "",
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.coil_axis = coil_axis
-        self.norm_unet = NormUnet(chans, num_pools, packed=packed)
+        self.norm_unet = NormUnet(chans, num_pools, packed=packed, dtype=dtype)
 
     def forward(self, masked_kspace: Complex, mask: torch.Tensor) -> Complex:
         x = ifft2c(low_frequency_kspace(masked_kspace, mask))  # (b, c, h, w), a band per sample
@@ -87,7 +93,7 @@ class VarNetCascade(nn.Module):
 
     def __init__(self, chans: int, pools: int, dynamic_type: str = "XF",
                  weight_sharing: bool = False, packed: bool = False, plane_axis: str = "",
-                 coil_axis: str = ""):
+                 coil_axis: str = "", dtype: torch.dtype = torch.float32):
         super().__init__()
         if dynamic_type not in DYNAMIC_TYPES:
             raise ValueError(f"unknown dynamic_type {dynamic_type!r}")
@@ -96,12 +102,13 @@ class VarNetCascade(nn.Module):
         self.plane_axis = plane_axis
         self.coil_axis = coil_axis
         if dynamic_type in ("2D", "3D"):
-            self.net = (NormUnet if dynamic_type == "2D" else NormUnet3D)(chans, pools, packed=packed)
+            self.net = (NormUnet if dynamic_type == "2D" else NormUnet3D)(chans, pools, packed=packed,
+                                                                         dtype=dtype)
         elif weight_sharing:
-            self.plane_net = NormUnet(chans, pools, packed=packed)
+            self.plane_net = NormUnet(chans, pools, packed=packed, dtype=dtype)
         else:
-            self.net_xf = NormUnet(chans, pools, packed=packed)
-            self.net_yf = NormUnet(chans, pools, packed=packed)
+            self.net_xf = NormUnet(chans, pools, packed=packed, dtype=dtype)
+            self.net_yf = NormUnet(chans, pools, packed=packed, dtype=dtype)
 
     def _xfyf(self, x: Complex) -> Complex:
         """Rotated-plane regularization: temporal-mean subtraction, temporal
@@ -148,7 +155,9 @@ class VarNetCascade(nn.Module):
 
 
 class VarNet(nn.Module):
-    """Full dynamic VarNet (2D / 3D / XT / XF)."""
+    """Full dynamic VarNet (2D / 3D / XT / XF). ``remat_prevent_cse`` is
+    accepted for the JAX package's signature and does nothing
+    (``models/remat.py``)."""
 
     def __init__(
         self,
@@ -163,6 +172,8 @@ class VarNet(nn.Module):
         kernel_dc: bool = True,
         remat: bool = True,
         remat_policy: str = "",
+        remat_prevent_cse: bool = True,
+        bf16: bool = False,
         plane_axis: str = "",
         coil_axis: str = "",
     ):
@@ -175,11 +186,15 @@ class VarNet(nn.Module):
         self.num_cascades = num_cascades
         self.kernel_dc = kernel_dc
         self.remat = remat
+        self.remat_policy = remat_policy
+        self.bf16 = bf16
         self.plane_axis = plane_axis
         self.coil_axis = coil_axis
-        self.sens_net = SensitivityModel(sens_chans, sens_pools, packed=packed, coil_axis=coil_axis)
+        dtype = resolve_dtype(bf16)
+        self.sens_net = SensitivityModel(sens_chans, sens_pools, packed=packed, coil_axis=coil_axis,
+                                         dtype=dtype)
         self.cascades = VarNetCascade(chans, pools, dynamic_type, weight_sharing, packed,
-                                      plane_axis, coil_axis)
+                                      plane_axis, coil_axis, dtype)
         self.lambda_reg = nn.Parameter(torch.full((num_cascades,), LAMBDA_INIT))
 
     def partial_parameters(self) -> Dict[str, Tuple[str, ...]]:
@@ -201,8 +216,8 @@ class VarNet(nn.Module):
         else:
             dc_kernel, rss0, carry, ref = None, None, masked_kspace, masked_kspace
         for i in range(self.num_cascades):
-            carry = call_remat(self.cascades, self.remat, carry, self.lambda_reg[i], ref,
-                               mask, sens_maps, dc_kernel, rss0)
+            carry = call_remat(self.cascades, self.remat, self.remat_policy, carry,
+                               self.lambda_reg[i], ref, mask, sens_maps, dc_kernel, rss0)
         if dc_kernel is not None:
             return carry[:, :, 0].abs()  # carry is sens_reduce(k_pred)
         return sens_reduce(carry, sens_maps, keepdims=False, coil_axis=coil).abs()

@@ -29,11 +29,14 @@ backward operator collapse to ``N(head) − x_ref``: one normal apply per
 cascade with λ = 0 (``physics.normal_plus_lambda_kernel``, the CUDA kernel
 on the card), and the k-space buffer is never built. Otherwise the direct
 form runs ``sens_expand`` / ``sens_reduce`` (four DFTs per cascade). With
-``remat`` each cascade is checkpointed when autograd records.
+``remat`` each cascade is checkpointed when autograd records, under
+``remat_policy`` (``models/remat.py``).
 
-``norm_buffers`` normalizes the MWCNN's input planes per channel and
-de-normalizes its output (``None`` resolves to the ``bf16`` setting in the
-JAX package; bf16 is not ported, so here ``None`` means off).
+``bf16`` stores the MWCNNs' activations in bf16 (``models/denoisers/
+activations.py``); the sens net's U-Net and the k-space CNN stay f32, as in
+the JAX package. ``norm_buffers`` normalizes the MWCNN's input planes per
+channel and de-normalizes its output; ``None`` (the default) resolves to the
+``bf16`` setting, the JAX package's certified pairing: on exactly under bf16.
 
 ``plane_axis`` and ``coil_axis`` split the plane batches and the coils over
 dims of the ambient mesh, as in ``models/varnet.py``; on a coil axis the
@@ -50,6 +53,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
+from cinemri_tpu_torch.models.denoisers.activations import resolve_dtype
 from cinemri_tpu_torch.models.denoisers.kspace_cnn import KSpaceCNN
 from cinemri_tpu_torch.models.denoisers.mwcnn import MWCNN
 from cinemri_tpu_torch.models.denoisers.norm_unet import _norm_groups
@@ -131,6 +135,7 @@ class XPDNetBlock(nn.Module):
         norm_buffers: bool = False,
         plane_axis: str = "",
         coil_axis: str = "",
+        dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
         if dynamic_type not in DYNAMIC_TYPES:
@@ -146,7 +151,8 @@ class XPDNetBlock(nn.Module):
 
         def mwcnn():
             return MWCNN(2 * (n_primal + 1), 2 * n_primal, n_scales, n_filters_per_scale,
-                         n_convs_per_scale, n_first_convs, first_conv_n_filters, res, packed)
+                         n_convs_per_scale, n_first_convs, first_conv_n_filters, res, packed,
+                         dtype)
 
         if dynamic_type == "2D" or weight_sharing:
             self.image_net = mwcnn()
@@ -229,7 +235,8 @@ class XPDNetBlock(nn.Module):
 
 
 class XPDNet(nn.Module):
-    """Full dynamic XPDNet (2D / XT / XF)."""
+    """Full dynamic XPDNet (2D / XT / XF). ``remat_prevent_cse`` is accepted
+    and does nothing (``models/remat.py``)."""
 
     def __init__(
         self,
@@ -252,6 +259,8 @@ class XPDNet(nn.Module):
         norm_buffers: Optional[bool] = None,
         remat: bool = True,
         remat_policy: str = "",
+        remat_prevent_cse: bool = True,
+        bf16: bool = False,
         plane_axis: str = "",
         coil_axis: str = "",
     ):
@@ -265,13 +274,17 @@ class XPDNet(nn.Module):
         self.primal_only = primal_only
         self.kernel_dc = kernel_dc
         self.remat = remat
+        self.remat_policy = remat_policy
+        self.bf16 = bf16
         self.plane_axis = plane_axis
         self.coil_axis = coil_axis
+        norm_buffers = bf16 if norm_buffers is None else bool(norm_buffers)
         self.sens_net = XPDNetSensitivityModel(sens_chans, sens_pools, coil_axis=coil_axis)
         self.cascades = nn.ModuleList(
             XPDNetBlock(n_scales, n_filters_per_scale, n_convs_per_scale, n_first_convs,
                         first_conv_n_filters, res, primal_only, n_primal, n_dual, dynamic_type,
-                        weight_sharing, packed, bool(norm_buffers), plane_axis, coil_axis)
+                        weight_sharing, packed, norm_buffers, plane_axis, coil_axis,
+                        resolve_dtype(bf16))
             for _ in range(num_cascades))
 
     def partial_parameters(self) -> Dict[str, Tuple[str, ...]]:
@@ -294,6 +307,6 @@ class XPDNet(nn.Module):
             kspace_buffer = crepeat(masked_kspace[..., None], self.k_buf_size, axis=-1)
         for block in self.cascades:
             image_buffer, kspace_buffer = call_remat(
-                block, self.remat, image_buffer, kspace_buffer, masked_kspace, mask, sens_maps,
-                x_ref, dc_kernel)
+                block, self.remat, self.remat_policy, image_buffer, kspace_buffer, masked_kspace,
+                mask, sens_maps, x_ref, dc_kernel)
         return image_buffer[..., 0].abs()

@@ -4,10 +4,12 @@ Counterpart of ``cinemri_tpu/native``. ``espirit.cc`` (a copy of the JAX
 package's source) is a dependency-free C++ implementation of the same
 algorithm as :mod:`cinemri_tpu_torch.data.espirit`. It is compiled with the
 system ``g++`` (``-O2 -shared -fPIC -std=c++17``) at the first call of
-:func:`espirit_maps_native`, never at import, into the package's git-ignored
-build directory (``cinemri_tpu_torch/_build/``, beside the CUDA libraries of
-:mod:`cinemri_tpu_torch.ops.kernels._build`), and rebuilt when the source
-is newer than the library. ``tests/test_torch_data.py`` holds it against the
+:func:`espirit_maps_native`, never at import, into the build directory of
+:mod:`cinemri_tpu_torch.utils.compile_cache` (by default the package's
+git-ignored ``_build/<host fingerprint>/``, beside the CUDA libraries), under
+a name that carries a hash of the source and the flags: a process finds it
+there when another built it from the same source. ``BUILDS`` counts the
+compiles of this process. ``tests/test_torch_data.py`` holds it against the
 numpy implementation.
 """
 
@@ -21,33 +23,37 @@ from typing import Optional
 
 import numpy as np
 
-from cinemri_tpu_torch.ops.kernels._build import BUILD_DIR
+from cinemri_tpu_torch.utils.compile_cache import build_dir, keyed_name
 
-__all__ = ["espirit_maps_native", "build_library", "library_path"]
+__all__ = ["espirit_maps_native", "build_library", "library_path", "BUILDS"]
 
 _SRC = Path(__file__).resolve().parent / "espirit.cc"
-_LIB = BUILD_DIR / "libcinemri_espirit.so"
 GXX_FLAGS = ("-O2", "-shared", "-fPIC", "-std=c++17")
 _handle: Optional[ctypes.CDLL] = None
+BUILDS = 0
 
 
 def library_path() -> Path:
-    return _LIB
+    """Where the library of the current source and flags lives."""
+    return build_dir() / keyed_name("cinemri_espirit", [_SRC], GXX_FLAGS)
 
 
 def build_library(force: bool = False) -> Path:
-    """Compile ``espirit.cc`` with g++ unless the library is newer than it."""
-    if _LIB.exists() and not force and _LIB.stat().st_mtime >= _SRC.stat().st_mtime:
-        return _LIB
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = BUILD_DIR / f"libcinemri_espirit.{os.getpid()}.tmp.so"
+    """Compile ``espirit.cc`` with g++ unless its library is built (always
+    with ``force``)."""
+    global BUILDS
+    lib = library_path()
+    if lib.exists() and not force:
+        return lib
+    tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.tmp.so")
     proc = subprocess.run(["g++", *GXX_FLAGS, str(_SRC), "-o", str(tmp)],
                           capture_output=True, text=True)
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"g++ for {_SRC.name} exited {proc.returncode}:\n{proc.stderr}")
-    os.replace(tmp, _LIB)  # atomic: a reader never sees half a file
-    return _LIB
+    os.replace(tmp, lib)  # atomic: a reader never sees half a file
+    BUILDS += 1
+    return lib
 
 
 def _load() -> ctypes.CDLL:

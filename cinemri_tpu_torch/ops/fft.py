@@ -13,8 +13,16 @@ Counterpart of ``cinemri_tpu/ops/fft.py``. Two dispatch paths behind one API:
     backward. It runs along the middle axis of an ``(O, N, I)`` view, so the
     transform along any axis of a contiguous tensor copies nothing
     (:func:`_apply_dft`; :data:`COPIES` counts the copies it does make). The
-    arithmetic is full f32 (the JAX package's ``Precision.HIGHEST``); there
-    is no reduced-precision mode yet.
+    arithmetic follows :func:`set_dft_precision`: ``'highest'`` (the
+    default) is full f32 (the JAX package's ``Precision.HIGHEST``),
+    ``'high'`` 3xTF32 and ``'default'`` 1xTF32 on the tensor cores
+    (``ops/kernels/precision.py``), transforms of length ≤ 16 excepted:
+    those stay full f32 in every mode (``ops/kernels/dft_cuda.py``); the
+    normal-apply kernels of
+    ``physics/operators.py`` read the same setting, as the JAX package's
+    ``normal_pallas.py`` does. The JAX package's Pallas DFT is fixed at
+    ``HIGHEST``, but its default backend, XLA, follows the setting; the
+    port's kernel is its only DFT on the card, so it follows the default.
   * ``complex64`` tensors or numpy arrays use ``torch.fft`` (host-side
     preprocessing and test oracles only).
 
@@ -28,6 +36,7 @@ standard ``ifft1c`` is not its inverse).
 from __future__ import annotations
 
 import math
+import os
 from functools import lru_cache
 
 import numpy as np
@@ -35,8 +44,11 @@ import torch
 
 from cinemri_tpu_torch.ops.cplx import Complex
 from cinemri_tpu_torch.ops.kernels import dft_cuda, trace_safe
+from cinemri_tpu_torch.ops.kernels.precision import check_precision
 
 __all__ = [
+    "set_dft_precision",
+    "get_dft_precision",
     "set_dft_backend",
     "fft1c",
     "ifft1c",
@@ -74,6 +86,33 @@ def set_dft_backend(backend: str) -> None:
     if backend not in ("kernel", "torch"):
         raise ValueError(f"unknown DFT backend {backend!r}")
     _DFT_BACKEND = backend
+
+
+# Precision of the Complex-pair DFT products and of the normal-apply
+# contractions, forward and backward: 'highest' = f32-exact (FP32 FMA on the
+# CUDA cores); 'high' = 3xTF32 and 'default' = 1xTF32 on the tensor cores.
+# The JAX package's note applies: 'default' (10 mantissa bits a product) is
+# coarse for k-space data consistency.
+_DFT_PRECISION = "highest"
+
+
+def set_dft_precision(precision) -> None:
+    """Set the precision of the Complex-pair DFT path (and of the normal
+    apply): ``'highest'``, ``'high'`` or ``'default'``, case-insensitive, the
+    JAX package's strings. It applies from the next call (eager PyTorch has
+    no trace to redo). Also settable with the ``CINEMRI_DFT_PRECISION``
+    environment variable, read at import."""
+    global _DFT_PRECISION
+    _DFT_PRECISION = check_precision(precision)
+
+
+def get_dft_precision() -> str:
+    """The current precision: ``'highest'``, ``'high'`` or ``'default'``."""
+    return _DFT_PRECISION
+
+
+if os.environ.get("CINEMRI_DFT_PRECISION"):
+    set_dft_precision(os.environ["CINEMRI_DFT_PRECISION"])
 
 
 @lru_cache(maxsize=None)
@@ -143,7 +182,7 @@ def _apply_dft(x: Complex, axis: int, inverse: bool, alt: bool, norm: str) -> Co
     mr, mi = torch.movedim(x.re, axis, -1), torch.movedim(x.im, axis, -1)
     if mr.is_contiguous() and mi.is_contiguous():
         yr, yi = dft_cuda.ComplexDFTMatmul.apply(mr.view(-1, n, 1), mi.view(-1, n, 1),
-                                                 wr, wi, whr, whi, plain)
+                                                 wr, wi, whr, whi, plain, _DFT_PRECISION)
         return Complex(torch.movedim(yr.view(mr.shape), -1, axis),
                        torch.movedim(yi.view(mi.shape), -1, axis))
     xr, xi = x.re, x.im
@@ -151,7 +190,8 @@ def _apply_dft(x: Complex, axis: int, inverse: bool, alt: bool, norm: str) -> Co
         xr, xi = xr.contiguous(), xi.contiguous()
         COPIES += 1
     slab = (math.prod(x.shape[:axis]), n, math.prod(x.shape[axis + 1:]))
-    yr, yi = dft_cuda.ComplexDFTMatmul.apply(xr.view(slab), xi.view(slab), wr, wi, whr, whi, plain)
+    yr, yi = dft_cuda.ComplexDFTMatmul.apply(xr.view(slab), xi.view(slab), wr, wi, whr, whi, plain,
+                                             _DFT_PRECISION)
     return Complex(yr.view(x.shape), yi.view(x.shape))
 
 

@@ -29,6 +29,17 @@ kernel (``csrc/cgemm_tile.cuh``), and the coil reduction ``Σ_c conj(S_c) ⊙
 z_c + λx``. :func:`coil_products`, :func:`frame_contract` and
 :func:`coil_reduce` are those passes in plain PyTorch, for the CPU tests.
 
+Precision: the contractions take the DFT's precision (the JAX package's
+``normal_pallas.py::_precision`` reads ``ops/fft.py``'s, as
+``physics/operators.py`` passes :func:`~cinemri_tpu_torch.ops.fft.
+get_dft_precision` here): ``'highest'`` on the FP32 engine, ``'high'``
+(3xTF32) and ``'default'`` (1xTF32) on the tensor-core tile of
+``csrc/cgemm_tf32.cuh``; the products and the coil passes stay f32. The
+plain versions take the same ``precision`` and round the contraction's
+operands as the tile does (:mod:`.precision`). The kernels form each
+product ``S ⊙ u`` with separate roundings, as PyTorch does, so that a TF32
+operand is the same on both sides.
+
 Backward kernel (``csrc/normal_apply_bwd.cu``): the products and
 contractions for ``ȳ`` (``Kᴴ`` read in place) and ``z``, then ``x̄`` by the
 coil reduction and ``s̄`` by a pass that sums over the frames in registers
@@ -62,6 +73,7 @@ import torch
 from torch import Tensor
 
 from cinemri_tpu_torch.ops.kernels import _build, trace_safe
+from cinemri_tpu_torch.ops.kernels.precision import MODES, check_precision, matmul
 
 __all__ = [
     "normal_apply",
@@ -81,10 +93,14 @@ __all__ = [
     "NormalApply",
     "LAUNCHES",
     "BWD_LAUNCHES",
+    "LAUNCHES_BY_PRECISION",
+    "BWD_LAUNCHES_BY_PRECISION",
 ]
 
 LAUNCHES = 0
 BWD_LAUNCHES = 0
+LAUNCHES_BY_PRECISION = dict.fromkeys(MODES, 0)
+BWD_LAUNCHES_BY_PRECISION = dict.fromkeys(MODES, 0)
 
 
 def _cmul(ar, ai, br, bi):
@@ -92,35 +108,39 @@ def _cmul(ar, ai, br, bi):
     return ar * br - ai * bi, ar * bi + ai * br
 
 
-def _k_h(kr, ki, yr, yi):
+def _k_h(kr, ki, yr, yi, precision="highest"):
     """``K ·_h y`` for ``K (b, 1|t, h, h)`` and ``y (b, t, c, h, w)``."""
     k_r = kr[:, :, None]  # broadcasts over coils (and frames)
     k_i = ki[:, :, None]
-    return k_r @ yr - k_i @ yi, k_r @ yi + k_i @ yr
+    mm = lambda a, b: matmul(a, b, precision)
+    return mm(k_r, yr) - mm(k_i, yi), mm(k_r, yi) + mm(k_i, yr)
 
 
-def normal_apply_torch(xr, xi, kr, ki, sr, si, lam) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain version: coil-expand, K along h by ``torch.matmul``, conj-reduce."""
+def normal_apply_torch(xr, xi, kr, ki, sr, si, lam,
+                       precision: str = "highest") -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version: coil-expand, K along h by ``torch.matmul`` (each real
+    product as the kernel takes it at ``precision``), conj-reduce."""
     yr, yi = _cmul(sr[:, None], si[:, None], xr[:, :, None], xi[:, :, None])  # (b, t, c, h, w)
-    zr, zi = _k_h(kr, ki, yr, yi)
+    zr, zi = _k_h(kr, ki, yr, yi, check_precision(precision))
     outr = (sr[:, None] * zr + si[:, None] * zi).sum(dim=2)
     outi = (sr[:, None] * zi - si[:, None] * zr).sum(dim=2)
     return outr + lam * xr, outi + lam * xi
 
 
-def normal_apply_bwd_torch(xr, xi, gr, gi, kr, ki, sr, si, lam):
+def normal_apply_bwd_torch(xr, xi, gr, gi, kr, ki, sr, si, lam, precision: str = "highest"):
     """Plain version of the backward: ``(x̄_re, x̄_im, s̄_re, s̄_im, λ̄)``
     with ``s̄ (b, c, h, w)`` summed over frames and ``λ̄ (b, t)`` the
-    per-(b, t) partials of ``Σ Re⟨g, x⟩``."""
+    per-(b, t) partials of ``Σ Re⟨g, x⟩``; the contractions at ``precision``."""
+    p = check_precision(precision)
     s_r, s_i = sr[:, None], si[:, None]  # (b, 1, c, h, w)
     g_r, g_i = gr[:, :, None], gi[:, :, None]  # (b, t, 1, h, w)
     x_r, x_i = xr[:, :, None], xi[:, :, None]
     # ȳ = Kᴴ (S_c ⊙ g), Kᴴ = conj(K)ᵀ
     vr, vi = _cmul(s_r, s_i, g_r, g_i)
-    ybr, ybi = _k_h(kr.transpose(-1, -2), -ki.transpose(-1, -2), vr, vi)
+    ybr, ybi = _k_h(kr.transpose(-1, -2), -ki.transpose(-1, -2), vr, vi, p)
     # z = K (S_c ⊙ x)
     yr, yi = _cmul(s_r, s_i, x_r, x_i)
-    zr, zi = _k_h(kr, ki, yr, yi)
+    zr, zi = _k_h(kr, ki, yr, yi, p)
     xbr = (s_r * ybr + s_i * ybi).sum(dim=2) + lam * gr
     xbi = (s_r * ybi - s_i * ybr).sum(dim=2) + lam * gi
     sbr = (g_r * zr + g_i * zi + ybr * x_r + ybi * x_i).sum(dim=1)
@@ -139,11 +159,13 @@ def coil_products(sr, si, ur, ui):
     return yr.flatten(0, 2), yi.flatten(0, 2)
 
 
-def frame_contract(kr, ki, yr, yi, adjoint=False):
+def frame_contract(kr, ki, yr, yi, adjoint=False, precision="highest"):
     """Contraction pass on ``(b·t·c, h, w)`` slabs: each group of slabs that
     shares one ``K`` (a frame's c slabs when ``K`` is per frame, a batch
     row's t·c when it is not) goes through one coil-stacked product
-    ``K (h × h) · [y_1 | … | y_G] (h × G·w)``; ``Kᴴ`` with ``adjoint``."""
+    ``K (h × h) · [y_1 | … | y_G] (h × G·w)``; ``Kᴴ`` with ``adjoint``; each
+    real product at ``precision``."""
+    mm = lambda a, b: matmul(a, b, check_precision(precision))
     b, kt, h, _ = kr.shape
     n, _, w = yr.shape
     g = n // (b * kt)  # slabs sharing one K
@@ -153,7 +175,7 @@ def frame_contract(kr, ki, yr, yi, adjoint=False):
     stack = lambda a: a.reshape(b * kt, g, h, w).transpose(1, 2).reshape(b * kt, h, g * w)
     unstack = lambda a: a.reshape(b * kt, h, g, w).transpose(1, 2).reshape(n, h, w)
     y_r, y_i = stack(yr), stack(yi)
-    return unstack(k_r @ y_r - k_i @ y_i), unstack(k_r @ y_i + k_i @ y_r)
+    return unstack(mm(k_r, y_r) - mm(k_i, y_i)), unstack(mm(k_r, y_i) + mm(k_i, y_r))
 
 
 def coil_reduce(sr, si, zr, zi, xr, xi, lam):
@@ -185,17 +207,18 @@ def lambda_partials(xr, xi, gr, gi):
     return (gr * xr + gi * xi).sum(dim=(2, 3))
 
 
-def normal_apply_passes(xr, xi, kr, ki, sr, si, lam):
+def normal_apply_passes(xr, xi, kr, ki, sr, si, lam, precision="highest"):
     """The forward as its kernel computes it: products, contraction, reduction."""
-    zr, zi = frame_contract(kr, ki, *coil_products(sr, si, xr, xi))
+    zr, zi = frame_contract(kr, ki, *coil_products(sr, si, xr, xi), precision=precision)
     return coil_reduce(sr, si, zr, zi, xr, xi, lam)
 
 
-def normal_apply_bwd_passes(xr, xi, gr, gi, kr, ki, sr, si, lam):
+def normal_apply_bwd_passes(xr, xi, gr, gi, kr, ki, sr, si, lam, precision="highest"):
     """The backward as its kernels compute it: ``ȳ`` and ``z`` by products
     and contraction, the pass per pixel, ``λ̄``'s partials."""
-    ybr, ybi = frame_contract(kr, ki, *coil_products(sr, si, gr, gi), adjoint=True)
-    zr, zi = frame_contract(kr, ki, *coil_products(sr, si, xr, xi))
+    ybr, ybi = frame_contract(kr, ki, *coil_products(sr, si, gr, gi), adjoint=True,
+                              precision=precision)
+    zr, zi = frame_contract(kr, ki, *coil_products(sr, si, xr, xi), precision=precision)
     return (*bwd_pixel_pass(sr, si, ybr, ybi, zr, zi, xr, xi, gr, gi, lam),
             lambda_partials(xr, xi, gr, gi))
 
@@ -267,8 +290,10 @@ def _on_cuda(name: str, xr) -> bool:
     return True
 
 
-def normal_apply(xr, xi, kr, ki, sr, si, lam) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``out = Σ_c conj(S_c)⊙(K(S_c⊙x)) + λx`` on raw (re, im) f32 tensors.
+def normal_apply(xr, xi, kr, ki, sr, si, lam,
+                 precision: str = "highest") -> Tuple[torch.Tensor, torch.Tensor]:
+    """``out = Σ_c conj(S_c)⊙(K(S_c⊙x)) + λx`` on raw (re, im) f32 tensors,
+    the contraction at ``precision`` (``'highest'``, ``'high'``, ``'default'``).
 
     Shapes: ``x (b,t,h,w)``, ``K (b,{1|t},h,h)``, ``S (b,c,h,w)``, ``lam`` a
     Python number or a one-element tensor, which the kernel reads on the
@@ -276,8 +301,9 @@ def normal_apply(xr, xi, kr, ki, sr, si, lam) -> Tuple[torch.Tensor, torch.Tenso
     :func:`normal_apply_torch`, CUDA tensors to the kernel in
     ``csrc/normal_apply.cu``. Returns ``(out_re, out_im)``.
     """
+    p = check_precision(precision)
     if not _on_cuda("normal_apply", xr):
-        return normal_apply_torch(xr, xi, kr, ki, sr, si, lam)
+        return normal_apply_torch(xr, xi, kr, ki, sr, si, lam, p)
     b, t, c, h, w, kt = _check(xr, xi, kr, ki, sr, si)
     outr = torch.empty_like(xr)
     outi = torch.empty_like(xi)
@@ -292,24 +318,27 @@ def normal_apply(xr, xi, kr, ki, sr, si, lam) -> Tuple[torch.Tensor, torch.Tenso
         code = lib.cinemri_normal_apply(
             xr.data_ptr(), xi.data_ptr(), kr.data_ptr(), ki.data_ptr(),
             sr.data_ptr(), si.data_ptr(), lam_t.data_ptr(),
-            outr.data_ptr(), outi.data_ptr(), *_planes(scratch), b, t, c, h, w, kt, stream,
+            outr.data_ptr(), outi.data_ptr(), *_planes(scratch), b, t, c, h, w, kt, MODES[p],
+            stream,
         )
     _build.check(lib, code, "cinemri_normal_apply launch")
     global LAUNCHES
     LAUNCHES += 1
+    LAUNCHES_BY_PRECISION[p] += 1
     return outr, outi
 
 
-def normal_apply_bwd(xr, xi, gr, gi, kr, ki, sr, si, lam):
+def normal_apply_bwd(xr, xi, gr, gi, kr, ki, sr, si, lam, precision: str = "highest"):
     """Backward of :func:`normal_apply` for the cotangent ``g`` of ``out``:
     ``(x̄_re, x̄_im, s̄_re, s̄_im, λ̄)`` with ``s̄ (b, c, h, w)`` and the
-    per-(b, t) partials ``λ̄ (b, t)``.
+    per-(b, t) partials ``λ̄ (b, t)``; the contractions at ``precision``.
 
     CPU tensors go to :func:`normal_apply_bwd_torch`, CUDA tensors to the
     kernels in ``csrc/normal_apply_bwd.cu``. ``g`` must be contiguous.
     """
+    p = check_precision(precision)
     if not _on_cuda("normal_apply_bwd", xr):
-        return normal_apply_bwd_torch(xr, xi, gr, gi, kr, ki, sr, si, lam)
+        return normal_apply_bwd_torch(xr, xi, gr, gi, kr, ki, sr, si, lam, p)
     b, t, c, h, w, kt = _check(xr, xi, kr, ki, sr, si)
     for name, a in (("gr", gr), ("gi", gi)):
         if a.shape != xr.shape or a.device != xr.device or a.dtype != torch.float32:
@@ -331,55 +360,58 @@ def normal_apply_bwd(xr, xi, gr, gi, kr, ki, sr, si, lam):
             xr.data_ptr(), xi.data_ptr(), gr.data_ptr(), gi.data_ptr(),
             kr.data_ptr(), ki.data_ptr(), sr.data_ptr(), si.data_ptr(), lam_t.data_ptr(),
             xbr.data_ptr(), xbi.data_ptr(), sbr.data_ptr(), sbi.data_ptr(), lb.data_ptr(),
-            *_planes(scratch), b, t, c, h, w, kt, stream,
+            *_planes(scratch), b, t, c, h, w, kt, MODES[p], stream,
         )
     _build.check(lib, code, "cinemri_normal_apply_bwd launch")
     global BWD_LAUNCHES
     BWD_LAUNCHES += 1
+    BWD_LAUNCHES_BY_PRECISION[p] += 1
     return xbr, xbi, sbr, sbi, lb
 
 
 @torch.library.custom_op("cinemri::normal_apply", mutates_args=())
 def normal_apply_op(xr: Tensor, xi: Tensor, kr: Tensor, ki: Tensor, sr: Tensor, si: Tensor,
-                    lam: Tensor, plain: bool) -> Tuple[Tensor, Tensor]:
+                    lam: Tensor, plain: bool, precision: str = "highest") -> Tuple[Tensor, Tensor]:
     """:func:`normal_apply` (with ``plain``, :func:`normal_apply_torch`) as
-    an op; ``lam`` is the one-element f32 tensor of :func:`lambda_tensor`."""
-    return (normal_apply_torch if plain else normal_apply)(xr, xi, kr, ki, sr, si, lam)
+    an op; ``lam`` is the one-element f32 tensor of :func:`lambda_tensor`;
+    ``precision`` trails with its default, so an artifact exported before it
+    existed loads unchanged."""
+    return (normal_apply_torch if plain else normal_apply)(xr, xi, kr, ki, sr, si, lam, precision)
 
 
 @normal_apply_op.register_fake
-def _(xr, xi, kr, ki, sr, si, lam, plain):
+def _(xr, xi, kr, ki, sr, si, lam, plain, precision="highest"):
     return torch.empty_like(xr), torch.empty_like(xi)
 
 
 @torch.library.custom_op("cinemri::normal_apply_bwd", mutates_args=())
 def normal_apply_bwd_op(xr: Tensor, xi: Tensor, gr: Tensor, gi: Tensor, kr: Tensor, ki: Tensor,
-                        sr: Tensor, si: Tensor, lam: Tensor,
-                        plain: bool) -> Tuple[Tensor, Tensor, Tensor, Tensor, Tensor]:
+                        sr: Tensor, si: Tensor, lam: Tensor, plain: bool,
+                        precision: str = "highest") -> Tuple[Tensor, Tensor, Tensor, Tensor, Tensor]:
     """:func:`normal_apply_bwd` (with ``plain``, :func:`normal_apply_bwd_torch`)
     as an op: ``(x̄_re, x̄_im, s̄_re, s̄_im, λ̄ partials (b, t))``."""
     return (normal_apply_bwd_torch if plain else normal_apply_bwd)(xr, xi, gr, gi, kr, ki, sr, si,
-                                                                   lam)
+                                                                   lam, precision)
 
 
 @normal_apply_bwd_op.register_fake
-def _(xr, xi, gr, gi, kr, ki, sr, si, lam, plain):
+def _(xr, xi, gr, gi, kr, ki, sr, si, lam, plain, precision="highest"):
     return (torch.empty_like(xr), torch.empty_like(xi), torch.empty_like(sr),
             torch.empty_like(si), xr.new_empty(xr.shape[:2]))
 
 
 def _normal_setup(ctx, inputs, output):
-    *operands, plain = inputs
+    *operands, plain, precision = inputs
     ctx.save_for_backward(*operands)
-    ctx.plain = plain
+    ctx.plain, ctx.precision = plain, precision
 
 
 def _normal_backward(ctx, gr, gi):
     xr, xi, kr, ki, sr, si, lam = ctx.saved_tensors
     xbr, xbi, sbr, sbi, lb = normal_apply_bwd_op(xr, xi, gr.contiguous(), gi.contiguous(),
-                                                 kr, ki, sr, si, lam, ctx.plain)
+                                                 kr, ki, sr, si, lam, ctx.plain, ctx.precision)
     lam_bar = lb.sum().reshape(1) if ctx.needs_input_grad[6] else None
-    return xbr, xbi, None, None, sbr, sbi, lam_bar, None
+    return xbr, xbi, None, None, sbr, sbi, lam_bar, None, None
 
 
 normal_apply_op.register_autograd(_normal_backward, setup_context=_normal_setup)
@@ -388,21 +420,21 @@ normal_apply_op.register_autograd(_normal_backward, setup_context=_normal_setup)
 class NormalApply:
     """Differentiable normal apply, the counterpart of the JAX custom VJP.
 
-    ``apply(xr, xi, kr, ki, sr, si, lam, plain)`` calls
+    ``apply(xr, xi, kr, ki, sr, si, lam, plain, precision="highest")`` calls
     ``torch.ops.cinemri.normal_apply`` (:func:`normal_apply_op`): ``lam`` is
     a Python number or a one-element tensor; a tensor reaches the op
     reshaped to one element, so its gradient flows back to it, and a number
     as the cached device tensor of :func:`lambda_tensor`. ``plain`` picks
-    the plain versions over the kernels in both directions. ``K`` gets no
-    gradient (the caller detaches it).
+    the plain versions over the kernels in both directions, both at
+    ``precision``. ``K`` gets no gradient (the caller detaches it).
     """
 
     @staticmethod
-    def apply(xr, xi, kr, ki, sr, si, lam, plain: bool):
+    def apply(xr, xi, kr, ki, sr, si, lam, plain: bool, precision: str = "highest"):
         if torch.is_tensor(lam):
             if lam.numel() != 1:
                 raise ValueError(f"λ must have one element, got shape {tuple(lam.shape)}")
             lam_t = lam.reshape(1).to(device=xr.device, dtype=xr.dtype)
         else:
             lam_t = lambda_tensor(lam, xr.device)
-        return normal_apply_op(xr, xi, kr, ki, sr, si, lam_t, plain)
+        return normal_apply_op(xr, xi, kr, ki, sr, si, lam_t, plain, precision)

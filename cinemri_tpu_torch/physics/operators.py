@@ -31,7 +31,7 @@ from __future__ import annotations
 import torch
 
 from cinemri_tpu_torch.ops.cplx import Complex, csum
-from cinemri_tpu_torch.ops.fft import _dft_tensors, fft2c, ifft2c
+from cinemri_tpu_torch.ops.fft import _dft_tensors, fft2c, get_dft_precision, ifft2c
 from cinemri_tpu_torch.ops.kernels import normal_cuda, trace_safe
 from cinemri_tpu_torch.parallel.autograd import copy_to_group, reduce_from_group
 from cinemri_tpu_torch.parallel.mesh import mesh_axis
@@ -148,7 +148,12 @@ def masked_normal_kernel(mask: torch.Tensor, norm: str = "ortho") -> Complex:
     For a line mask the w-axis transform commutes with the mask and cancels
     in ``Aᴴ M A``, leaving one h x h complex matrix per (batch, frame).
     Three h x h products per matrix, with ``torch.matmul`` (the JAX package
-    computes them outside any kernel too).
+    computes them outside any kernel too), in full f32 at every DFT
+    precision: PyTorch has no 3xTF32 product, and one TF32 pass would round
+    the DFT matrices to 10 bits, so the port's kernel at ``'high'`` is more
+    exact than the JAX package's (``operators.py:243-249`` builds it at
+    ``HIGH``, three bf16 passes). It is built once per forward, outside the
+    cascades, so its cost does not grow with them.
     """
     if not is_line_mask(mask):
         raise ValueError(f"expected a line mask (b, t|1, 1, h, 1), got {tuple(mask.shape)}")
@@ -216,6 +221,7 @@ def _normal_apply(x: Complex, kernel: Complex, sens_maps: Complex, lam) -> Compl
         batched(sens_maps.im[:, 0]),
         lam,
         _NORMAL_BACKEND == "torch",
+        get_dft_precision(),
     )
     return Complex(outr[:, :, None], outi[:, :, None])
 

@@ -15,13 +15,15 @@ synchronize, the device running behind), in the same turns. Kernels:
 the normal apply and its backward at ``chip_smoke.py``'s four cases, the
 DFT at its eight ``(O, N, I)`` layouts and ``fft2_plane`` at its four
 shapes. Each result is checked against this checkout's plain version at
-``chip_smoke.py``'s tolerances. Then the entries the models call,
+``chip_smoke.py``'s tolerances, and the two checkouts' results against each
+other (max |this - other|, 0 where both compute the same bits). Then the entries the models call,
 ``dft_cuda.ComplexDFTMatmul.apply`` at (1, 15, 40000) and
 ``normal_cuda.NormalApply.apply`` at the flagship shape (autograd Functions
 or custom ops, with the wrappers and kernels behind them), the host's time
 per call in the same turns. Then the full-width CineNet-XF and VarNet-XF
 forwards and train steps run through either checkout's entries, in the
-same turns (the rest of the path is this checkout's).
+same turns (the rest of the path is this checkout's), with the largest
+difference between the two checkouts' forward outputs.
 
 Prints one ``[ab]`` line per shape and, last, the card's nvidia-smi line and
 one JSON object with every time; ``--out`` also writes that object to a
@@ -32,6 +34,7 @@ from __future__ import annotations
 
 import argparse
 import importlib
+import inspect
 import json
 import math
 import statistics
@@ -64,12 +67,31 @@ def load_port(root: Path):
     if not Path(mods["_build"].__file__).resolve().is_relative_to(root.resolve()):
         raise RuntimeError(f"imported {mods['_build'].__file__}, not the package under {root}")
     mods["_build"].build()
+    dft_entry, normal_entry = mods["dft_cuda"].ComplexDFTMatmul, mods["normal_cuda"].NormalApply
+    if "precision" not in inspect.signature(normal_entry.apply).parameters:
+        # a checkout from before the precision modes: its entries take no
+        # precision argument and compute 'highest'
+        dft_entry, normal_entry = _AtHighest(dft_entry, 7), _AtHighest(normal_entry, 8)
     return dict(normal_apply=mods["normal_cuda"].normal_apply,
                 normal_apply_bwd=mods["normal_cuda"].normal_apply_bwd,
                 complex_dft_matmul=mods["dft_cuda"].complex_dft_matmul,
                 fft2_plane=mods["fft2_cuda"].fft2_plane,
-                ComplexDFTMatmul=mods["dft_cuda"].ComplexDFTMatmul,
-                NormalApply=mods["normal_cuda"].NormalApply)
+                ComplexDFTMatmul=dft_entry, NormalApply=normal_entry)
+
+
+class _AtHighest:
+    """An entry (``ComplexDFTMatmul`` or ``NormalApply``) of a checkout that
+    predates the precision argument, called as this checkout's ``ops/fft.py``
+    and ``physics/operators.py`` call theirs: a trailing ``'highest'`` is
+    dropped, another precision refused."""
+
+    def __init__(self, entry, nargs: int):
+        self.entry, self.nargs = entry, nargs
+
+    def apply(self, *args):
+        if args[self.nargs:] not in ((), ("highest",)):
+            raise ValueError(f"this checkout's entries compute 'highest' only, got {args[self.nargs:]}")
+        return self.entry.apply(*args[:self.nargs])
 
 
 def end_to_end(torch, dev, ports, dft_cuda, normal_cuda):
@@ -135,19 +157,27 @@ def end_to_end(torch, dev, ports, dft_cuda, normal_cuda):
         for label, fn in runs.items():
             n = E2E_STEPS if "train" in label else E2E_FORWARDS
             rec = {key: {"other": [], "this": []} for key in ("ms", "host_ms", "cuda_mallocs")}
+            first = {}
             for side in ("other", "this", "this", "other"):
                 dft_cuda.ComplexDFTMatmul = ports[side]["ComplexDFTMatmul"]
                 normal_cuda.NormalApply = ports[side]["NormalApply"]
-                fn()  # warm
+                result = fn()  # warm
+                if result is not None:
+                    first.setdefault(side, result)
                 segments = torch.cuda.memory_stats()["segment.all.allocated"]
                 ms, host = zip(*(timed(fn) for _ in range(n)))
                 rec["ms"][side].append(statistics.median(ms))
                 rec["host_ms"][side].append(statistics.median(host))
                 rec["cuda_mallocs"][side].append(torch.cuda.memory_stats()["segment.all.allocated"] - segments)
+            if first:
+                rec["max_abs_diff_vs_other"] = (first["this"] - first["other"]).abs().max().item()
+            del first
             out[label] = rec
             print(f"[ab] {label} (median of {n}): ms other {rec['ms']['other']} this {rec['ms']['this']}; "
                   f"host ms to issue it other {rec['host_ms']['other']} this {rec['host_ms']['this']}; "
-                  f"cudaMallocs other {rec['cuda_mallocs']['other']} this {rec['cuda_mallocs']['this']}")
+                  f"cudaMallocs other {rec['cuda_mallocs']['other']} this {rec['cuda_mallocs']['this']}"
+                  + (f"; output max |this - other| {rec['max_abs_diff_vs_other']:.3e}"
+                     if "max_abs_diff_vs_other" in rec else ""))
     finally:
         dft_cuda.ComplexDFTMatmul, normal_cuda.NormalApply = saved
     return out
@@ -258,14 +288,16 @@ def main() -> int:
     results = []
     for label, kernel, call_args, plain, tol in cases:
         want = plain(*call_args)
-        errs = {}
+        errs, outs = {}, {}
         for side, port in ports.items():
-            got = port[kernel](*call_args)
+            outs[side] = got = port[kernel](*call_args)
             torch.cuda.synchronize()
             errs[side] = max((a - b_).abs().max().item() / b_.abs().max().clamp_min(1e-30).item()
                              for a, b_ in zip(got, want))
             if not errs[side] <= tol:
                 CS.fail(f"{side} {label}: relative error {errs[side]} > {tol}")
+        vs_other = max((a - b_).abs().max().item() for a, b_ in zip(outs["this"], outs["other"]))
+        del outs
         times = {"other": [], "this": []}
         for side in ("other", "this", "this", "other"):
             fn = ports[side][kernel]
@@ -286,13 +318,13 @@ def main() -> int:
         torch.cuda.synchronize()
         host_us = {k: statistics.mean(v) for k, v in host.items()}
         results.append(dict(case=label, device_ms=times, mean_device_ms=mean, host_us=host,
-                            mean_host_us=host_us, max_rel_err=errs))
+                            mean_host_us=host_us, max_rel_err=errs, max_abs_diff_vs_other=vs_other))
         print(f"[ab] {label}: device alone ms other {mean['other']:.4f} "
               f"({', '.join(f'{x:.4f}' for x in times['other'])}) this {mean['this']:.4f} "
               f"({', '.join(f'{x:.4f}' for x in times['this'])}); this/other "
               f"{mean['this'] / mean['other']:.3f}; host per call µs other {host_us['other']:.1f} "
               f"this {host_us['this']:.1f}; rel err other {errs['other']:.2e} this "
-              f"{errs['this']:.2e}")
+              f"{errs['this']:.2e}; max |this - other| {vs_other:.3e}")
         del want
     del cases
     torch.cuda.empty_cache()

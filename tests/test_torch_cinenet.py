@@ -229,8 +229,9 @@ class TestCineNet:
         assert_model_close(outs[0], outs[1])
 
     def test_build_options(self):
-        with pytest.raises(NotImplementedError, match="item 14"):
-            CineNet(dynamic_type="3D", remat_policy="dots")
+        assert CineNet(dynamic_type="3D", remat_policy="dots").remat_policy == "dots"
+        with pytest.raises(ValueError, match="remat_policy"):
+            CineNet(dynamic_type="3D", remat_policy="everything")
         crnn = build_model("cinenet", "CRNN", device="cpu", num_cascades=2, chans=4)
         assert crnn.lambda_reg.shape == () and crnn.cg_iters == 4  # one shared λ; JAX's default
         with pytest.raises(TypeError):

@@ -79,7 +79,9 @@ class TestParser:
 # the plane axis of a type without plane batches (the JAX CLI's message);
 # export, the checkpoint import and the profiler (items 14.1-14.3), ported,
 # refuse an export on a mesh, an import that would be overwritten by a
-# resume, and a negative step count
+# resume, and a negative step count; --bf16 (item 14.4), ported, builds the
+# bf16 model (error None: the attribute named is true on the model the CLI
+# builds)
 _OPTION_CASES = [
     ("varnet", ["--num_devices", "2"], ValueError, "torchrun --nproc_per_node 2"),
     ("varnet", ["--coil_devices", "2"], ValueError, "torchrun --nproc_per_node 2"),
@@ -92,10 +94,10 @@ _OPTION_CASES = [
      "--mode export runs in one process"),
     ("varnet", ["--from_torch_ckpt", "model.ckpt", "--resume_training", "1"], ValueError,
      "mutually exclusive"),
-    ("varnet", ["--bf16", "1"], NotImplementedError, "item 14.4"),
+    ("varnet", ["--bf16", "1"], None, "bf16"),
     ("varnet", ["--packed", "1"], NotImplementedError, "item 14.6"),
     ("varnet", ["--profile_steps", "-1"], ValueError, "--profile_steps counts the steps"),
-    ("cinenet", ["--bf16", "1"], NotImplementedError, "item 14.4"),
+    ("cinenet", ["--bf16", "1"], None, "bf16"),
     ("xpdnet", ["--packed", "1", "--dynamic_type", "2D"], NotImplementedError, "item 14.6"),
 ]
 
@@ -104,8 +106,25 @@ _OPTION_CASES = [
     f"{case[0]}-argv{i}-item {13 if i < 5 else 14}" for i, case in enumerate(_OPTION_CASES)])
 def test_unported_options_raise_naming_their_item(family, argv, error, match, monkeypatch):
     monkeypatch.delenv("MASTER_ADDR", raising=False)  # --num_processes without an address
+    if error is None:
+        args = TC.build_parser(family).parse_args(argv + ["--device", "cpu"])
+        TC._check_ported(args)
+        assert getattr(TC._build_model_from_args(family, args), match)
+        return
     with pytest.raises(error, match=match):
         TC.train_test_main(family, argv + ["--device", "cpu"])
+
+
+def test_cli_runs_convolutions_and_matmuls_in_full_f32(capsys, monkeypatch):
+    """The CLI turns TF32 off for convolutions and matmuls at start-up, and
+    says so; torch's own default for convolutions is TF32."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    with pytest.raises(ValueError, match="--profile_steps"):
+        TC.train_test_main("varnet", ["--profile_steps", "-1", "--device", "cpu"])
+    assert torch.backends.cudnn.allow_tf32 is False
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert "torch.backends.cudnn.allow_tf32 = False" in capsys.readouterr().out
 
 
 def test_fetch_dir_reads_and_writes_template(tmp_path):

@@ -243,8 +243,9 @@ def test_model_matches_jax(family, kw, line_mask):
 
 
 def test_build_options_and_tree():
-    """CRNN builds through build_model with the JAX classes' defaults;
-    the packed trunk raises naming item 14; one shared λ and trunk."""
+    """CRNN builds through build_model with the JAX classes' defaults, in
+    bf16 and under a remat policy too; the packed trunk raises naming item
+    14; one shared λ and trunk."""
     for cls, jcls in ((VarNetRNN, JVarNetRNN), (CineNetRNN, JCineNetRNN), (XPDNetRNN, JXPDNetRNN)):
         port = cls()
         for name in ("num_cascades", "chans", "remat", "kernel_dc"):
@@ -259,8 +260,9 @@ def test_build_options_and_tree():
             build_model(family, "CRNN", device="cpu", trunk_block=(2, 2))
     with pytest.raises(TypeError):
         build_model("varnet", "CRNN", device="cpu", pools=3)
-    with pytest.raises(TypeError):
-        build_model("cinenet", "CRNN", device="cpu", bf16=True)
+    half = build_model("cinenet", "CRNN", device="cpu", bf16=True, remat_policy="convs")
+    assert half.trunk.dtype == half.trunk.bcrnn.cell.conv.dtype == torch.bfloat16
+    assert half.remat_policy == "convs"
     m = build_model("varnet", "CRNN", device="cpu", **CRNN_SMALL["varnet"])
     assert m.lambda_reg.shape == ()
     assert {n.split(".")[0] for n in m.state_dict()} == {"sens_net", "trunk", "lambda_reg"}

@@ -942,3 +942,149 @@ def test_custom_op_launches_its_kernel_and_matches_plain(dev, name):
         op(*args, True)
         assert getattr(mod, counter) == before
     torch.library.opcheck(op, (*args, *flag))
+
+
+# The TF32 modes ('high': 3xTF32, 'default': 1xTF32; csrc/cgemm_tf32.cuh)
+# against their emulating plain versions (ops/kernels/precision.py): the
+# same TF32 operands and partial products, another summation order, so the
+# tolerance is the f32 one's order: 1e-5 x max |plain result|.
+TF32_TOL = 1e-5
+
+
+@pytest.mark.parametrize("precision", ["high", "default"])
+@pytest.mark.parametrize("o,n,i", [(150, 200, 200), (30000, 200, 1), (1, 15, 40000), (40000, 15, 1),
+                                   (2000, 200, 1), (10, 200, 200), (37, 64, 1), (3, 24, 7)])
+def test_dft_tf32_modes_match_their_emulation(dev, o, n, i, precision):
+    """Each tile of the TF32 path (128 x 40 and 64 x 40 with 16- or 4-byte
+    copies) in both instances, and N <= 16, which runs the FP32 kernel in
+    every mode; the launch is counted under its precision; the result moves
+    from 'highest' by the mode's rounding."""
+    from cinemri_tpu_torch.ops import fft as F
+    from cinemri_tpu_torch.ops.kernels import dft_cuda
+
+    g = torch.Generator(device=dev).manual_seed(o + n + i)
+    xr, xi = torch.randn(o, n, i, generator=g, device=dev), torch.randn(o, n, i, generator=g, device=dev)
+    wr, wi = F._dft_tensors(n, False, False, "ortho", dev)
+    before = dft_cuda.LAUNCHES_BY_PRECISION[precision]
+    got = dft_cuda.complex_dft_matmul(xr, xi, wr, wi, precision)
+    assert dft_cuda.LAUNCHES_BY_PRECISION[precision] == before + 1
+    _close(got, dft_cuda.complex_dft_matmul_torch(xr, xi, wr, wi, precision), TF32_TOL)
+    highest = dft_cuda.complex_dft_matmul_torch(xr, xi, wr, wi)
+    scale = highest[0].abs().max().item()
+    moved = max((a - b).abs().max().item() for a, b in zip(got, highest))
+    assert moved <= (5e-5 if precision == "high" else 5e-3) * scale
+
+
+@pytest.mark.parametrize("precision", ["high", "default"])
+@pytest.mark.parametrize("b,t,c,h,w,kt,lam", [(1, 15, 10, 200, 200, 15, 0.0), (2, 3, 2, 70, 33, 1, 0.37),
+                                              (1, 2, 3, 36, 28, 2, 0.37)])
+def test_normal_apply_tf32_modes_match_their_emulation(dev, b, t, c, h, w, kt, lam, precision):
+    """The forward and the backward's x̄, s̄ and λ̄ at the flagship shape
+    and at ragged ones (4-byte copies at w = 33, the 64-row tile)."""
+    from cinemri_tpu_torch.ops.kernels import normal_cuda
+    from cinemri_tpu_torch.physics.operators import masked_normal_kernel
+
+    rng = np.random.default_rng(4)
+    mask = torch.from_numpy((rng.random((b, kt, 1, h, 1)) < 0.4).astype(np.float32)).to(dev)
+    k = masked_normal_kernel(mask)
+    g = torch.Generator(device=dev).manual_seed(5)
+    r = lambda *s: torch.randn(s, generator=g, device=dev)
+    x, s = (r(b, t, h, w), r(b, t, h, w)), (r(b, c, h, w), r(b, c, h, w))
+    args = (*x, k.re.contiguous(), k.im.contiguous(), *s, lam)
+    before = normal_cuda.LAUNCHES_BY_PRECISION[precision]
+    got = normal_cuda.normal_apply(*args, precision)
+    assert normal_cuda.LAUNCHES_BY_PRECISION[precision] == before + 1
+    _close(got, normal_cuda.normal_apply_torch(*args, precision), TF32_TOL)
+    gr = (r(b, t, h, w), r(b, t, h, w))
+    bargs = (*x, *gr, k.re.contiguous(), k.im.contiguous(), *s, lam)
+    before = normal_cuda.BWD_LAUNCHES_BY_PRECISION[precision]
+    got = normal_cuda.normal_apply_bwd(*bargs, precision)
+    assert normal_cuda.BWD_LAUNCHES_BY_PRECISION[precision] == before + 1
+    want = normal_cuda.normal_apply_bwd_torch(*bargs, precision)
+    _close(got[:2], want[:2], TF32_TOL)
+    _close(got[2:4], want[2:4], TF32_TOL)
+    torch.testing.assert_close(got[4].sum(), want[4].sum(), rtol=1e-5, atol=0)
+
+
+def test_varnet_xf_at_high_launches_the_tf32_kernels(dev):
+    """A small VarNet-XF train step at 'high': every DFT and normal-apply
+    launch, forward and backward, runs at 'high', and the loss equals the
+    emulating plain versions' within the model tolerance."""
+    from cinemri_tpu_torch.models import build_model
+    from cinemri_tpu_torch.ops import fft as F
+    from cinemri_tpu_torch.ops.cplx import Complex
+    from cinemri_tpu_torch.ops.kernels import dft_cuda, normal_cuda
+    from cinemri_tpu_torch.ops.ssim import ssim_loss
+    from cinemri_tpu_torch.physics import operators as OPS
+
+    g = torch.Generator(device=dev).manual_seed(6)
+    mask = (torch.rand(1, 4, 1, 32, 1, generator=g, device=dev) < 0.5).float()
+    k = Complex(torch.randn(1, 4, 3, 32, 32, generator=g, device=dev) * mask,
+                torch.randn(1, 4, 3, 32, 32, generator=g, device=dev) * mask)
+    small = dict(num_cascades=2, sens_chans=4, sens_pools=2, chans=4, pools=2)
+    losses = {}
+    F.set_dft_precision("high")
+    try:
+        for backend in ("kernel", "torch"):
+            F.set_dft_backend(backend)
+            OPS.set_normal_backend(backend)
+            model = build_model("varnet", "XF", device=dev, generator=torch.Generator().manual_seed(0),
+                                **small)
+            counts = (dict(dft_cuda.LAUNCHES_BY_PRECISION), dict(normal_cuda.LAUNCHES_BY_PRECISION),
+                      dict(normal_cuda.BWD_LAUNCHES_BY_PRECISION))
+            loss = ssim_loss(model(k, mask), k.abs()[:, :, 0])
+            loss.backward()
+            torch.cuda.synchronize()
+            losses[backend] = loss.item()
+            after = (dft_cuda.LAUNCHES_BY_PRECISION, normal_cuda.LAUNCHES_BY_PRECISION,
+                     normal_cuda.BWD_LAUNCHES_BY_PRECISION)
+            for before, now in zip(counts, after):
+                assert now["highest"] == before["highest"] and now["default"] == before["default"]
+                assert (now["high"] > before["high"]) == (backend == "kernel")
+    finally:
+        F.set_dft_precision("highest")
+        F.set_dft_backend("kernel")
+        OPS.set_normal_backend("kernel")
+    assert losses["kernel"] == pytest.approx(losses["torch"], rel=1e-4)
+
+
+@pytest.mark.parametrize("family, dyn", [("varnet", "3D"), ("cinenet", "3D"), ("varnet", "CRNN"),
+                                         ("xpdnet", "CRNN"), ("xpdnet", "XF")])
+def test_bf16_models_match_f32_on_the_card(dev, family, dyn):
+    """bf16 small models on cuDNN (3-D and transposed 3-D convolutions in
+    bf16, the CRNN's sequential cell) against their f32 selves from the same
+    weights, at the JAX package's bound (max 5e-2, mean 1e-2 of max |f32|);
+    a loss's gradients are f32."""
+    from cinemri_tpu_torch.models import build_model
+    from cinemri_tpu_torch.ops.cplx import Complex
+
+    g = torch.Generator(device=dev).manual_seed(8)
+    mask = (torch.rand(1, 4, 1, 32, 1, generator=g, device=dev) < 0.5).float()
+    mask[:, :, :, 12:20] = 1
+    k = Complex(torch.randn(1, 4, 3, 32, 32, generator=g, device=dev) * mask,
+                torch.randn(1, 4, 3, 32, 32, generator=g, device=dev) * mask)
+    args = (k, mask)
+    if family == "cinenet":
+        s = Complex(torch.randn(1, 1, 3, 32, 32, generator=g, device=dev),
+                    torch.randn(1, 1, 3, 32, 32, generator=g, device=dev))
+        rss = (s.re ** 2 + s.im ** 2).sum(2, keepdim=True).sqrt()
+        args += (Complex(s.re / rss, s.im / rss),)
+    kw = {"varnet": dict(sens_chans=4, sens_pools=2), "cinenet": dict(cg_iters=2),
+          "xpdnet": dict(sens_chans=4, sens_pools=2, n_primal=3)}[family]
+    if dyn == "XF":
+        kw.update(n_scales=2, n_filters_per_scale=(4, 8), n_convs_per_scale=(2, 2), norm_buffers=True)
+    elif dyn != "CRNN":
+        kw.update(chans=4, pools=2)
+    else:
+        kw.update(chans=6)
+    outs = {}
+    for bf16 in (False, True):
+        model = build_model(family, dyn, device=dev, generator=torch.Generator().manual_seed(0),
+                            num_cascades=2, bf16=bf16, **kw)
+        outs[bf16] = model(*args)
+    scale = outs[False].abs().max().item()
+    diff = (outs[True] - outs[False]).abs()
+    assert outs[True].dtype == torch.float32 and torch.isfinite(outs[True]).all()
+    assert diff.max().item() <= 5e-2 * scale and diff.mean().item() < 1e-2 * scale
+    outs[True].sum().backward()
+    assert all(p.grad.dtype == torch.float32 for p in model.parameters() if p.grad is not None)

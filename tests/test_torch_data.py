@@ -12,6 +12,7 @@ the model tolerance of tests/test_torch_cinenet.py, 1e-4 x max |out|.
 """
 
 import dataclasses
+import os
 import random
 
 import jax
@@ -294,9 +295,15 @@ class TestNative:
                           if "__pycache__" not in p.parts)
 
         before = listing()
+        from cinemri_tpu_torch.utils import compile_cache
+
         lib = native.build_library(force=True)
         assert lib == native.library_path()
-        assert lib.parent == Path(native.__file__).resolve().parents[1] / "_build"
+        # the compile cache's directory: by default the port's _build/<host fingerprint>
+        assert lib.parent == compile_cache.build_dir()
+        if not os.environ.get("CINEMRI_COMPILE_CACHE"):
+            assert lib.parent == (Path(native.__file__).resolve().parents[1] / "_build"
+                                  / compile_cache.host_fingerprint())
         assert lib.exists() and lib.stat().st_mtime >= (Path(native.__file__).parent / "espirit.cc").stat().st_mtime
         assert listing() == before
 

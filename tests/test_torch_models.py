@@ -220,9 +220,9 @@ class TestBuildModel:
             build_model("varnet", "XF", **SMALL)
 
     def test_not_ported_raise(self):
-        """The packed layouts (item 14) are all that is left unported of the
+        """The packed layouts (item 14.6) are all that is left unported of the
         three families: CRNN builds for each (tests/test_torch_crnn.py holds
-        it against the JAX package)."""
+        it against the JAX package), and so does bf16 (tests/test_torch_bf16.py)."""
         for family, cls in (("varnet", VarNetRNN), ("cinenet", CineNetRNN), ("xpdnet", XPDNetRNN)):
             assert isinstance(build_model(family, "CRNN", device="cpu", num_cascades=1, chans=4), cls)
         with pytest.raises(NotImplementedError, match="item 14"):
@@ -231,8 +231,11 @@ class TestBuildModel:
             build_model("xpdnet", "3D", device="cpu")
         with pytest.raises(ValueError):
             build_model("nope", "XF", device="cpu")
+        m = build_model("varnet", "XF", device="cpu", bf16=True, **SMALL)
+        assert m.bf16 and m.cascades.net_xf.unet.dtype == torch.bfloat16
+        assert all(p.dtype == torch.float32 for p in m.parameters())
         with pytest.raises(TypeError):
-            build_model("varnet", "XF", device="cpu", bf16=True)
+            build_model("varnet", "XF", device="cpu", bf17=True)
 
     def test_torch_style_init(self):
         a = build_model("varnet", "XF", device="cpu", generator=torch.Generator().manual_seed(5), **SMALL)

@@ -231,8 +231,18 @@ class TestRemat:
 
     @pytest.mark.parametrize("policy", ["dots", "dots_batch", "convs"])
     def test_saving_policies_are_not_ported(self, policy):
-        with pytest.raises(NotImplementedError, match="Queue 1, item 14"):
-            VarNet(remat_policy=policy, **SMALL)
+        """The saving policies are ported (tests/test_torch_remat.py holds
+        them against full replay at the JAX package's tolerance): a train step
+        under one gives full replay's gradients; an unknown one raises."""
+        grads = []
+        for p in (policy, ""):
+            model = build_model("varnet", "XF", device="cpu",
+                                generator=torch.Generator().manual_seed(3), remat_policy=p, **SMALL)
+            _, tb = _batch(1)
+            state, _ = make_train_step()(create_train_state(model, device="cpu"), tb)
+            grads.append({n: q.grad for n, q in state.model.named_parameters()})
+        for name, g in grads[0].items():
+            torch.testing.assert_close(g, grads[1][name], rtol=1e-5, atol=1e-7)
         with pytest.raises(ValueError):
             VarNet(remat_policy="everything", **SMALL)
 

@@ -279,8 +279,10 @@ class TestXPDNet:
         assert crnn.trunk.bcrnn.cell.conv.sizes == (12, 4, 4)  # 2 x (n_primal + 1) = 12
         with pytest.raises(NotImplementedError, match="item 14"):
             build_model("xpdnet", "XF", device="cpu", packed=True, **SMALL)
-        with pytest.raises(TypeError):
-            build_model("xpdnet", "XF", device="cpu", bf16=True)
+        half = build_model("xpdnet", "XF", device="cpu", bf16=True, **SMALL)
+        assert half.cascades[0].norm_buffers  # None resolves to bf16
+        assert half.cascades[0].image_net_xf.dtype == torch.bfloat16
+        assert half.sens_net.unet.dtype == torch.float32  # as the JAX package
         m = build_model("xpdnet", "XF", device="cpu", **SMALL)
         assert len(m.cascades) == 2  # per-cascade nets
         assert {n.split(".")[2] for n in m.state_dict() if n.startswith("cascades.")} == {
