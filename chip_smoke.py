@@ -143,6 +143,17 @@ deterministic algorithms (its gradients against full replay's), then three
 timed steps with cuDNN's defaults. The ``[build]`` line names the
 compile cache's directory, and a second build of the run must be a hit.
 
+Last, the space-to-depth (packed) conv stacks, ``[packed]``: VarNet-3D (the
+flagship's widths) and XPDNet-CRNN (the packed-carry iterations) with the
+same weights dense and packed: four requests through ``serve`` each way in
+f32 and bf16, the packed f32 ones also through the plain versions and the
+library calls, two train steps each way (the packed ones three ways) and
+two in bf16; then one request packed against dense for VarNet-2D,
+CineNet-2D and 3D, VarNet- and CineNet-CRNN and XPDNet-2D. Packed is held
+to the dense run: 1e-4 x max where the model is not order-sensitive,
+against float64 where it is, the bf16 bound against f32 in bf16, VarNet's
+train tolerances.
+
 It checks that each kernel run launched every kernel as many times as the
 path calls it and that the runs agree. Any failure ends the run with a
 non-zero exit code.
@@ -154,7 +165,8 @@ Output, last three lines: one JSON object with a row per kernel and run
 ``"varnet-crnn-serve"``, ``"varnet-crnn-train"``, the same two for
 ``cinenet-crnn`` and ``xpdnet-crnn``, ``"xpdnet-crnn-dual"`` (its DFT only),
 ``"data-serve"``, ``"soft-sense"``, ``"loop"``, ``"ddp"``, ``"mesh"`` (rank 0's 2
-steps on ``{coil: 2}``) and, for ``fft2_plane``,
+steps on ``{coil: 2}``), ``"packed-serve"`` and ``"packed-train"`` (``[packed]``'s
+eight f32 requests and four steps) and, for ``fft2_plane``,
 ``"check"``; the TF32 modes as their own rows, ``complex_dft_matmul[high]``
 ... ``normal_apply_bwd[default]``, from ``[bf16]``'s run at that mode and
 its repeats through the plain versions and the library calls, with the
@@ -2253,8 +2265,9 @@ def precision_phase(torch, dev, peak_bw):
 
 def request_profile(torch, fn):
     """One call of ``fn`` under the profiler: host ms, device busy ms, the
-    device's idle share of the host time and the device ms of the three
-    largest kernel kinds (``instrument/opstats.py``)."""
+    device's idle share of the host time, the device ms of the three
+    largest kernel kinds (``instrument/opstats.py``) and the three
+    convolution kernels with the most device time (name, ms, launches)."""
     from torch.profiler import ProfilerActivity, profile
 
     from cinemri_tpu_torch.instrument import opstats
@@ -2271,8 +2284,10 @@ def request_profile(torch, fn):
         fail("the profiler recorded no device events")
     busy, _ = opstats.busy_share(events)
     top = list(opstats.fold_by_kind(events).items())[:3]
+    convs = opstats.top_names(events, "conv / gemm (cuDNN, cuBLAS)", 3)
     return dict(host_ms=host_ms, device_busy_ms=busy, idle_share=1 - busy / host_ms,
-                top_kinds={k: round(v["ms"], 3) for k, v in top})
+                top_kinds={k: round(v["ms"], 3) for k, v in top},
+                top_convs=[(n[:70], round(ms, 3), count) for n, ms, count in convs])
 
 
 def bf16_phase(torch, dev, data):
@@ -3221,7 +3236,7 @@ def main() -> int:
 
     def train_phase(tag, model, batch, per_step, loss_tol=TRAIN_LOSS_TOL, grad_tol=TRAIN_GRAD_TOL,
                     f64_reference=False, steps=TRAIN_STEPS, plain_twice=True, profile_step=True,
-                    deterministic=False):
+                    deterministic=False, keep_grads=False):
         """``steps`` steps from the same weights four times: (a) through the
         plain versions twice (their run-to-run gap; once without
         ``plain_twice``), (b) through one library call each in the plain
@@ -3231,17 +3246,18 @@ def main() -> int:
         plain versions in float64, and each run's first-step gradient
         against it. With ``deterministic``, the runs (not the profiled step)
         take cuDNN's deterministic algorithms, so that the gaps measure the
-        summation orders alone."""
+        summation orders alone. With ``keep_grads``, the kernel run's record
+        and first-step gradients are returned as ``kernel_run``."""
         cudnn_deterministic = torch.backends.cudnn.deterministic
         torch.backends.cudnn.deterministic = deterministic or cudnn_deterministic
         try:
             return train_runs(tag, model, batch, per_step, loss_tol, grad_tol, f64_reference,
-                              steps, plain_twice, profile_step, cudnn_deterministic)
+                              steps, plain_twice, profile_step, cudnn_deterministic, keep_grads)
         finally:
             torch.backends.cudnn.deterministic = cudnn_deterministic
 
     def train_runs(tag, model, batch, per_step, loss_tol, grad_tol, f64_reference, steps,
-                   plain_twice, profile_step, cudnn_deterministic):
+                   plain_twice, profile_step, cudnn_deterministic, keep_grads):
         init = {n: v.detach().clone() for n, v in model.state_dict().items()}
         set_backends("torch")
         tplain = (Timed(torch, dft_cuda, "complex_dft_matmul_torch", dft_cost),
@@ -3327,7 +3343,7 @@ def main() -> int:
                     plain_again=plain2_rec, library=lib_rec, ms_per_step=ms_step,
                     volumes_per_s=1e3 / ms_step, peak_memory_bytes=peak, launches=trained,
                     launches_per_step=per_step, profile=profile_, timers=(tkern, tplain, tlib),
-                    **gaps)
+                    **gaps, **({"kernel_run": (kern_rec, kern_grads)} if keep_grads else {}))
 
     def perturbation(model, args):
         """How far the plain forward of the k-space x (1 + 1e-7 noise) moves
@@ -4002,6 +4018,258 @@ def main() -> int:
     # -- 12e. a reference checkpoint served from a torch.export artifact ----------------
     interop = interop_export_phase(torch, dev, {"varnet": expected, "cinenet": c_expected})
 
+    # -- 12g. the space-to-depth (packed) conv stacks against the dense ones ---------------
+    def packed_phase():
+        """``[packed]``: ``packed=True`` (``models/denoisers/packed_unet.py``)
+        against the dense stacks from the same weights (seed 0), at full width
+        on 15 x 10 x 200 x 200 volumes. VarNet-3D (the flagship's widths) and
+        XPDNet-CRNN (9 iterations, chans 18, n_primal 5, kernel DC: the
+        packed-carry iterations): the four requests through ``serve``, dense
+        and packed, in f32 and bf16 (CUDA events, ms per volume the median,
+        peak MiB), the packed f32 ones also three ways (``serve_phase``, the
+        ``packed-serve`` rows); two train steps packed three ways
+        (``train_phase``, the ``packed-train`` rows) and two dense, remat on,
+        first-step gradients compared (relative L2), and two bf16 steps each.
+        Then one request each, packed against dense: VarNet-2D (both
+        profiled, their convolution kernels named), CineNet-2D and 3D (with
+        maps), VarNet- and CineNet-CRNN, XPDNet-2D; and VarNet-2D's packed
+        level-0 decoder conv alone, as cuDNN runs it in f32, split in two
+        convs over half the input channels, and in bf16. Packed
+        against dense: MODEL_TOL x max |dense| where the model is not
+        order-sensitive (VarNet, the CRNN models), within F64_RATIO of the
+        dense run's relative L2 from float64 where it is (CineNet, XPDNet);
+        a bf16 packed request within the bf16 bound of the f32 dense one;
+        train runs at VarNet's train tolerances."""
+        import torch.nn.functional as F
+
+        from cinemri_tpu_torch.models.denoisers.packed_unet import choose_blocks
+        from cinemri_tpu_torch.models.recurrent import _trunk_block
+
+        t_phase = time.perf_counter()
+        reqs = [flagship_inputs(torch, mf, s_, dev) for mf, s_ in requests]
+        maps = rss_maps(torch, 0, dev)
+        up16 = lambda n: -(-n // 16) * 16  # the NormUnets' pad
+        report = dict(level_blocks={
+            "VarNet-3D cascade U-Net (16, 208, 208)": choose_blocks(
+                (up16(T), up16(H), up16(W)), FLAGSHIP["chans"], FLAGSHIP["pools"]),
+            "VarNet sens-net U-Net (208, 208)": choose_blocks(
+                (up16(H), up16(W)), FLAGSHIP["sens_chans"], FLAGSHIP["sens_pools"]),
+            "CineNet-3D U-Net (15, 200, 200)": choose_blocks((T, H, W), CINENET["chans"],
+                                                             CINENET["pools"]),
+            "XPDNet-CRNN trunk": _trunk_block(H, W, True, XPDNET_CRNN["chans"]),
+            "VarNet-CRNN trunk": _trunk_block(H, W, True, VARNET_CRNN["chans"])})
+        print(f"[packed] blocks: {report['level_blocks']}")
+
+        def build(fam, dyn, cfg, packed, bf16=False):
+            return build_model(fam, dyn, device=dev, generator=torch.Generator().manual_seed(0),
+                               packed=packed, bf16=bf16, **cfg)
+
+        def timed_requests(serve, inputs):
+            """One warm request, then each between CUDA events: outputs, ms,
+            peak MiB and the DFT and normal-apply launches of all of them."""
+            before = (dft_cuda.LAUNCHES, normal_cuda.LAUNCHES)
+            serve(*inputs[0])
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            outs, ms = [], []
+            for req in inputs:
+                e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                e0.record()
+                outs.append(serve(*req))
+                e1.record()
+                e1.synchronize()
+                ms.append(e0.elapsed_time(e1))
+            launched = {"dft": dft_cuda.LAUNCHES - before[0], "normal": normal_cuda.LAUNCHES - before[1]}
+            return outs, ms, torch.cuda.max_memory_allocated() / 2**20, launched
+
+        def rel(a, b_):
+            d = (a - b_).abs()
+            return d.max().item() / b_.abs().max().item(), d.mean().item() / b_.abs().max().item()
+
+        full = (("VarNet-3D", "varnet", "3D", FLAGSHIP, {"dft": 4, "normal": nc}),
+                ("XPDNet-CRNN", "xpdnet", "CRNN", XPDNET_CRNN, {"dft": 4, "normal": xcn}))
+        serves, serve_inputs, serve_expected, kept = [], [], [], []
+        for label, fam, dyn, cfg, expected_ in full:
+            weights = build(fam, dyn, cfg, False).state_dict()
+            runs = {}
+            for bf16 in (False, True):
+                for packed in (False, True):
+                    m_ = build(fam, dyn, cfg, packed, bf16).eval()
+                    m_.load_state_dict(weights)
+                    outs, ms, peak, launched = timed_requests(bind_model(m_, device=dev), reqs)
+                    want = {k_: (len(reqs) + 1) * v for k_, v in expected_.items()}
+                    if launched != want:
+                        fail(f"packed: {label} ({'bf16' if bf16 else 'f32'}, packed {packed}) "
+                             f"launched {launched}, not {want}")
+                    runs[bf16, packed] = dict(outs=outs, ms=ms, ms_per_volume=statistics.median(ms),
+                                              peak_mib=peak, launches=launched)
+                    if packed and not bf16:
+                        kept.append(m_)
+                        serves += [bind_model(m_, device=dev)] * len(reqs)
+                        serve_inputs += reqs
+                        serve_expected += [expected_] * len(reqs)
+                    del m_
+                    torch.cuda.empty_cache()
+            dense32 = runs[False, False]["outs"]
+            gaps = {"f32 packed vs dense": [rel(a, b_) for a, b_ in zip(runs[False, True]["outs"], dense32)],
+                    "bf16 packed vs bf16 dense": [rel(a, b_) for a, b_ in zip(runs[True, True]["outs"],
+                                                                              runs[True, False]["outs"])],
+                    "bf16 packed vs f32 dense": [rel(a, b_) for a, b_ in zip(runs[True, True]["outs"], dense32)],
+                    "bf16 dense vs f32 dense": [rel(a, b_) for a, b_ in zip(runs[True, False]["outs"], dense32)]}
+            for run_ in runs.values():
+                if any(o.shape != (1, T, H, W) or not torch.isfinite(o).all() for o in run_.pop("outs")):
+                    fail(f"packed: {label} served an image of another shape or non-finite values")
+            for dtype, bf16 in (("f32", False), ("bf16", True)):
+                d_, p_ = runs[bf16, False], runs[bf16, True]
+                print(f"[packed] {label} {dtype}: packed {p_['ms_per_volume']:.3f} ms per volume (dense "
+                      f"{d_['ms_per_volume']:.3f}; per request {[round(x, 3) for x in p_['ms']]} / "
+                      f"{[round(x, 3) for x in d_['ms']]}), serving peak {p_['peak_mib']:.1f} MiB (dense "
+                      f"{d_['peak_mib']:.1f}); launches per 5 requests {p_['launches']}")
+            for name, g_ in gaps.items():
+                print(f"[packed] {label} {name}: max / mean |diff| over max |ref| "
+                      f"{[(f'{m:.3e}', f'{a:.3e}') for m, a in g_]}")
+            if not all(m <= MODEL_TOL for m, _ in gaps["f32 packed vs dense"]):
+                fail(f"packed: {label} f32 packed requests leave {MODEL_TOL} x max |dense|: "
+                     f"{gaps['f32 packed vs dense']}")
+            if not all(m <= BF16_MAX_TOL and a < BF16_MEAN_TOL for m, a in gaps["bf16 packed vs f32 dense"]):
+                fail(f"packed: {label} bf16 packed requests leave the bf16 bound of f32: "
+                     f"{gaps['bf16 packed vs f32 dense']}")
+            report[label] = dict(config=cfg, serve={f"{'bf16' if b else 'f32'} {'packed' if p else 'dense'}": r
+                                                    for (b, p), r in runs.items()}, serve_gaps=gaps)
+            del runs, dense32
+        pserve = serve_phase("packed-serve", serves, serve_inputs, serve_expected)
+        del serves, kept
+        torch.cuda.empty_cache()
+
+        timers, train_launches = None, collections.Counter()
+        for label, fam, dyn, cfg, expected_ in full:
+            per_step = {"dft": expected_["dft"], "normal": 2 * expected_["normal"],
+                        "normal_bwd": expected_["normal"]}
+            batch = train_batch(torch, dev)
+            tr = train_phase(f"packed-train {label}", build(fam, dyn, cfg, True), batch, per_step,
+                             steps=2, plain_twice=False, profile_step=False, keep_grads=True)
+            init, _ = tr.pop("init"), tr.pop("batch")
+            prec, pgrads = tr.pop("kernel_run")
+            run_timers = tr.pop("timers")
+            if timers is None:
+                timers = run_timers
+            else:
+                for mine, theirs in zip(timers, run_timers):
+                    for a, b_ in zip(mine, theirs):
+                        a.calls += b_.calls
+            train_launches.update(tr["launches"])
+            steps = {}
+            for bf16 in (False, True):
+                for packed in ((False, True) if bf16 else (False,)):
+                    m_ = build(fam, dyn, cfg, packed, bf16)
+                    torch.cuda.synchronize()
+                    torch.cuda.reset_peak_memory_stats()
+                    rec, grads = train_run(m_, init, batch, 2)
+                    steps[bf16, packed] = dict(ms=rec["ms"], loss=rec["loss"],
+                                               peak_mib=torch.cuda.max_memory_allocated() / 2**20)
+                    if not bf16:
+                        dense_rec, dense_grads = rec, grads
+                    del m_, rec, grads
+                    torch.cuda.empty_cache()
+            steps[False, True] = dict(ms=prec["ms"], loss=prec["loss"],
+                                      peak_mib=tr["peak_memory_bytes"] / 2**20)
+            loss_gap, grad_gap, leaves = gap(prec, pgrads, dense_rec, dense_grads)
+            del pgrads, dense_grads
+            for dtype, bf16 in (("f32", False), ("bf16", True)):
+                d_, p_ = steps[bf16, False], steps[bf16, True]
+                print(f"[packed] {label} train {dtype}: packed {p_['ms'][-1]:.3f} ms per step (dense "
+                      f"{d_['ms'][-1]:.3f}; steps {[round(x, 3) for x in p_['ms']]} / "
+                      f"{[round(x, 3) for x in d_['ms']]}), peak {p_['peak_mib']:.1f} MiB (dense "
+                      f"{d_['peak_mib']:.1f}), losses {p_['loss']} / {d_['loss']}")
+            print(f"[packed] {label} train: packed vs dense loss rel {loss_gap:.3e} (tol "
+                  f"{TRAIN_LOSS_TOL:.0e}), step-1 grads rel L2 {grad_gap:.3e} (tol {TRAIN_GRAD_TOL:.0e}), "
+                  f"worst leaves {[(n, f'{v:.3e}') for v, n in leaves]}")
+            if not (loss_gap <= TRAIN_LOSS_TOL and grad_gap <= TRAIN_GRAD_TOL):
+                fail(f"packed: {label}'s packed train steps leave the dense ones' tolerances: "
+                     f"{loss_gap}, {grad_gap}")
+            report[label].update(train={f"{'bf16' if b else 'f32'} {'packed' if p else 'dense'}": r
+                                        for (b, p), r in steps.items()},
+                                 train_gaps=dict(loss_rel=loss_gap, grads_rel_l2=grad_gap),
+                                 train_vs_plain=dict(kernel_gap=tr["kernel_gap"][:2],
+                                                     library_gap=tr["library_gap"][:2]))
+            del init, batch, tr
+            torch.cuda.empty_cache()
+
+        singles = (("VarNet-2D", "varnet", "2D", FLAGSHIP, None),
+                   ("CineNet-2D", "cinenet", "2D", CINENET, "f64"),
+                   ("CineNet-3D", "cinenet", "3D", CINENET, "f64"),
+                   ("VarNet-CRNN", "varnet", "CRNN", VARNET_CRNN, None),
+                   ("CineNet-CRNN", "cinenet", "CRNN", CINENET_CRNN, None),
+                   ("XPDNet-2D", "xpdnet", "2D", XPDNET, "f64"))
+        for label, fam, dyn, cfg, reference in singles:
+            req = reqs[0] + (maps if fam == "cinenet" else ())
+            weights = build(fam, dyn, cfg, False).state_dict()
+            rec = {}
+            for packed in (False, True):
+                m_ = build(fam, dyn, cfg, packed).eval()
+                m_.load_state_dict(weights)
+                srv = bind_model(m_, device=dev)
+                outs, ms, peak, launched = timed_requests(srv, [req] * 3)
+                rec[packed] = dict(out=outs[0], ms=ms, ms_per_volume=statistics.median(ms),
+                                   peak_mib=peak, launches=launched)
+                if label == "VarNet-2D":  # where the packed convs' time goes
+                    rec[packed]["profile"] = request_profile(torch, lambda: srv(*req))
+                    print(f"[packed] {label} {'packed' if packed else 'dense'} request profiled: "
+                          f"{json.dumps(rec[packed]['profile'])}")
+                if reference and not packed:
+                    f64 = float64_forward(m_, req)
+                del m_
+                torch.cuda.empty_cache()
+            got, want = rec[True].pop("out"), rec[False].pop("out")
+            gap_ = rel(got, want)
+            line = (f"[packed] {label}: packed {rec[True]['ms_per_volume']:.3f} ms per volume (dense "
+                    f"{rec[False]['ms_per_volume']:.3f}), peak {rec[True]['peak_mib']:.1f} MiB (dense "
+                    f"{rec[False]['peak_mib']:.1f}), max / mean |packed - dense| over max |dense| "
+                    f"{gap_[0]:.3e} / {gap_[1]:.3e}, launches per 3 requests {rec[True]['launches']}")
+            if rec[True]["launches"] != rec[False]["launches"] or not all(rec[True]["launches"].values()):
+                fail(f"packed: {label} packed launches {rec[True]['launches']} against dense "
+                     f"{rec[False]['launches']}")
+            if not torch.isfinite(got).all():
+                fail(f"packed: {label}'s packed image has non-finite values")
+            if reference:
+                dist = {k_: (torch.linalg.vector_norm(o - f64) / torch.linalg.vector_norm(f64)).item()
+                        for k_, o in (("packed", got), ("dense", want))}
+                rec["float64_rel_l2"] = dist
+                print(line + f"; relative L2 from float64: packed {dist['packed']:.3e}, dense "
+                      f"{dist['dense']:.3e}")
+                if not dist["packed"] <= F64_RATIO * dist["dense"]:
+                    fail(f"packed: {label} packed is more than {F64_RATIO}x as far from float64 as dense")
+                del f64
+            else:
+                print(line + f" (tol {MODEL_TOL:.0e})")
+                if not gap_[0] <= MODEL_TOL:
+                    fail(f"packed: {label} packed leaves {MODEL_TOL} x max |dense|: {gap_[0]}")
+            report[label] = dict(config=cfg, gap=gap_, packed=rec[True], dense=rec[False],
+                                 **({"float64_rel_l2": rec["float64_rel_l2"]} if reference else {}))
+            del got, want
+        # VarNet-2D's level-0 decoder conv on the packed layout (block (2, 4):
+        # 2 x 16 logical input channels, 16 output channels), f32 without
+        # TF32 as every run here: cuDNN as it comes, and the same sum as two
+        # convs over 128 input channels each; bf16 beside them
+        x_ = torch.randn(T, 256, 104, 52, generator=gen, device=dev)
+        w_ = torch.randn(128, 256, 3, 3, generator=gen, device=dev)
+        convs = {"one conv": cuda_ms(torch, lambda: F.conv2d(x_, w_, padding=1), iters=5, warmup=1),
+                 "two halves summed": cuda_ms(torch, lambda: F.conv2d(x_[:, :128], w_[:, :128], padding=1)
+                                              + F.conv2d(x_[:, 128:], w_[:, 128:], padding=1),
+                                              iters=5, warmup=1),
+                 "bf16": cuda_ms(torch, lambda: F.conv2d(x_.bfloat16(), w_.bfloat16(), padding=1),
+                                 iters=5, warmup=1)}
+        report["level0_conv_ms"] = convs
+        print(f"[packed] VarNet-2D packed level-0 conv (15, 256, 104, 52) x (128, 256, 3, 3), ms: "
+              f"{ {k_: round(v, 3) for k_, v in convs.items()} }")
+        del x_, w_
+        wall = time.perf_counter() - t_phase
+        print(f"[packed] phase wall time {wall:.1f} s")
+        report.update(serve=pserve, wall_s=wall)
+        return report, dict(launches=dict(train_launches), timers=timers)
+
+    packed_report, ptrain = packed_phase()
+
     # -- 13. report -------------------------------------------------------------------
     def row(kernel, source, replaces, run, launches, timed, plain, library):
         # the mesh rows: the checks at the coil shards' shapes; else all of the kernel's
@@ -4025,14 +4293,14 @@ def main() -> int:
     crnn_serves = [(f"{fam}-crnn-serve", crnn[fam]["serve"]) for fam in ("varnet", "cinenet", "xpdnet")]
     for run, srv in (("serve", vserve), ("cinenet-serve", cserve), ("xpdnet-serve", xserve),
                      ("xpdnet-variants", xvariants), ("cascades-2d3d", c2d3d),
-                     *crnn_serves, ("data-serve", dserve)):
+                     *crnn_serves, ("data-serve", dserve), ("packed-serve", packed_report["serve"])):
         rows += [row(*dft_src, run, srv["launches"]["dft"], srv["kern"][0], srv["plain"][0], srv["lib"][0]),
                  row(*fwd_src, run, srv["launches"]["normal"], srv["kern"][1], srv["plain"][1],
                      srv["lib"][1])]
     for run, tr in (("train", vtrain), ("cinenet-train", ctrain), ("xpdnet-train", xtrain),
                     ("varnet-3d-train", c3train["varnet"]), ("cinenet-3d-train", c3train["cinenet"]),
                     *[(f"{fam}-crnn-train", crnn[fam]["train"]) for fam in ("varnet", "cinenet", "xpdnet")],
-                    ("loop", loop), ("ddp", ddp), ("mesh", mesh)):
+                    ("loop", loop), ("ddp", ddp), ("mesh", mesh), ("packed-train", ptrain)):
         tkern, tplain, tlib = tr.pop("timers")
         rows += [row(*src, run, tr["launches"][key], tkern[i], tplain[i], tlib[i])
                  for i, (src, key) in enumerate(((dft_src, "dft"), (fwd_src, "normal"),
@@ -4061,6 +4329,7 @@ def main() -> int:
                              plain_ms=tplain[i].ms(), bound_ms=b_ms, bound_by=b_by,
                              library_ms=tlib[i].ms()))
     for srv in (vserve, cserve, xserve, xvariants, c2d3d, dserve, crnn["xpdnet_dual"],
+                packed_report["serve"],
                 *(crnn[fam]["serve"] for fam in ("varnet", "cinenet", "xpdnet"))):
         for key in ("kern", "plain", "lib"):
             srv.pop(key)
@@ -4073,7 +4342,7 @@ def main() -> int:
         data=data, data_serve=dserve, soft_sense=soft_sense, queue3=queue3,
         data_phases_wall_s=data_wall, loop=loop, ddp=ddp, mesh=mesh, custom_op=op_cost,
         cinenet_dft_trace=cinenet_dft_trace, profile=prof, interop_export=interop,
-        precision=precision, bf16=bf16, remat=remat_report)))
+        precision=precision, bf16=bf16, remat=remat_report, packed=packed_report)))
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

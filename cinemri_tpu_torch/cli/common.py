@@ -8,9 +8,12 @@ test with inference), checkpoint resume semantics. The parser keeps every
 flag and default of the JAX package's, so a run's checkpoint directory
 (named by :func:`config_fingerprint`) is the same in both packages;
 ``--device`` (default ``cuda``) picks the device, the counterpart of
-``JAX_PLATFORMS``. Every dynamic type runs, CRNN included; ``--packed`` left
-at its default runs the dense conv stacks (the JAX package's packed layout,
-its default for 2D, 3D and CRNN, is numerically the same and not ported).
+``JAX_PLATFORMS``. Every dynamic type runs, CRNN included. ``--packed 1``
+runs the conv stacks on the space-to-depth layout
+(``models/denoisers/packed_unet.py``; the same function and parameters, so
+checkpoints are shared and ``config_fingerprint`` leaves it out, as the JAX
+CLI does); left at its default it runs the dense stacks for every dynamic
+type, where the JAX CLI packs 2D, 3D and CRNN after its TPU measurement.
 
 Parallel runs take one process per device, as the reference's DDP does:
 ``torchrun --nproc_per_node N -m cinemri_tpu_torch.cli.train_test_varnet
@@ -48,9 +51,6 @@ does (torch's own default rounds convolution inputs to TF32), and prints the
 setting; it also enables the compile cache (``utils/compile_cache.py``),
 where the JAX CLI enables its. Library callers (``build_model``,
 ``Trainer``, ``bind_model``) set no global flag.
-
-What is not ported raises ``NotImplementedError`` naming its ROADMAP item
-(Queue 1): ``--packed 1`` (item 14.6).
 """
 
 from __future__ import annotations
@@ -154,9 +154,8 @@ def build_parser(family: str) -> argparse.ArgumentParser:
                    help="precomputed-kernel data consistency (the normal-apply "
                         "kernel); 0 = the reference's direct k-space formulation")
     p.add_argument("--packed", default=None, choices=(0, 1), type=int,
-                   help="space-to-depth lane packing of the conv stacks; the default "
-                        "runs the dense stacks for every dynamic type (numerically the "
-                        "same; 1 is not ported yet: item 14.6)")
+                   help="space-to-depth packing of the conv stacks (the same function and "
+                        "parameters); the default runs the dense stacks for every dynamic type")
     p.add_argument("--bf16", default=0, choices=(0, 1), type=int,
                    help="bfloat16 denoiser activations (norm statistics, data consistency "
                         "and the kernels stay f32); trained quality is certified for the "
@@ -323,14 +322,6 @@ def _resolved_devices(args) -> int:
     return max(1, process_info()[1] // math.prod(_model_axes(args).values()))
 
 
-def _check_ported(args) -> None:
-    """Raise ``NotImplementedError`` naming the ROADMAP item (Queue 1) of
-    an option whose path the port does not have yet."""
-    if args.packed:
-        raise NotImplementedError(
-            "--packed 1 is not ported yet (ROADMAP Queue 1, item 14.6: packed_unet.py)")
-
-
 def full_f32() -> None:
     """Run f32 convolutions and matmuls in full f32 on the card (torch's
     default rounds convolution inputs to TF32), and print the setting with
@@ -443,7 +434,7 @@ def _build_model_from_args(family: str, args):
         kwargs.update(weight_sharing=args.weight_sharing)
         if family != "xpdnet":
             kwargs.update(pools=args.pools)
-    kwargs.update(kernel_dc=bool(args.kernel_dc), bf16=bool(args.bf16))
+    kwargs.update(kernel_dc=bool(args.kernel_dc), bf16=bool(args.bf16), packed=bool(args.packed))
     kwargs.update({f"{axis}_axis": axis for axis in _model_axes(args)})
     return build_model(family, args.dynamic_type, device=args.device, **kwargs)
 
@@ -493,7 +484,6 @@ def train_test_main(family: str, argv=None) -> Dict:
     full_f32()
     enable_compile_cache()
     args = build_parser(family).parse_args(argv)
-    _check_ported(args)
     check_plane_axis(args.dynamic_type, args.plane_devices > 1)  # before the process group
     if args.from_torch_ckpt and args.resume_training:
         raise ValueError("--from_torch_ckpt and --resume_training are mutually exclusive")

@@ -2,9 +2,8 @@
 
 Every variant of the three families is ported: VarNet and CineNet 2D / 3D
 / XT / XF / CRNN, XPDNet 2D / XT / XF / CRNN (the CRNN hybrids are
-``models/recurrent.py``), with the JAX package's ``bf16`` activation mode
-and remat policies. What is not ported of them (the packed layouts) raises
-``NotImplementedError`` naming its ROADMAP item (14.6).
+``models/recurrent.py``), with the JAX package's ``bf16`` activation mode,
+remat policies and space-to-depth (``packed``) conv stacks.
 """
 
 from __future__ import annotations
@@ -66,7 +65,7 @@ def build_model(
     ``device="cpu"`` to build on the CPU. ``generator`` draws the initial
     weights (a CPU ``torch.Generator`` seeded 0 when omitted). Keyword
     arguments go to the model class under the JAX package's names
-    (every family: ``bf16``, ``remat``, ``remat_policy``,
+    (every family: ``bf16``, ``packed``, ``remat``, ``remat_policy``,
     ``remat_prevent_cse``; VarNet: ``num_cascades``, ``sens_chans``,
     ``sens_pools``, ``chans``, ``pools``, ...; CineNet: ``num_cascades``,
     ``cg_iters``, ``chans``, ``pools``, ``weight_sharing``, ``kernel_dc``;
@@ -76,8 +75,13 @@ def build_model(
     ``res``, ``primal_only``, ``n_primal``, ``n_dual``, ``norm_buffers``,
     ...; CRNN: ``num_cascades``, ``chans``, ``kernel_dc``, ``remat``, and
     ``sens_chans`` / ``sens_pools`` (VarNet, XPDNet), ``cg_iters``
-    (CineNet), ``primal_only`` / ``n_primal`` / ``n_dual`` (XPDNet));
-    unknown keys raise. ``coil_axis`` (every family and type) and
+    (CineNet), ``primal_only`` / ``n_primal`` / ``n_dual`` (XPDNet),
+    ``trunk_block``); unknown keys raise. ``packed`` runs the conv stacks
+    on the space-to-depth layout (``models/denoisers/packed_unet.py``: the
+    U-Nets, the MWCNN's grid levels above the deepest, the CRNN trunk; not
+    XPDNet's sens net), the same function with the same parameters, so a
+    dense state dict loads into a packed model; ``trunk_block`` sets the
+    CRNN trunk's ``(h, w)`` block in place of the JAX package's rule. ``coil_axis`` (every family and type) and
     ``plane_axis`` (XT and XF only; another type raises the JAX CLI's
     ``ValueError``) name dims of the ambient mesh (``parallel.set_mesh``)
     the model splits its coils and its plane batches over.

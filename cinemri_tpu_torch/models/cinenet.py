@@ -20,6 +20,8 @@ JAX package) each cascade is checkpointed when autograd records, under
 ``remat_policy`` (``models/remat.py``). ``bf16`` stores the U-Nets'
 activations in bf16 (``models/denoisers/activations.py``); the CG solve, the
 normal-apply kernel and the output stay f32, as in the JAX package.
+``packed`` runs the U-Nets on the space-to-depth layout
+(``models/denoisers/packed_unet.py``; the same parameters and function).
 ``plane_axis`` and ``coil_axis`` split the plane batches and the coils over
 dims of the ambient mesh, as in ``models/varnet.py``: on a coil axis the maps
 and k-space hold this rank's coils, and each CG apply runs the kernel on them
@@ -71,7 +73,7 @@ class CineNetCascade(nn.Module):
 
     def __init__(self, chans: int, pools: int, cg_iters: int = 4, dynamic_type: str = "XF",
                  weight_sharing: bool = False, plane_axis: str = "", coil_axis: str = "",
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, packed: bool = False):
         super().__init__()
         if dynamic_type not in DYNAMIC_TYPES:
             raise ValueError(f"unknown dynamic_type {dynamic_type!r}")
@@ -81,12 +83,13 @@ class CineNetCascade(nn.Module):
         self.dynamic_type = dynamic_type
         self.weight_sharing = weight_sharing
         if dynamic_type in ("2D", "3D"):
-            self.net = Unet(chans, pools, dims=3 if dynamic_type == "3D" else 2, dtype=dtype)
+            self.net = Unet(chans, pools, dims=3 if dynamic_type == "3D" else 2, packed=packed,
+                            dtype=dtype)
         elif weight_sharing:
-            self.plane_net = Unet(chans, pools, dtype=dtype)
+            self.plane_net = Unet(chans, pools, packed=packed, dtype=dtype)
         else:
-            self.net_xf = Unet(chans, pools, dtype=dtype)
-            self.net_yf = Unet(chans, pools, dtype=dtype)
+            self.net_xf = Unet(chans, pools, packed=packed, dtype=dtype)
+            self.net_yf = Unet(chans, pools, packed=packed, dtype=dtype)
 
     def _xfyf(self, x: Complex) -> Complex:
         """Rotated-plane regularization on raw channels: temporal-mean
@@ -151,6 +154,7 @@ class CineNet(nn.Module):
         remat: bool = True,
         remat_policy: str = "",
         remat_prevent_cse: bool = True,
+        packed: bool = False,
         bf16: bool = False,
         plane_axis: str = "",
         coil_axis: str = "",
@@ -166,10 +170,11 @@ class CineNet(nn.Module):
         self.remat = remat
         self.remat_policy = remat_policy
         self.bf16 = bf16
+        self.packed = packed
         self.plane_axis = plane_axis
         self.coil_axis = coil_axis
         self.cascades = CineNetCascade(chans, pools, cg_iters, dynamic_type, weight_sharing,
-                                       plane_axis, coil_axis, resolve_dtype(bf16))
+                                       plane_axis, coil_axis, resolve_dtype(bf16), packed)
         self.lambda_reg = nn.Parameter(torch.full((num_cascades,), LAMBDA_INIT))
 
     def partial_parameters(self) -> Dict[str, Tuple[str, ...]]:

@@ -23,8 +23,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-__all__ = ["act_dtype", "conv", "instance_norm", "is_reduced", "leaky_relu", "output",
-           "resolve_dtype"]
+__all__ = ["act_dtype", "conv", "conv_in_dtype", "instance_norm", "is_reduced", "leaky_relu",
+           "output", "resolve_dtype"]
 
 _TRANSPOSED = {nn.ConvTranspose2d: F.conv_transpose2d, nn.ConvTranspose3d: F.conv_transpose3d}
 
@@ -50,24 +50,29 @@ def is_reduced(x: torch.Tensor) -> bool:
     return x.dtype in (torch.bfloat16, torch.float16)
 
 
+def conv_in_dtype(fn, x: torch.Tensor, weight: torch.Tensor, bias, dtype: torch.dtype,
+                  **kw) -> torch.Tensor:
+    """The convolution ``fn(x, weight, bias, **kw)`` computed in ``dtype`` as
+    flax's ``nn.Conv(dtype=...)`` computes it: the input and the weight cast
+    to ``dtype``, the convolution rounded to it, then the bias (cast too)
+    added; ``fn(x, weight, bias, **kw)`` itself at f32."""
+    if dtype == torch.float32:
+        return fn(x, weight, bias, **kw)
+    y = fn(x.to(dtype), weight.to(dtype), None, **kw)
+    return y if bias is None else y + bias.to(dtype).reshape(-1, *(1,) * (y.ndim - 2))
+
+
 def conv(module: nn.Module, x: torch.Tensor, dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """``module(x)`` computed in ``dtype`` as flax's ``nn.Conv(dtype=...)``
-    computes it: the input and the weight cast to ``dtype``, the convolution
-    rounded to it, then the bias (cast too) added; ``module(x)`` itself at
-    f32."""
+    """``module(x)`` computed in ``dtype`` (:func:`conv_in_dtype`); ``module(x)``
+    itself at f32."""
     if dtype == torch.float32:
         return module(x)
-    weight = module.weight.to(dtype)
-    x = x.to(dtype)
     transposed = _TRANSPOSED.get(type(module))
-    if transposed is not None:
-        y = transposed(x, weight, None, module.stride, module.padding, module.output_padding,
-                       module.groups, module.dilation)
-    else:
-        y = module._conv_forward(x, weight, None)
-    if module.bias is None:
-        return y
-    return y + module.bias.to(dtype).reshape(-1, *(1,) * (y.ndim - 2))
+    if transposed is None:
+        return conv_in_dtype(module._conv_forward, x, module.weight, module.bias, dtype)
+    return conv_in_dtype(transposed, x, module.weight, module.bias, dtype, stride=module.stride,
+                         padding=module.padding, output_padding=module.output_padding,
+                         groups=module.groups, dilation=module.dilation)
 
 
 def leaky_relu(x: torch.Tensor, slope: float = 0.2) -> torch.Tensor:

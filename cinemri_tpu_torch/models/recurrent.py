@@ -26,6 +26,20 @@ as the trunk sees it, ``(t, b, 2n, h, w)`` real with the n real channels
 then the n imaginary ones (``to_multi_channels``); its head, complex slot 0,
 is channels ``0`` and ``n``.
 
+The packed trunk (``packed``, or a ``trunk_block`` that overrides the rule):
+with an ``(h, w)`` block from :func:`_trunk_block` (the JAX package's
+128-lane rule: (2, 2) up to 32 channels, (1, 2) up to 64, none on odd
+sizes) the trunk's input, hidden states and output are space-to-depth
+packed (``denoisers.crnn.pack2``) and its convolutions run on the packed
+grid with the same parameters (``models/denoisers/packed_unet.py``).
+VarNet and CineNet pack the image before the trunk and unpack the
+corrected one; XPDNet carries its buffer packed across the iterations (the
+JAX package's ``_XPDNetRNNPackedStep``): only the head's packed channels,
+``[0, B)`` and ``[n·B, (n+1)·B)``, are unpacked for the data-consistency
+step, and only the backward-operator image is packed into the trunk's
+input, a channel concatenation of packed slices. VarNet-CRNN's sens net
+takes ``packed`` too; XPDNet's stays dense, as in the JAX package.
+
 ``bf16`` runs the trunk in bf16 (``models/denoisers/activations.py``): its
 hidden states are bf16 from the zeros on, the BCRNN casts its inputs, every
 fused convolution runs in bf16, and the correction is cast to f32 before the
@@ -33,11 +47,6 @@ residual, as in the JAX package; the sens nets stay as the non-recurrent
 families have them (VarNet's NormUnet in bf16, XPDNet's U-Net in f32). Each
 iteration is checkpointed under ``remat_policy`` (``models/remat.py``);
 ``remat_prevent_cse`` is accepted and does nothing.
-
-The packed (space-to-depth) trunk and ``trunk_block`` are not ported
-(ROADMAP Queue 1, item 14.6). The packed trunk is exact with the same
-parameters, so the dense one here computes the JAX package's packed
-models too.
 
 ``coil_axis`` splits the coils over a dim of the ambient mesh, as in
 ``models/varnet.py``: the sens net and XPDNet's k-space nets run on this
@@ -57,9 +66,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from cinemri_tpu_torch.models.cinenet import batched_kernel_and_maps
-from cinemri_tpu_torch.models.denoisers.activations import act_dtype, conv, output, resolve_dtype
-from cinemri_tpu_torch.models.denoisers.crnn import BCRNN, FusedSumConv2d
+from cinemri_tpu_torch.models.denoisers.activations import act_dtype, output, resolve_dtype
+from cinemri_tpu_torch.models.denoisers.crnn import BCRNN, FusedSumConv2d, pack2, unpack2
 from cinemri_tpu_torch.models.denoisers.kspace_cnn import KSpaceCNN
+from cinemri_tpu_torch.models.denoisers.packed_unet import PackedConv2d, block_size
 from cinemri_tpu_torch.models.remat import call_remat, check_remat_policy, tag_conv_out
 from cinemri_tpu_torch.models.varnet import LAMBDA_INIT, SensitivityModel
 from cinemri_tpu_torch.models.xpdnet import XPDNetSensitivityModel
@@ -90,19 +100,13 @@ __all__ = ["CRNNTrunk", "VarNetRNN", "CineNetRNN", "XPDNetRNN"]
 Hiddens = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
 
-def _check_unported(packed: bool, trunk_block) -> None:
-    if packed or tuple(trunk_block):
-        raise NotImplementedError(
-            "the packed CRNN trunk (packed=True, trunk_block) is not ported yet (ROADMAP "
-            "Queue 1, item 14.6: packed_unet.py); the dense trunk computes the same function")
-
-
 class CRNNTrunk(nn.Module):
     """BCRNN, three ``relu(conv([x, h]))`` layers and an output conv.
 
     ``x_in (t, b, in_ch, h, w)``; hiddens ``h0 (t, b, chans, h, w)`` and
     ``h1..h3 (t·b, chans, h, w)``, in ``dtype``. Returns the correction
-    ``(t·b, out_ch, h, w)``, f32 from bf16 activations, and the new hiddens."""
+    ``(t·b, out_ch, h, w)``, f32 from bf16 activations, and the new hiddens.
+    With a ``block`` every one of them is packed (``crnn.pack2``)."""
 
     def __init__(self, chans: int, in_ch: int = 2, out_ch: int = 2,
                  dtype: torch.dtype = torch.float32):
@@ -112,22 +116,38 @@ class CRNNTrunk(nn.Module):
         self.conv1 = FusedSumConv2d((chans, chans), chans, dtype=dtype)
         self.conv2 = FusedSumConv2d((chans, chans), chans, dtype=dtype)
         self.conv3 = FusedSumConv2d((chans, chans), chans, dtype=dtype)
-        self.conv4 = nn.Conv2d(chans, out_ch, 3, padding=1)
+        self.conv4 = PackedConv2d(chans, out_ch, 3, padding=1)
 
-    def forward(self, x_in: torch.Tensor, hiddens: Hiddens):
+    def forward(self, x_in: torch.Tensor, hiddens: Hiddens, block=()):
         h0, h1, h2, h3 = hiddens
         t, b = x_in.shape[:2]
-        x0 = self.bcrnn(x_in, h0)
-        x1 = F.relu(self.conv1(x0.reshape(t * b, *x0.shape[2:]), h1))
-        x2 = F.relu(self.conv2(x1, h2))
-        x3 = F.relu(self.conv3(x2, h3))
+        x0 = self.bcrnn(x_in, h0, block)
+        x1 = F.relu(self.conv1(x0.reshape(t * b, *x0.shape[2:]), h1, block=block))
+        x2 = F.relu(self.conv2(x1, h2, block=block))
+        x3 = F.relu(self.conv3(x2, h3, block=block))
         with tag_conv_out():  # the JAX package's conv4_x is a tagged fused conv
-            x4 = conv(self.conv4, x3, self.dtype)
+            x4 = self.conv4(x3, block, self.dtype)
         return output(x4, self.dtype), (x0, x1, x2, x3)
 
 
+def _trunk_block(h: int, w: int, packed: bool, chans: int = 18) -> tuple:
+    """The trunk's ``(h, w)`` block, the JAX package's rule: (2, 2) while
+    4·chans fits the TPU's 128 lanes, (1, 2) while 2·chans does; ``()``
+    when a size is odd or ``packed`` is off."""
+    if not packed or h % 2 or w % 2:
+        return ()
+    if chans * 4 <= 128:
+        return (2, 2)
+    if chans * 2 <= 128:
+        return (1, 2)
+    return ()
+
+
 def _zero_hiddens(like: torch.Tensor, t: int, b: int, h: int, w: int, chans: int,
-                  dtype: torch.dtype) -> Hiddens:
+                  dtype: torch.dtype, block=()) -> Hiddens:
+    """Zero hidden states, packed with ``block``."""
+    if block:
+        h, w, chans = h // block[0], w // block[1], chans * block_size(block)
     z = lambda *shape: like.new_zeros(shape, dtype=act_dtype(dtype, like))
     return (z(t, b, chans, h, w), z(t * b, chans, h, w), z(t * b, chans, h, w),
             z(t * b, chans, h, w))
@@ -143,12 +163,17 @@ def _tb_to_image(r: torch.Tensor) -> Complex:
     return Complex(r[:, :, 0].transpose(0, 1).contiguous(), r[:, :, 1].transpose(0, 1).contiguous())
 
 
-def _trunk_image(trunk: CRNNTrunk, x: Complex, hiddens: Hiddens):
-    """The trunk's residual correction of the image ``x (b, t, h, w)``."""
+def _trunk_image(trunk: CRNNTrunk, x: Complex, hiddens: Hiddens, block=()):
+    """The trunk's residual correction of the image ``x (b, t, h, w)``, the
+    trunk packed with ``block``."""
     b, t, h, w = x.shape
     x_in = _image_to_tb(x)
-    x4, hiddens = trunk(x_in, hiddens)
-    out = x_in.reshape(t * b, 2, h, w) + x4
+    if block:
+        x_in = pack2(x_in, block)
+    x4, hiddens = trunk(x_in, hiddens, block)
+    out = x_in.reshape(t * b, *x_in.shape[2:]) + x4
+    if block:
+        out = unpack2(out, block)
     return _tb_to_image(out.reshape(t, b, 2, h, w)), hiddens
 
 
@@ -172,8 +197,9 @@ class VarNetRNN(nn.Module):
         coil_axis: str = "",
     ):
         super().__init__()
-        _check_unported(packed, trunk_block)
         check_remat_policy(remat_policy)
+        self.packed = packed
+        self.trunk_block = tuple(trunk_block)
         self.num_cascades = num_cascades
         self.chans = chans
         self.kernel_dc = kernel_dc
@@ -181,8 +207,8 @@ class VarNetRNN(nn.Module):
         self.remat_policy = remat_policy
         self.dtype = resolve_dtype(bf16)
         self.coil_axis = coil_axis
-        self.sens_net = SensitivityModel(sens_chans, sens_pools, coil_axis=coil_axis,
-                                         dtype=self.dtype)
+        self.sens_net = SensitivityModel(sens_chans, sens_pools, packed=packed,
+                                         coil_axis=coil_axis, dtype=self.dtype)
         self.trunk = CRNNTrunk(chans, dtype=self.dtype)
         self.lambda_reg = nn.Parameter(torch.tensor(LAMBDA_INIT))
 
@@ -191,8 +217,8 @@ class VarNetRNN(nn.Module):
         return partial_by_prefix(self, {"sens_net.": self.coil_axis})
 
     def _iteration(self, x: Complex, hiddens: Hiddens, ref: Complex, mask: torch.Tensor,
-                   sens_maps: Complex, dc_kernel, rss0):
-        out, hiddens = _trunk_image(self.trunk, x, hiddens)
+                   sens_maps: Complex, dc_kernel, rss0, block):
+        out, hiddens = _trunk_image(self.trunk, x, hiddens, block)
         out = out[:, :, None]  # (b, t, 1, h, w)
         v = F.softplus(self.lambda_reg)
         coil = self.coil_axis
@@ -209,14 +235,15 @@ class VarNetRNN(nn.Module):
         x_ref = sens_reduce(masked_kspace, sens_maps, coil_axis=coil)  # (b, t, 1, h, w)
         x = x_ref[:, :, 0]
         b, t, h, w = x.shape
-        hiddens = _zero_hiddens(x.re, t, b, h, w, self.chans, self.dtype)
+        block = self.trunk_block or _trunk_block(h, w, self.packed, self.chans)
+        hiddens = _zero_hiddens(x.re, t, b, h, w, self.chans, self.dtype, block)
         if self.kernel_dc and is_line_mask(mask):
             dc_kernel, rss0, ref = masked_normal_kernel(mask), coil_weight(sens_maps, coil), x_ref
         else:
             dc_kernel, rss0, ref = None, None, masked_kspace
         for _ in range(self.num_cascades):
             x, hiddens = call_remat(self._iteration, self.remat, self.remat_policy, x, hiddens,
-                                    ref, mask, sens_maps, dc_kernel, rss0)
+                                    ref, mask, sens_maps, dc_kernel, rss0, block)
         return x.abs()
 
 
@@ -240,8 +267,9 @@ class CineNetRNN(nn.Module):
         coil_axis: str = "",
     ):
         super().__init__()
-        _check_unported(packed, trunk_block)
         check_remat_policy(remat_policy)
+        self.packed = packed
+        self.trunk_block = tuple(trunk_block)
         self.num_cascades = num_cascades
         self.cg_iters = cg_iters
         self.chans = chans
@@ -258,8 +286,8 @@ class CineNetRNN(nn.Module):
         return partial_by_prefix(self, {})
 
     def _iteration(self, x: Complex, hiddens: Hiddens, x_ref: Complex, mask: torch.Tensor,
-                   sens_maps: Complex, dc_kernel):
-        out, hiddens = _trunk_image(self.trunk, x, hiddens)
+                   sens_maps: Complex, dc_kernel, block):
+        out, hiddens = _trunk_image(self.trunk, x, hiddens, block)
         out = out[:, :, None]  # (b, t, 1, h, w)
         v = F.softplus(self.lambda_reg)  # a 0-d tensor on the device
         rhs = x_ref + v * out
@@ -276,13 +304,14 @@ class CineNetRNN(nn.Module):
         x_ref = sens_reduce(masked_kspace, sens_maps, coil_axis=self.coil_axis)  # (b, t, 1, h, w)
         x = x_ref[:, :, 0]
         b, t, h, w = x.shape
-        hiddens = _zero_hiddens(x.re, t, b, h, w, self.chans, self.dtype)
+        block = self.trunk_block or _trunk_block(h, w, self.packed, self.chans)
+        hiddens = _zero_hiddens(x.re, t, b, h, w, self.chans, self.dtype, block)
         dc_kernel = None
         if self.kernel_dc and is_line_mask(mask):
             dc_kernel, sens_maps = batched_kernel_and_maps(mask, sens_maps, b)
         for _ in range(self.num_cascades):
             x, hiddens = call_remat(self._iteration, self.remat, self.remat_policy, x, hiddens,
-                                    x_ref, mask, sens_maps, dc_kernel)
+                                    x_ref, mask, sens_maps, dc_kernel, block)
         return x.abs()
 
 
@@ -313,8 +342,9 @@ class XPDNetRNN(nn.Module):
         coil_axis: str = "",
     ):
         super().__init__()
-        _check_unported(packed, trunk_block)
         check_remat_policy(remat_policy)
+        self.packed = packed
+        self.trunk_block = tuple(trunk_block)
         self.num_cascades = num_cascades
         self.chans = chans
         self.primal_only = primal_only
@@ -339,21 +369,27 @@ class XPDNetRNN(nn.Module):
         return partial_by_prefix(self, {"sens_net.": self.coil_axis,
                                         "kspace_nets.": self.coil_axis})
 
-    def _head(self, buf: torch.Tensor) -> Complex:
+    def _head(self, buf: torch.Tensor, block=()) -> Complex:
         """Complex slot 0 of the buffer ``(t, b, 2n, h, w)``: ``(b, t, 1, h, w)``,
-        strided views (``normal_plus_lambda_kernel`` copies them)."""
+        strided views (``normal_plus_lambda_kernel`` copies them); of a buffer
+        packed with ``block``, its two packed channel slices unpacked."""
         n = self.n_primal
+        if block:
+            m = block_size(block)
+            return Complex(unpack2(buf[:, :, :m], block).transpose(0, 1),
+                           unpack2(buf[:, :, n * m:(n + 1) * m], block).transpose(0, 1))
         return Complex(buf[:, :, 0].transpose(0, 1)[:, :, None],
                        buf[:, :, n].transpose(0, 1)[:, :, None])
 
     def _iteration(self, buf: torch.Tensor, kspace_buffer, hiddens: Hiddens, ref_kspace: Complex,
                    mask: torch.Tensor, sens_maps: Complex, x_ref: Complex, dc_kernel,
-                   kspace_net=None):
+                   kspace_net=None, block=()):
         """One k-step, the backward operator and the CRNN correction of the
-        buffer; returns ``(buf, kspace_buffer, hiddens)``."""
+        buffer (packed with ``block``); returns ``(buf, kspace_buffer,
+        hiddens)``."""
         n = self.n_primal
         coil = self.coil_axis
-        head = self._head(buf)
+        head = self._head(buf, block)
         if dc_kernel is not None:
             # measurement-residual k-step and backward operator collapsed:
             # Sᴴ F⁻¹ M (F S head − k_ref) = N(head) − x_ref
@@ -368,11 +404,14 @@ class XPDNetRNN(nn.Module):
                 kspace_buffer = (fwd - ref_kspace)[..., None]
             bwd = sens_reduce(apply_mask(kspace_buffer[..., 0], mask), sens_maps,
                               coil_axis=coil)[:, :, 0]
-        t, b, _, h, w = buf.shape
-        tb = lambda a: a.transpose(0, 1)[:, :, None]  # (b, t, h, w) -> (t, b, 1, h, w)
-        x_in = torch.cat([buf[:, :, :n], tb(bwd.re), buf[:, :, n:], tb(bwd.im)], dim=2)
-        x4, hiddens = self.trunk(x_in, hiddens)  # (t·b, 2n, h, w)
-        return buf + x4.reshape(t, b, 2 * n, h, w), kspace_buffer, hiddens
+        # (b, t, h, w) -> (t, b, 1, h, w), packed with the buffer: the trunk's
+        # input is a channel concatenation of packed slices
+        tb = lambda a: pack2(a.transpose(0, 1)[:, :, None], block) if block else (
+            a.transpose(0, 1)[:, :, None])
+        m = block_size(block)
+        x_in = torch.cat([buf[:, :, :n * m], tb(bwd.re), buf[:, :, n * m:], tb(bwd.im)], dim=2)
+        x4, hiddens = self.trunk(x_in, hiddens, block)  # (t·b, 2n·B, h/bh, w/bw)
+        return buf + x4.reshape(buf.shape), kspace_buffer, hiddens
 
     def forward(self, masked_kspace: Complex, mask: torch.Tensor) -> torch.Tensor:
         sens_maps = self.sens_net(masked_kspace, mask)
@@ -384,18 +423,21 @@ class XPDNetRNN(nn.Module):
         image = x_ref[:, :, 0]
         buf = torch.cat([image.re.transpose(0, 1)[:, :, None].expand(t, b, n, h, w),
                          image.im.transpose(0, 1)[:, :, None].expand(t, b, n, h, w)], dim=2)
-        hiddens = _zero_hiddens(buf, t, b, h, w, self.chans, self.dtype)
+        block = self.trunk_block or _trunk_block(h, w, self.packed, self.chans)
+        if block:  # packed once here, unpacked once at the end (its head only)
+            buf = pack2(buf, block)
+        hiddens = _zero_hiddens(buf, t, b, h, w, self.chans, self.dtype, block)
         if self.primal_only:
             dc_kernel = (masked_normal_kernel(mask) if self.kernel_dc and is_line_mask(mask)
                          else None)
             for _ in range(self.num_cascades):
                 buf, _, hiddens = call_remat(self._iteration, self.remat, self.remat_policy, buf,
                                              None, hiddens, masked_kspace, mask, sens_maps, x_ref,
-                                             dc_kernel)
+                                             dc_kernel, None, block)
         else:
             kspace_buffer = crepeat(masked_kspace[..., None], self.n_dual, axis=-1)
             for kspace_net in self.kspace_nets:
                 buf, kspace_buffer, hiddens = self._iteration(
                     buf, kspace_buffer, hiddens, masked_kspace, mask, sens_maps, x_ref, None,
-                    kspace_net)
-        return self._head(buf)[:, :, 0].abs()
+                    kspace_net, block)
+        return self._head(buf, block)[:, :, 0].abs()

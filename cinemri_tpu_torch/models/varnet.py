@@ -188,6 +188,7 @@ class VarNet(nn.Module):
         self.remat = remat
         self.remat_policy = remat_policy
         self.bf16 = bf16
+        self.packed = packed
         self.plane_axis = plane_axis
         self.coil_axis = coil_axis
         dtype = resolve_dtype(bf16)

@@ -276,6 +276,7 @@ class XPDNet(nn.Module):
         self.remat = remat
         self.remat_policy = remat_policy
         self.bf16 = bf16
+        self.packed = packed
         self.plane_axis = plane_axis
         self.coil_axis = coil_axis
         norm_buffers = bf16 if norm_buffers is None else bool(norm_buffers)

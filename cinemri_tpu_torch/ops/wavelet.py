@@ -8,15 +8,17 @@ input's channels.
 Layout: channels-last ``(b, h, w, c)`` by default, the JAX package's;
 ``channel_axis=1`` takes the port's NCHW ``(b, c, h, w)``, which MWCNN's
 convolutions use. The packed forms (``dwt2_from_packed``,
-``iwt2_to_packed``) serve only the packed MWCNN and are not ported yet
-(ROADMAP Queue 1, item 14).
+``iwt2_to_packed``) serve the packed MWCNN: on a tensor space-to-depth
+packed with block (2, 2) (``models/denoisers/packed_unet.py``, packed
+channel ``c·4 + 2·ph + pw``) the 2x2 Haar stencil is the phase block, so the
+butterfly runs in channel space and the dense tensor is never formed.
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["dwt2", "iwt2"]
+__all__ = ["dwt2", "iwt2", "dwt2_from_packed", "iwt2_to_packed"]
 
 
 def _axes(x: torch.Tensor, channel_axis: int):
@@ -59,3 +61,34 @@ def iwt2(x: torch.Tensor, channel_axis: int = -1) -> torch.Tensor:
     row0 = torch.stack([a00, a01], dim=ha + 2).flatten(ha + 1, ha + 2)
     row1 = torch.stack([a10, a11], dim=ha + 2).flatten(ha + 1, ha + 2)
     return torch.stack([row0, row1], dim=ha + 1).flatten(ha, ha + 1)
+
+
+def dwt2_from_packed(x: torch.Tensor, channel_axis: int = -1) -> torch.Tensor:
+    """:func:`dwt2` of a tensor packed with block (2, 2): ``(b, h/2, w/2, 4c)``
+    packed -> ``(b, h/2, w/2, 4c)`` subbands ``[LL, HL, LH, HH]`` (or channels
+    at 1), equal to ``dwt2(unpack(x, (2, 2)))``."""
+    _, ca = _axes(x, channel_axis)
+    y = x.unflatten(ca, (x.shape[ca] // 4, 2, 2)) / 2
+
+    def phase(ph, pw):
+        return y.select(ca + 2, pw).select(ca + 1, ph)
+
+    x1, x2, x3, x4 = phase(0, 0), phase(1, 0), phase(0, 1), phase(1, 1)
+    ll = x1 + x2 + x3 + x4
+    hl = -x1 - x2 + x3 + x4
+    lh = -x1 + x2 - x3 + x4
+    hh = x1 - x2 - x3 + x4
+    return torch.cat([ll, hl, lh, hh], dim=ca)
+
+
+def iwt2_to_packed(x: torch.Tensor, channel_axis: int = -1) -> torch.Tensor:
+    """:func:`iwt2` packed with block (2, 2): ``(b, h, w, 4c)`` subbands ->
+    ``(b, h, w, 4c)`` packed (or channels at 1), equal to
+    ``pack(iwt2(x), (2, 2))``."""
+    _, ca = _axes(x, channel_axis)
+    x1, x2, x3, x4 = (v / 2 for v in x.chunk(4, dim=ca))
+    a00 = x1 - x2 - x3 + x4  # offset (0, 0)
+    a01 = x1 + x2 - x3 - x4  # offset (0, 1)
+    a10 = x1 - x2 + x3 - x4  # offset (1, 0)
+    a11 = x1 + x2 + x3 + x4  # offset (1, 1)
+    return torch.stack([a00, a01, a10, a11], dim=ca + 1).flatten(ca, ca + 1)

@@ -116,8 +116,12 @@ class TestDenoisers3D:
         assert_model_close(got, want)
 
     def test_options(self):
-        with pytest.raises(NotImplementedError, match="item 14"):
-            Unet(dims=3, packed=True)
+        from cinemri_tpu_torch.models.denoisers.unet import PackedConvBlock, PackedTransposeConvBlock
+
+        packed = Unet(dims=3, packed=True)  # the space-to-depth layout, dense state dict
+        assert isinstance(packed.bottom, PackedConvBlock)
+        assert isinstance(packed.up_transpose[0], PackedTransposeConvBlock)
+        assert packed.state_dict().keys() == Unet(dims=3).state_dict().keys()
         with pytest.raises(ValueError):
             Unet(dims=1)
         with pytest.raises(ValueError, match="rank 5"):

@@ -1,7 +1,8 @@
 """The port's VarNet CLI (cinemri_tpu_torch.cli) against the JAX package's on
 the CPU: the parser, the config fingerprint, the artifact names of the
 train -> test (with inference) -> visualize flow, the inference helpers,
-the options whose path is not ported yet, and a CRNN run of each family.
+the options whose path was ported late, a CRNN run of each family and a
+``--packed 1`` run.
 The reference-checkpoint import and export flows are in
 tests/test_torch_interop.py.
 """
@@ -73,15 +74,16 @@ class TestParser:
         assert not caught
 
 
-# (family, argv, error, message): the options not ported yet name their
-# ROADMAP item; the parallel launch flags and mesh axes (items 13 and 13b),
-# ported, refuse a launch that cannot run: a mesh of 2 at one process, and
+# (family, argv, error, message): the options ported after the CLI, named
+# by their ROADMAP item (every one is ported now); the parallel launch flags
+# and mesh axes (items 13 and 13b) refuse a launch that cannot run: a mesh of 2 at one process, and
 # the plane axis of a type without plane batches (the JAX CLI's message);
 # export, the checkpoint import and the profiler (items 14.1-14.3), ported,
 # refuse an export on a mesh, an import that would be overwritten by a
 # resume, and a negative step count; --bf16 (item 14.4), ported, builds the
-# bf16 model (error None: the attribute named is true on the model the CLI
-# builds)
+# bf16 model, and --packed 1 (item 14.6), ported, the packed one, whose
+# U-Nets or MWCNNs are packed (error None: the attribute named is true on the
+# model the CLI builds)
 _OPTION_CASES = [
     ("varnet", ["--num_devices", "2"], ValueError, "torchrun --nproc_per_node 2"),
     ("varnet", ["--coil_devices", "2"], ValueError, "torchrun --nproc_per_node 2"),
@@ -95,10 +97,10 @@ _OPTION_CASES = [
     ("varnet", ["--from_torch_ckpt", "model.ckpt", "--resume_training", "1"], ValueError,
      "mutually exclusive"),
     ("varnet", ["--bf16", "1"], None, "bf16"),
-    ("varnet", ["--packed", "1"], NotImplementedError, "item 14.6"),
+    ("varnet", ["--packed", "1"], None, "packed"),
     ("varnet", ["--profile_steps", "-1"], ValueError, "--profile_steps counts the steps"),
     ("cinenet", ["--bf16", "1"], None, "bf16"),
-    ("xpdnet", ["--packed", "1", "--dynamic_type", "2D"], NotImplementedError, "item 14.6"),
+    ("xpdnet", ["--packed", "1", "--dynamic_type", "2D"], None, "packed"),
 ]
 
 
@@ -108,8 +110,10 @@ def test_unported_options_raise_naming_their_item(family, argv, error, match, mo
     monkeypatch.delenv("MASTER_ADDR", raising=False)  # --num_processes without an address
     if error is None:
         args = TC.build_parser(family).parse_args(argv + ["--device", "cpu"])
-        TC._check_ported(args)
-        assert getattr(TC._build_model_from_args(family, args), match)
+        model = TC._build_model_from_args(family, args)
+        assert getattr(model, match)
+        if match == "packed":  # its conv stacks run packed
+            assert any(type(m).__name__ in ("Unet", "MWCNN") and m.packed for m in model.modules())
         return
     with pytest.raises(error, match=match):
         TC.train_test_main(family, argv + ["--device", "cpu"])
@@ -303,6 +307,24 @@ def test_crnn_cli_trains_and_restores(family, workdir):
     restored = out["trainer"].model.state_dict()
     for name, value in trained.state_dict().items():
         torch.testing.assert_close(restored[name], value, rtol=0, atol=0, msg=name)
+
+
+def test_packed_cli_trains_to_its_end(workdir):
+    """``--packed 1 --mode train`` trains VarNet-2D with packed U-Nets for an
+    epoch, checkpointed in the directory the dense run names (the
+    fingerprint leaves ``--packed`` out, in both packages)."""
+    argv = TINY + ["--dynamic_type", "2D", "--packed", "1"]
+    fp = TC.config_fingerprint("varnet", TC.build_parser("varnet").parse_args(argv[:-2]))
+    assert TC.config_fingerprint("varnet", TC.build_parser("varnet").parse_args(argv)) == fp
+    assert JC.config_fingerprint("varnet", JC.build_parser("varnet").parse_args(argv)) == fp
+    out = TC.train_test_main("varnet", argv + [
+        "--path_config", str(workdir / "dirs_path.yaml"), "--maps_cache_dir", str(workdir / "maps"),
+        "--device", "cpu", "--mode", "train", "--epochs", "1", "--save_checkpoint", "1"])
+    assert np.isfinite(out["history"][-1]["train_loss"])
+    model = out["trainer"].model
+    assert model.packed and model.cascades.net.unet.packed
+    ckpt = workdir / "logs" / "varnet" / "varnet_logs" / "checkpoints" / f"varnet_2D_acc2_{fp}"
+    assert (ckpt / "1.pt").is_file()
 
 
 def test_xpdnet_crnn_norm_buffers_notice(workdir):

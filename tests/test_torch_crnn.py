@@ -244,8 +244,8 @@ def test_model_matches_jax(family, kw, line_mask):
 
 def test_build_options_and_tree():
     """CRNN builds through build_model with the JAX classes' defaults, in
-    bf16 and under a remat policy too; the packed trunk raises naming item
-    14; one shared λ and trunk."""
+    bf16 and under a remat policy too, and with the packed trunk (same
+    state dict); one shared λ and trunk."""
     for cls, jcls in ((VarNetRNN, JVarNetRNN), (CineNetRNN, JCineNetRNN), (XPDNetRNN, JXPDNetRNN)):
         port = cls()
         for name in ("num_cascades", "chans", "remat", "kernel_dc"):
@@ -254,10 +254,12 @@ def test_build_options_and_tree():
     x = XPDNetRNN()
     assert (x.n_primal, x.n_dual, x.primal_only) == (JXPDNetRNN.n_primal, JXPDNetRNN.n_dual, True)
     for family in ("varnet", "cinenet", "xpdnet"):
-        with pytest.raises(NotImplementedError, match="item 14"):
-            build_model(family, "CRNN", device="cpu", packed=True)
-        with pytest.raises(NotImplementedError, match="item 14"):
-            build_model(family, "CRNN", device="cpu", trunk_block=(2, 2))
+        packed = build_model(family, "CRNN", device="cpu", packed=True, num_cascades=1, chans=4)
+        blocked = build_model(family, "CRNN", device="cpu", trunk_block=(2, 4), num_cascades=1,
+                              chans=4)
+        assert packed.packed and blocked.trunk_block == (2, 4)
+        assert packed.state_dict().keys() == blocked.state_dict().keys() == build_model(
+            family, "CRNN", device="cpu", num_cascades=1, chans=4).state_dict().keys()
     with pytest.raises(TypeError):
         build_model("varnet", "CRNN", device="cpu", pools=3)
     half = build_model("cinenet", "CRNN", device="cpu", bf16=True, remat_policy="convs")

@@ -1088,3 +1088,36 @@ def test_bf16_models_match_f32_on_the_card(dev, family, dyn):
     assert diff.max().item() <= 5e-2 * scale and diff.mean().item() < 1e-2 * scale
     outs[True].sum().backward()
     assert all(p.grad.dtype == torch.float32 for p in model.parameters() if p.grad is not None)
+
+
+def test_packed_varnet_2d_matches_dense_on_the_card(dev):
+    """A small packed VarNet-2D (``models/denoisers/packed_unet.py``: packed
+    U-Nets on cuDNN, the kernels' DC) against the dense model from the same
+    weights, at 1e-4 x max |out|, launching the DFT and normal-apply kernels;
+    and one train step's gradients, whose backward launches the normal
+    apply's, within VarNet's train tolerance, 1e-2 (relative L2)."""
+    from cinemri_tpu_torch.models import build_model
+    from cinemri_tpu_torch.ops.cplx import Complex
+    from cinemri_tpu_torch.ops.kernels import dft_cuda, normal_cuda
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    mask = (torch.rand(1, 4, 1, 48, 1, generator=g, device=dev) < 0.4).float()
+    mask[:, :, :, 20:28] = 1
+    k = Complex(torch.randn(1, 4, 3, 48, 40, generator=g, device=dev) * mask,
+                torch.randn(1, 4, 3, 48, 40, generator=g, device=dev) * mask)
+    kw = dict(num_cascades=2, sens_chans=4, sens_pools=2, chans=8, pools=2)
+    dense = build_model("varnet", "2D", device=dev, **kw)
+    packed = build_model("varnet", "2D", device=dev, packed=True, **kw)
+    packed.load_state_dict(dense.state_dict())
+    before = (dft_cuda.LAUNCHES, normal_cuda.LAUNCHES, normal_cuda.BWD_LAUNCHES)
+    outs, grads = [], []
+    for model in (dense, packed):
+        out = model(k, mask)
+        out.square().sum().backward()
+        outs.append(out.detach())
+        grads.append(torch.cat([p.grad.flatten() for p in model.parameters()]))
+    launched = [a - b for a, b in zip((dft_cuda.LAUNCHES, normal_cuda.LAUNCHES,
+                                       normal_cuda.BWD_LAUNCHES), before)]
+    assert all(n > 0 for n in launched), launched
+    assert (outs[1] - outs[0]).abs().max().item() <= 1e-4 * outs[0].abs().max().item()
+    assert ((grads[1] - grads[0]).norm() / grads[0].norm()).item() <= 1e-2

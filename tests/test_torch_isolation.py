@@ -93,6 +93,7 @@ def test_port_imports_no_jax_and_builds_nothing():
                  "cinemri_tpu_torch.instrument.opstats",
                  "cinemri_tpu_torch.ops.kernels.precision",
                  "cinemri_tpu_torch.models.denoisers.activations",
+                 "cinemri_tpu_torch.models.denoisers.packed_unet",
                  "cinemri_tpu_torch.utils.compile_cache"):
         assert name in out["modules"]
     assert out["bad"] == []  # no JAX, no JAX package, no h5py/tensorboardX/yaml/matplotlib

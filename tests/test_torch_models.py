@@ -101,16 +101,28 @@ class TestDenoisers:
             got = to_numpy(tm(from_complex(x)))
         assert_model_close(got, want)
 
-    def test_unsupported_options_raise(self):
-        """The packed (space-to-depth) layouts are not ported (item 14)."""
+    def test_unsupported_options_raise(self, rng):
+        """The packed (space-to-depth) option, once unported, builds each
+        denoiser with the dense one's state dict and computes its function
+        (1e-4 x max |out|; tests/test_torch_packed.py holds it against JAX)."""
         from cinemri_tpu_torch.models.denoisers import MWCNN
 
-        with pytest.raises(NotImplementedError, match="item 14"):
-            Unet(dims=3, packed=True)
-        with pytest.raises(NotImplementedError, match="item 14"):
-            NormUnet(4, 2, packed=True)
-        with pytest.raises(NotImplementedError, match="item 14"):
-            MWCNN(4, 4, packed=True)
+        x3 = torch.from_numpy(rng.standard_normal((1, 2, 8, 16, 16)).astype(np.float32))
+        x2 = from_complex(c64(rng, 2, 24, 20))
+        x4 = torch.from_numpy(rng.standard_normal((1, 4, 16, 16)).astype(np.float32))
+        for make, x in ((lambda p: Unet(chans=4, num_pool_layers=2, dims=3, packed=p), x3),
+                        (lambda p: NormUnet(4, 2, packed=p), x2),
+                        (lambda p: MWCNN(4, 4, n_scales=2, n_filters_per_scale=(4, 8),
+                                         n_convs_per_scale=(2, 2), packed=p), x4)):
+            dense, packed = make(False), make(True)
+            packed.load_state_dict(dense.state_dict())
+            with torch.no_grad():
+                want, got = dense(x), packed(x)
+            if isinstance(want, torch.Tensor):
+                want, got = want.numpy(), got.numpy()
+            else:
+                want, got = to_numpy(want), to_numpy(got)
+            assert_model_close(got, want)
 
 
 class TestEmptyLevel:
@@ -220,13 +232,16 @@ class TestBuildModel:
             build_model("varnet", "XF", **SMALL)
 
     def test_not_ported_raise(self):
-        """The packed layouts (item 14.6) are all that is left unported of the
-        three families: CRNN builds for each (tests/test_torch_crnn.py holds
-        it against the JAX package), and so does bf16 (tests/test_torch_bf16.py)."""
+        """Nothing of the three families is left unported: CRNN builds for
+        each (tests/test_torch_crnn.py holds it against the JAX package), and
+        so do bf16 (tests/test_torch_bf16.py) and the packed layouts
+        (tests/test_torch_packed.py), which keep the dense state dict."""
         for family, cls in (("varnet", VarNetRNN), ("cinenet", CineNetRNN), ("xpdnet", XPDNetRNN)):
             assert isinstance(build_model(family, "CRNN", device="cpu", num_cascades=1, chans=4), cls)
-        with pytest.raises(NotImplementedError, match="item 14"):
-            build_model("varnet", "2D", device="cpu", packed=True, **SMALL)
+        packed = build_model("varnet", "2D", device="cpu", packed=True, **SMALL)
+        assert packed.packed and packed.cascades.net.unet.packed and packed.sens_net.norm_unet.unet.packed
+        dense = build_model("varnet", "2D", device="cpu", **SMALL)
+        assert not dense.packed and packed.state_dict().keys() == dense.state_dict().keys()
         with pytest.raises(ValueError):
             build_model("xpdnet", "3D", device="cpu")
         with pytest.raises(ValueError):

@@ -194,8 +194,9 @@ class TestDenoisers:
         assert_model_close(got, want)
 
     def test_mwcnn_options(self):
-        with pytest.raises(NotImplementedError, match="item 14"):
-            MWCNN(4, 4, packed=True)
+        packed = MWCNN(4, 4, packed=True)  # grid levels above the deepest packed (2, 2)
+        assert packed.levels == [(2, 2)] * 3 + [()] and MWCNN(4, 4).levels == [()] * 4
+        assert packed.state_dict().keys() == MWCNN(4, 4).state_dict().keys()
         with pytest.raises(ValueError, match="divisible"):
             MWCNN(4, 4, n_scales=2)(torch.zeros(1, 4, 6, 8))
 
@@ -277,8 +278,8 @@ class TestXPDNet:
             build_model("xpdnet", "3D", device="cpu")
         crnn = build_model("xpdnet", "CRNN", device="cpu", num_cascades=2, chans=4)
         assert crnn.trunk.bcrnn.cell.conv.sizes == (12, 4, 4)  # 2 x (n_primal + 1) = 12
-        with pytest.raises(NotImplementedError, match="item 14"):
-            build_model("xpdnet", "XF", device="cpu", packed=True, **SMALL)
+        packed = build_model("xpdnet", "XF", device="cpu", packed=True, **SMALL)
+        assert packed.cascades[0].image_net_xf.packed and not packed.sens_net.unet.packed
         half = build_model("xpdnet", "XF", device="cpu", bf16=True, **SMALL)
         assert half.cascades[0].norm_buffers  # None resolves to bf16
         assert half.cascades[0].image_net_xf.dtype == torch.bfloat16
