@@ -2177,8 +2177,10 @@ REMAT_RTOL, REMAT_ATOL = 1e-5, 1e-7
 
 def precision_phase(torch, dev, peak_bw):
     """``[precision]``: the DFT (at the flagship layouts (150, 200, 200),
-    (30000, 200, 1), (1, 15, 40000), (40000, 15, 1)) and the normal apply
-    and its backward (b=1, t=15, c=10, 200x200, kt=15) in the TF32 modes
+    (30000, 200, 1), (1, 15, 40000), (40000, 15, 1), the sens net's
+    (10, 200, 200) and (30, 198, 201), whose rows are not 16-byte aligned)
+    and the normal apply (b=1, t=15, c=10, 200x200, kt=15, and kt=1 with
+    λ = 0.37) and its backward (kt=15) in the TF32 modes
     'high' (3xTF32) and 'default' (1xTF32): each against its emulating plain
     version (TF32_TOL x max |out|), printed against the 'highest' plain
     version, timed (event loop and CUDA graph), beside its bound (the mode's
@@ -2238,7 +2240,10 @@ def precision_phase(torch, dev, peak_bw):
         errs_by_row[kernel, mode] = max(errs_by_row.get((kernel, mode), 0.0), case["max_abs_err"])
 
     for mode in TF32_PASSES:
-        for o, n, i in ((T * C, H, W), (T * C * H, W, 1), (1, T, H * W), (H * W, T, 1)):
+        # the flagship layouts, the sens net's 2000-column slab, rows that are
+        # not 16-byte aligned (the mma.sync tile), and N = 15 (FP32)
+        for o, n, i in ((T * C, H, W), (T * C * H, W, 1), (C, H, W), (30, 198, 201), (1, T, H * W),
+                        (H * W, T, 1)):
             wr, wi = FFT._dft_tensors(n, False, False, "ortho", dev)
             check("complex_dft_matmul", dict(O=o, N=n, I=i), (randn(o, n, i), randn(o, n, i), wr, wi),
                   dft_cuda.complex_dft_matmul, dft_cuda.complex_dft_matmul_torch, dft_library(torch),
@@ -2250,9 +2255,14 @@ def precision_phase(torch, dev, peak_bw):
     xr, xi = randn(1, T, H, W), randn(1, T, H, W)
     ops = (kern.re.contiguous(), kern.im.contiguous(), sr / rss, si / rss)
     shape = dict(b=1, t=T, c=C, h=H, w=W, kt=T)
+    kern1 = masked_normal_kernel(mask[:, :1])  # one K for every frame: kt = 1
+    ops1 = (kern1.re.contiguous(), kern1.im.contiguous()) + ops[2:]
     for mode in TF32_PASSES:
         check("normal_apply", dict(shape, lam=0.0), (xr, xi) + ops + (0.0,), normal_cuda.normal_apply,
               normal_cuda.normal_apply_torch, normal_library(torch), normal_cost, mode, (slice(0, 2),))
+        check("normal_apply", dict(shape, kt=1, lam=0.37), (xr, xi) + ops1 + (0.37,),
+              normal_cuda.normal_apply, normal_cuda.normal_apply_torch, normal_library(torch),
+              normal_cost, mode, (slice(0, 2),))
         # a cotangent correlated with x, so that λ̄ does not cancel
         check("normal_apply_bwd", dict(shape, lam=0.37),
               (xr, xi, xr + randn(1, T, H, W), xi + randn(1, T, H, W)) + ops + (0.37,),

@@ -38,8 +38,11 @@
 // c0 = C[g][2t], c1 = C[g][2t+1], c2 = C[g+8][2t], c3 = C[g+8][2t+1].
 // Bank conflicts: k-contiguous reads (stride 12 words) and column-contiguous
 // B reads (stride BN = 40) fall on distinct banks; a column-contiguous A
-// (stride BM, a multiple of 32) is read 4-way conflicted. A simple tile:
-// wgmma, TMA and a conflict-free A layout are later work.
+// (stride BM, a multiple of 32) is read 4-way conflicted. Since the Hopper
+// tile of wgmma_tf32.cuh took the DFT and the normal apply's forward, this
+// tile runs rows that are not 16-byte aligned and the backward's two
+// contractions (its adjoint reads Kᴴ as a column-contiguous B, which TF32
+// wgmma cannot).
 
 #pragma once
 

@@ -14,14 +14,19 @@
 //     yr += wr·xr − wi·xi;   yi += wr·xi + wi·xr;
 // - 1, 'high': 3xTF32 on the tensor cores, Precision.HIGH's counterpart;
 // - 2, 'default': 1xTF32 on the tensor cores, Precision.DEFAULT's.
-// The two TF32 modes run N > 16 on the tile of cgemm_tf32.cuh (128 x 40 or
-// 64 x 40) in both tile instances below. N <= 16 takes the FP32 small kernel
-// in every mode: it is bound by memory, so the tensor cores would buy no
-// time, and it stays more exact than the mode asks.
+// The two TF32 modes run N > 16 on the Hopper tile of wgmma_tf32.cuh
+// (wgmma m64n80k8 on operands rounded once while staging; at 'default' with
+// the 64 rows of A resident and every column run over them, else streaming
+// 128 x 40 or 64 x 40 tiles) in both instances below; shapes it cannot take
+// (rows not 16-byte aligned, N or I not a multiple of 4) on the mma.sync tile
+// of cgemm_tf32.cuh (64 x 40, 4-byte copies). N <= 16 takes the FP32 small
+// kernel in every mode: it is bound by memory, so the tensor cores would buy
+// no time, and it stays more exact than the mode asks.
 //
 // What bounds it on the H100: at N = 200 (the image-axis transforms) 8·N
-// FLOP per output against 16 bytes moved, so the FP32 rate; at N ≤ 16 (the
-// temporal transforms) memory.
+// FLOP per output against 16 bytes moved, so the FP32 rate at 'highest' and
+// memory at 'default' (the TF32 rate at 'high'); at N ≤ 16 (the temporal
+// transforms) memory.
 //
 // Three instances:
 // - I == 1: y = x · Wᵀ on contiguous rows, the block tile of cgemm_tile.cuh
@@ -43,6 +48,7 @@
 // copies in the tile engine.
 
 #include "cgemm_tf32.cuh"
+#include "wgmma_tf32.cuh"
 
 namespace {
 
@@ -223,6 +229,19 @@ dft_kernel_tf32(const float* __restrict__ xr, const float* __restrict__ xi,
   }
 }
 
+// The TF32 modes on the Hopper tile: both instances, the rows of A from
+// x's rows (ROWS) or its slabs' columns (SLAB).
+template <class T>
+__global__ void __launch_bounds__(T::THREADS, 1) dft_wgmma_kernel(const wgmma::Problem p) {
+  wgmma::run<T>(p);
+}
+
+// 'default' with A resident in shared memory (N ≤ 224)
+template <class R>
+__global__ void __launch_bounds__(R::THREADS, 1) dft_wgmma_resident_kernel(const wgmma::Problem p) {
+  wgmma::run_resident<R>(p);
+}
+
 using cgemm::Large;
 using cgemm::Small;
 
@@ -251,24 +270,34 @@ int launch_tiles(const float* xr, const float* xi, const float* wr, const float*
                                                                           yi, O, N, I, s);
 }
 
-// The TF32 modes at N > 16: the tile and copies the FP32 path picks.
+// One instance on the Hopper tile: at 'default' A resident when its 64-row
+// tiles fill the card (N <= 224); else the streaming tile, 128 rows when
+// they fill it, 64 rows with a deep ring when they do not.
+template <int PASSES, wgmma::Source SRC>
+int launch_wgmma(const wgmma::Problem& p, cudaStream_t s) {
+  using Wide = wgmma::Wide<PASSES, SRC>;
+  using Narrow = wgmma::Narrow<PASSES, SRC>;
+  if constexpr (PASSES == 1) {
+    using R = wgmma::Resident<SRC>;
+    if (wgmma::resident_fills<R>(p.M, p.N, 1))
+      return wgmma::launch_resident<R, dft_wgmma_resident_kernel<R>>(p, s);
+  }
+  return wgmma::wide_fills(p.M, p.N, 1) ? wgmma::launch<Wide, dft_wgmma_kernel<Wide>>(p, s)
+                                        : wgmma::launch<Narrow, dft_wgmma_kernel<Narrow>>(p, s);
+}
+
+// The TF32 modes at N > 16: the Hopper tile, or the mma.sync tile with 4-byte
+// copies for rows that are not 16-byte aligned.
 template <int PASSES>
 int launch_tf32(const float* xr, const float* xi, const float* wr, const float* wi, float* yr,
                 float* yi, int O, int N, int I, bool aligned, cudaStream_t s) {
   using TS = tf32::Small;
-  using TL = tf32::Large;
   if (!(aligned && N % 4 == 0 && (I == 1 || I % 4 == 0)))
     return launch_grid<TS, dft_kernel_tf32<TS, true, 1, PASSES>,
                        dft_kernel_tf32<TS, false, 1, PASSES>>(xr, xi, wr, wi, yr, yi, O, N, I, s);
-  const long rows = static_cast<long>(O) * I;
-  const long large = (rows + TL::BM - 1) / TL::BM * ((N + TL::BN - 1) / TL::BN);
-  return large >= 2L * cgemm::sm_count()
-             ? launch_grid<TL, dft_kernel_tf32<TL, true, 4, PASSES>,
-                           dft_kernel_tf32<TL, false, 4, PASSES>>(xr, xi, wr, wi, yr, yi, O, N, I,
-                                                                  s)
-             : launch_grid<TS, dft_kernel_tf32<TS, true, 4, PASSES>,
-                           dft_kernel_tf32<TS, false, 4, PASSES>>(xr, xi, wr, wi, yr, yi, O, N, I,
-                                                                  s);
+  const wgmma::Problem p{xr, xi, nullptr, nullptr, wr, wi, yr, yi, static_cast<long>(O) * I,
+                         N, I, 1, 1, 1};
+  return I == 1 ? launch_wgmma<PASSES, wgmma::ROWS>(p, s) : launch_wgmma<PASSES, wgmma::SLAB>(p, s);
 }
 
 int launch_small(const float* xr, const float* xi, const float* wr, const float* wi, float* yr,

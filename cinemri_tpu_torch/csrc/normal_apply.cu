@@ -18,9 +18,9 @@
 // normal_pallas.py reads the DFT precision, _precision(), the same way):
 // 0, 'highest': the 4-multiplication complex product in full f32 on CUDA
 // cores (FMA, no TF32), Precision.HIGHEST; 1, 'high': 3xTF32 and 2,
-// 'default': 1xTF32 on the tensor cores (cgemm_tf32.cuh). The products and
-// the coil reduction stay f32 in every mode; the TF32 modes form the
-// products without FMA contraction, as the plain version does.
+// 'default': 1xTF32 on the tensor cores. The products and the coil
+// reduction stay f32 in every mode; the TF32 modes form the products without
+// FMA contraction, as the plain version does.
 //
 // What bounds it on the H100: per apply it does 8·t·c·h·h·w FLOP (9.6 GFLOP
 // at t=15, c=10, h=w=200) against about 18 MB of inputs and outputs, so it
@@ -43,10 +43,23 @@
 // (w-tile, h-tile, frame) block instead has to restage K per coil, and its
 // 64 x 64 output tiles over a 200 x 200 plane spend 39% of the FMAs on
 // padding.
+//
+// The TF32 modes run (b) on the Hopper tile of wgmma_tf32.cuh. At 'default'
+// it fuses (a) into (b): the resident tile stages x_t and S_c (raw, by
+// cp.async) and forms y = S_c ⊙ x_t while rounding its A, one operation at a
+// time as (a) does, once per element, so a call launches two kernels, the
+// contraction with its products and (c), and y never reaches device memory
+// (the caller's y scratch goes unused). At 'high' the products' hi and lo
+// would not fit a resident A, and streaming x and S per 40-column tile
+// doubles the L2 traffic of streaming y (on an H100: 0.55 ms against the
+// three kernels' 0.30 at the flagship), so (a) stays and (b) runs on the
+// streaming tile. Rows that are not 16-byte aligned keep (a), (b) on the
+// mma.sync tile of cgemm_tf32.cuh and (c).
 
 #include <type_traits>
 
 #include "normal_passes.cuh"
+#include "wgmma_tf32.cuh"
 
 namespace {
 
@@ -66,6 +79,21 @@ normal_apply_contract_kernel(const float* __restrict__ yr, const float* __restri
                              float* __restrict__ zr, float* __restrict__ zi, int H, int W, int G,
                              int n_tiles) {
   normal::contract<T, VEC, false, PASSES>(yr, yi, kr, ki, zr, zi, H, W, G, n_tiles);
+}
+
+// The TF32 modes' contraction on the Hopper tile: z[f, c] = K_g ·_h y[f, c]
+// over the groups of slabs sharing one K, y the products' scratch ('high').
+template <class T>
+__global__ void __launch_bounds__(T::THREADS, 1) normal_apply_wgmma_kernel(const wgmma::Problem p) {
+  wgmma::run<T>(p);
+}
+
+// 'default': the same with the products fused into its staging,
+// z[f, c] = K_g ·_h (S_c ⊙ x_f), A resident in shared memory (h ≤ 224).
+template <class R>
+__global__ void __launch_bounds__(R::THREADS, 1)
+normal_apply_wgmma_resident_kernel(const wgmma::Problem p) {
+  wgmma::run_resident<R>(p);
 }
 
 template <int VEC>
@@ -102,6 +130,29 @@ int contraction(const float* yr, const float* yi, const float* kr, const float* 
                    yr, yi, kr, ki, zr, zi, groups, G, h, w, s);
 }
 
+// z = K ·_h (S ⊙ x) at 'default', A resident, row tiles clipped at the groups
+// of G slabs that share one K
+int fused_contraction(const float* xr, const float* xi, const float* sr, const float* si,
+                      const float* kr, const float* ki, float* zr, float* zi, int groups, int G,
+                      int t, int c, int h, int w, cudaStream_t s) {
+  using R = wgmma::Resident<wgmma::FUSED>;
+  const wgmma::Problem p{xr, xi, sr, si, kr, ki, zr, zi, static_cast<long>(G) * w, h, w, c, t, groups};
+  return wgmma::launch_resident<R, normal_apply_wgmma_resident_kernel<R>>(p, s);
+}
+
+// z = K ·_h y on the streaming Hopper tile (PASSES 1, 3)
+template <int PASSES>
+int wgmma_contraction(const float* yr, const float* yi, const float* kr, const float* ki, float* zr,
+                      float* zi, int groups, int G, int h, int w, cudaStream_t s) {
+  using Wide = wgmma::Wide<PASSES, wgmma::SLAB>;
+  using Narrow = wgmma::Narrow<PASSES, wgmma::SLAB>;
+  const wgmma::Problem p{yr, yi, nullptr, nullptr, kr, ki, zr, zi, static_cast<long>(G) * w, h, w,
+                         1, 1, groups};
+  return wgmma::wide_fills(p.M, h, groups)
+             ? wgmma::launch<Wide, normal_apply_wgmma_kernel<Wide>>(p, s)
+             : wgmma::launch<Narrow, normal_apply_wgmma_kernel<Narrow>>(p, s);
+}
+
 template <int VEC>
 int reduce(const float* zr, const float* zi, const float* sr, const float* si, const float* xr,
            const float* xi, const float* lam, float* outr, float* outi, int b, int t, int c,
@@ -127,10 +178,23 @@ extern "C" int cinemri_normal_apply(const float* xr, const float* xi, const floa
                    cgemm::aligned16(sr) && cgemm::aligned16(si) && cgemm::aligned16(yr) &&
                    cgemm::aligned16(yi) && cgemm::aligned16(zr) && cgemm::aligned16(zi) &&
                    cgemm::aligned16(outr) && cgemm::aligned16(outi);
+  const int groups = b * kt, G = t * c / kt;  // slabs sharing one K
+  if (mode != 0 && vec && normal::tile_vec(h, w, kr, ki, yr, yi, zr, zi)) {
+    int err;
+    if (mode == 2 && wgmma::resident_fills<wgmma::Resident<wgmma::FUSED>>(static_cast<long>(G) * w, h,
+                                                                          groups)) {
+      err = fused_contraction(xr, xi, sr, si, kr, ki, zr, zi, groups, G, t, c, h, w, s);
+    } else {
+      err = products<4>(xr, xi, sr, si, yr, yi, b, t, c, P, mode, s);
+      if (!err)
+        err = mode == 1 ? wgmma_contraction<3>(yr, yi, kr, ki, zr, zi, groups, G, h, w, s)
+                        : wgmma_contraction<1>(yr, yi, kr, ki, zr, zi, groups, G, h, w, s);
+    }
+    return err ? err : reduce<4>(zr, zi, sr, si, xr, xi, lam, outr, outi, b, t, c, P, s);
+  }
   int err = vec ? products<4>(xr, xi, sr, si, yr, yi, b, t, c, P, mode, s)
                 : products<1>(xr, xi, sr, si, yr, yi, b, t, c, P, mode, s);
   if (err) return err;
-  const int groups = b * kt, G = t * c / kt;  // slabs sharing one K
   err = mode == 0   ? contraction<0>(yr, yi, kr, ki, zr, zi, groups, G, h, w, s)
         : mode == 1 ? contraction<3>(yr, yi, kr, ki, zr, zi, groups, G, h, w, s)
                     : contraction<1>(yr, yi, kr, ki, zr, zi, groups, G, h, w, s);

@@ -20,10 +20,10 @@ __all__ = ["kernel_events", "fold_by_kind", "top_names", "busy_share", "KINDS"]
 # (kind, substrings of the lower-cased kernel name), first match wins
 KINDS: Tuple[Tuple[str, Tuple[str, ...]], ...] = (
     # ahead of the convolutions: the tile engine's template names hold "cgemm"
-    ("dft_matmul (port kernel)", ("dft_matmul_kernel", "dft_kernel", "dft_small_")),
+    ("dft_matmul (port kernel)", ("dft_matmul_kernel", "dft_kernel", "dft_small_", "dft_wgmma_")),
     ("normal_apply_bwd (port kernels)", ("normal_apply_bwd",)),
     ("normal_apply (port kernels)", ("normal_apply_products", "normal_apply_contract",
-                                     "normal_apply_reduce")),
+                                     "normal_apply_reduce", "normal_apply_wgmma_")),
     # before the convolutions, whose keys include cuDNN's fft2d_*
     ("fft2_plane (port kernel)", ("fft2_plane_kernel",)),
     ("instance norm", ("batch_norm", "instance_norm", "welford")),

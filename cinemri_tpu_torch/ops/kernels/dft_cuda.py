@@ -23,8 +23,10 @@ against 16 bytes), at N ≤ 16 memory. Instances: ``I == 1`` (rows, ``x·Wᵀ``)
 ``Xᵀ·Wᵀ`` over the slabs' columns, read coalesced along ``I``), both with
 8 x 5 complex outputs a thread, and ``N ≤ 16`` (``W`` in shared memory, x
 read once, y written once). At ``'high'`` and ``'default'`` an ``N > 16`` runs
-on the TF32 tensor-core tile of ``csrc/cgemm_tf32.cuh`` (``mma.sync`` m16n8k8,
-the same ``cp.async`` ring and operand layouts). ``N ≤ 16`` (the temporal
+on the Hopper TF32 tile of ``csrc/wgmma_tf32.cuh`` (``wgmma`` m64n80k8 on
+operands rounded once while staging; persistent blocks), or, where rows are
+not 16-byte aligned or N or I is not a multiple of 4, on the ``mma.sync``
+tile of ``csrc/cgemm_tf32.cuh``. ``N ≤ 16`` (the temporal
 transforms) takes the FP32 ``N ≤ 16`` kernel in every mode: it is bound by
 memory, so the tensor cores would buy no time there, and it is more exact
 than the mode asks, as ``physics/operators.py::masked_normal_kernel`` is.

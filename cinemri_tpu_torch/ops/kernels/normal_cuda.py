@@ -33,8 +33,14 @@ Precision: the contractions take the DFT's precision (the JAX package's
 ``normal_pallas.py::_precision`` reads ``ops/fft.py``'s, as
 ``physics/operators.py`` passes :func:`~cinemri_tpu_torch.ops.fft.
 get_dft_precision` here): ``'highest'`` on the FP32 engine, ``'high'``
-(3xTF32) and ``'default'`` (1xTF32) on the tensor-core tile of
-``csrc/cgemm_tf32.cuh``; the products and the coil passes stay f32. The
+(3xTF32) and ``'default'`` (1xTF32) on the tensor cores; the products and
+the coil passes stay f32. The forward's contraction runs on the Hopper tile
+of ``csrc/wgmma_tf32.cuh``; at ``'default'`` that tile forms the products
+while staging its operand (the scratch ``y`` goes unused), so a call runs two
+kernels, the contraction and the coil reduction; at ``'high'`` the three
+passes stay. Rows that are not 16-byte aligned keep the three passes on the
+``mma.sync`` tile of ``csrc/cgemm_tf32.cuh``, as do the backward's
+contractions. The
 plain versions take the same ``precision`` and round the contraction's
 operands as the tile does (:mod:`.precision`). The kernels form each
 product ``S ⊙ u`` with separate roundings, as PyTorch does, so that a TF32

@@ -2,7 +2,7 @@
 
 The JAX package's matrix-unit precision of the DFT (``ops/fft.py::
 set_dft_precision``: ``HIGHEST``, ``HIGH``, ``DEFAULT``) maps onto the H100
-as follows (``csrc/cgemm_tf32.cuh``):
+as follows (``csrc/wgmma_tf32.cuh`` and ``csrc/cgemm_tf32.cuh``):
 
   * ``'highest'`` — full f32 FMA on the CUDA cores (the default, mode 0);
   * ``'high'``    — 3xTF32 on the tensor cores (mode 1): each operand split

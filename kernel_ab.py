@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Times the port's CUDA kernels of two checkouts on one NVIDIA GPU, in turns.
 
-    python3 kernel_ab.py OTHER_ROOT [--out FILE]
+    python3 kernel_ab.py OTHER_ROOT [--precision MODE ...] [--out FILE]
 
 ``OTHER_ROOT`` is another checkout of the repository (for example the
 parent commit unpacked by ``git archive`` into a git-ignored directory).
@@ -14,16 +14,24 @@ host's time to issue one call (wrapper and launches, 20 calls after a
 synchronize, the device running behind), in the same turns. Kernels:
 the normal apply and its backward at ``chip_smoke.py``'s four cases, the
 DFT at its eight ``(O, N, I)`` layouts and ``fft2_plane`` at its four
-shapes. Each result is checked against this checkout's plain version at
-``chip_smoke.py``'s tolerances, and the two checkouts' results against each
-other (max |this - other|, 0 where both compute the same bits). Then the entries the models call,
+shapes. ``--precision`` names the DFT precisions to time them at
+(``'highest'``, the default, ``'high'``, ``'default'``; ``fft2_plane`` has
+none and runs once): the DFT and the normal apply and its backward at each
+mode, the other checkout's kernels called with the same mode (a checkout
+from before the precision modes takes ``'highest'`` only). Each result is
+checked against this checkout's plain version at the mode, at
+``chip_smoke.py``'s tolerances (``TF32_TOL`` at a TF32 mode), and the two
+checkouts' results against each other (max |this - other|, 0 where both
+compute the same bits; the ``[ab] identical`` line lists the cases where it
+is 0). Then the entries the models call,
 ``dft_cuda.ComplexDFTMatmul.apply`` at (1, 15, 40000) and
 ``normal_cuda.NormalApply.apply`` at the flagship shape (autograd Functions
 or custom ops, with the wrappers and kernels behind them), the host's time
 per call in the same turns. Then the full-width CineNet-XF and VarNet-XF
 forwards and train steps run through either checkout's entries, in the
 same turns (the rest of the path is this checkout's), with the largest
-difference between the two checkouts' forward outputs.
+difference between the two checkouts' forward outputs, at each of
+``--precision``'s modes.
 
 Prints one ``[ab]`` line per shape and, last, the card's nvidia-smi line and
 one JSON object with every time; ``--out`` also writes that object to a
@@ -68,15 +76,42 @@ def load_port(root: Path):
         raise RuntimeError(f"imported {mods['_build'].__file__}, not the package under {root}")
     mods["_build"].build()
     dft_entry, normal_entry = mods["dft_cuda"].ComplexDFTMatmul, mods["normal_cuda"].NormalApply
+    # both checkouts register the same torch.library ops (torch.ops.cinemri.*),
+    # and the last import's registration replaces the other's: activate()
+    # imports a checkout again before its entries are called
     if "precision" not in inspect.signature(normal_entry.apply).parameters:
         # a checkout from before the precision modes: its entries take no
         # precision argument and compute 'highest'
         dft_entry, normal_entry = _AtHighest(dft_entry, 7), _AtHighest(normal_entry, 8)
-    return dict(normal_apply=mods["normal_cuda"].normal_apply,
+    return dict(root=root, normal_apply=mods["normal_cuda"].normal_apply,
                 normal_apply_bwd=mods["normal_cuda"].normal_apply_bwd,
                 complex_dft_matmul=mods["dft_cuda"].complex_dft_matmul,
                 fft2_plane=mods["fft2_cuda"].fft2_plane,
                 ComplexDFTMatmul=dft_entry, NormalApply=normal_entry)
+
+
+def takes_precision(fn) -> bool:
+    """Whether a checkout's kernel wrapper takes the precision argument."""
+    return "precision" in inspect.signature(fn).parameters
+
+
+def at_mode(fn, mode: str):
+    """``fn`` called at ``mode``: with a trailing precision where it takes
+    one, else (a checkout from before the precision modes) as it is, at
+    'highest' only."""
+    if takes_precision(fn):
+        return lambda *args: fn(*args, mode)
+    if mode != "highest":
+        raise ValueError(f"{fn.__module__}.{fn.__name__} computes 'highest' only, asked for {mode!r}")
+    return fn
+
+
+def activate(ports, side: str):
+    """``ports[side]`` imported again from its checkout, so that its custom
+    ops are the registered ones (the kernels' wrappers call the libraries
+    directly and need no activation)."""
+    ports[side] = load_port(ports[side]["root"])
+    return ports[side]
 
 
 class _AtHighest:
@@ -94,15 +129,19 @@ class _AtHighest:
         return self.entry.apply(*args[:self.nargs])
 
 
-def end_to_end(torch, dev, ports, dft_cuda, normal_cuda):
+def end_to_end(torch, dev, ports, precision):
     """The full-width CineNet-XF and VarNet-XF forwards and train steps of
     ``chip_smoke.py`` (this checkout's models, random weights from seed 0)
-    through either checkout's DFT and normal-apply entries
-    (``ComplexDFTMatmul``, ``NormalApply``) and the kernels behind them, in
-    turns other, this, this, other: per turn, after one warm call, the
-    median of E2E_FORWARDS forwards or E2E_STEPS steps (device ms and the
-    host's ms to issue each) and the cudaMallocs of the caching allocator
-    among them."""
+    at DFT precision ``precision`` through either checkout's DFT and
+    normal-apply entries (``ComplexDFTMatmul``, ``NormalApply``) and the
+    kernels behind them, in turns other, this, this, other: per turn, after
+    one warm call, the median of E2E_FORWARDS forwards or E2E_STEPS steps
+    (device ms and the host's ms to issue each) and the cudaMallocs of the
+    caching allocator among them. The models are built from this checkout
+    imported afresh; each turn swaps the entries on the modules they use."""
+    activate(ports, "this")
+    from cinemri_tpu_torch.ops import fft as FFT
+    from cinemri_tpu_torch.ops.kernels import dft_cuda, normal_cuda
     from cinemri_tpu_torch.data.masks import RandomMask
     from cinemri_tpu_torch.models import build_model
     from cinemri_tpu_torch.ops.cplx import Complex
@@ -151,7 +190,8 @@ def end_to_end(torch, dev, ports, dft_cuda, normal_cuda):
         e1.synchronize()
         return e0.elapsed_time(e1), host
 
-    saved = dft_cuda.ComplexDFTMatmul, normal_cuda.NormalApply
+    saved = dft_cuda.ComplexDFTMatmul, normal_cuda.NormalApply, FFT.get_dft_precision()
+    FFT.set_dft_precision(precision)
     out = {}
     try:
         for label, fn in runs.items():
@@ -159,8 +199,9 @@ def end_to_end(torch, dev, ports, dft_cuda, normal_cuda):
             rec = {key: {"other": [], "this": []} for key in ("ms", "host_ms", "cuda_mallocs")}
             first = {}
             for side in ("other", "this", "this", "other"):
-                dft_cuda.ComplexDFTMatmul = ports[side]["ComplexDFTMatmul"]
-                normal_cuda.NormalApply = ports[side]["NormalApply"]
+                port = activate(ports, side)
+                dft_cuda.ComplexDFTMatmul = port["ComplexDFTMatmul"]
+                normal_cuda.NormalApply = port["NormalApply"]
                 result = fn()  # warm
                 if result is not None:
                     first.setdefault(side, result)
@@ -173,13 +214,14 @@ def end_to_end(torch, dev, ports, dft_cuda, normal_cuda):
                 rec["max_abs_diff_vs_other"] = (first["this"] - first["other"]).abs().max().item()
             del first
             out[label] = rec
-            print(f"[ab] {label} (median of {n}): ms other {rec['ms']['other']} this {rec['ms']['this']}; "
+            print(f"[ab] {label} at '{precision}' (median of {n}): ms other {rec['ms']['other']} this {rec['ms']['this']}; "
                   f"host ms to issue it other {rec['host_ms']['other']} this {rec['host_ms']['this']}; "
                   f"cudaMallocs other {rec['cuda_mallocs']['other']} this {rec['cuda_mallocs']['this']}"
                   + (f"; output max |this - other| {rec['max_abs_diff_vs_other']:.3e}"
                      if "max_abs_diff_vs_other" in rec else ""))
     finally:
-        dft_cuda.ComplexDFTMatmul, normal_cuda.NormalApply = saved
+        dft_cuda.ComplexDFTMatmul, normal_cuda.NormalApply = saved[:2]
+        FFT.set_dft_precision(saved[2])
     return out
 
 
@@ -210,11 +252,12 @@ def entries(torch, dev, ports, randn):
     for label, call in calls.items():
         host = {"other": [], "this": []}
         for side in ("other", "this", "this", "other"):
-            call(ports[side])  # untimed: allocations cached
+            port = activate(ports, side)
+            call(port)  # untimed: allocations cached
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             for _ in range(HOST_CALLS):
-                call(ports[side])
+                call(port)
             host[side].append((time.perf_counter() - t0) / HOST_CALLS * 1e6)
             torch.cuda.synchronize()
         mean = {k: statistics.mean(v) for k, v in host.items()}
@@ -227,6 +270,9 @@ def entries(torch, dev, ports, randn):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("other", type=Path, help="root of the other checkout")
+    ap.add_argument("--precision", nargs="+", default=["highest"],
+                    choices=["highest", "high", "default"],
+                    help="DFT precisions to time the DFT and normal-apply kernels at")
     ap.add_argument("--out", type=Path, default=None)
     args = ap.parse_args()
 
@@ -254,7 +300,7 @@ def main() -> int:
         return torch.randn(shape, generator=gen, device=dev, dtype=torch.float32)
 
     T, C, H, W = CS.T, CS.C, CS.H, CS.W
-    cases = []  # (label, kernel name, args, plain, tolerance)
+    cases = []  # (label, kernel name, args, plain, tolerance at 'highest')
     lam_dev = torch.tensor(0.37, device=dev)
     for b, kt, seed, lam in ((1, T, 1, 0.0), (1, 1, 2, 0.37), (2, T, 3, 0.0), (1, T, 4, lam_dev)):
         mask_func = RandomMask([10], [4]) if kt > 1 else EquispacedMask([0.08], [4])
@@ -286,11 +332,19 @@ def main() -> int:
                       fft2_cuda.fft2_plane_torch, CS.DFT_TOL))
 
     results = []
-    for label, kernel, call_args, plain, tol in cases:
+    runs = [(case, mode) for case in cases for mode in args.precision
+            if case[1] != "fft2_plane" or mode == args.precision[0]]
+    for (label, kernel, call_args, plain, tol), mode in runs:
+        if kernel != "fft2_plane":
+            label = f"{label} [{mode}]"
+            plain = at_mode(plain, mode)
+            tol = tol if mode == "highest" else CS.TF32_TOL
+        fns = {side: at_mode(port[kernel], mode) if kernel != "fft2_plane" else port[kernel]
+               for side, port in ports.items()}
         want = plain(*call_args)
         errs, outs = {}, {}
-        for side, port in ports.items():
-            outs[side] = got = port[kernel](*call_args)
+        for side, fn in fns.items():
+            outs[side] = got = fn(*call_args)
             torch.cuda.synchronize()
             errs[side] = max((a - b_).abs().max().item() / b_.abs().max().clamp_min(1e-30).item()
                              for a, b_ in zip(got, want))
@@ -300,7 +354,7 @@ def main() -> int:
         del outs
         times = {"other": [], "this": []}
         for side in ("other", "this", "this", "other"):
-            fn = ports[side][kernel]
+            fn = fns[side]
             times[side].append(CS.graph_ms(torch, lambda: fn(*call_args)))
         mean = {k: statistics.mean(v) for k, v in times.items()}
         # the host's time to issue one call (wrapper, checks, launches):
@@ -308,7 +362,7 @@ def main() -> int:
         # launch queue has room
         host = {"other": [], "this": []}
         for side in ("other", "this", "this", "other"):
-            fn = ports[side][kernel]
+            fn = fns[side]
             fn(*call_args)  # untimed: allocations cached
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -317,7 +371,8 @@ def main() -> int:
             host[side].append((time.perf_counter() - t0) / HOST_CALLS * 1e6)
         torch.cuda.synchronize()
         host_us = {k: statistics.mean(v) for k, v in host.items()}
-        results.append(dict(case=label, device_ms=times, mean_device_ms=mean, host_us=host,
+        results.append(dict(case=label, precision=mode if kernel != "fft2_plane" else None,
+                            device_ms=times, mean_device_ms=mean, host_us=host,
                             mean_host_us=host_us, max_rel_err=errs, max_abs_diff_vs_other=vs_other))
         print(f"[ab] {label}: device alone ms other {mean['other']:.4f} "
               f"({', '.join(f'{x:.4f}' for x in times['other'])}) this {mean['this']:.4f} "
@@ -327,10 +382,13 @@ def main() -> int:
               f"{errs['this']:.2e}; max |this - other| {vs_other:.3e}")
         del want
     del cases
+    same = [r["case"] for r in results if r["max_abs_diff_vs_other"] == 0]
+    print(f"[ab] identical (max |this - other| = 0): {len(same)} of {len(results)}: {same}")
     torch.cuda.empty_cache()
-    report = dict(device=smi, other=str(args.other), results=results,
+    report = dict(device=smi, other=str(args.other), precision=args.precision, results=results,
+                  identical=same,
                   entries=entries(torch, dev, ports, randn),
-                  end_to_end=end_to_end(torch, dev, ports, dft_cuda, normal_cuda))
+                  end_to_end={mode: end_to_end(torch, dev, ports, mode) for mode in args.precision})
     if args.out:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps(report, indent=1))

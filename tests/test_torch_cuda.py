@@ -944,7 +944,8 @@ def test_custom_op_launches_its_kernel_and_matches_plain(dev, name):
     torch.library.opcheck(op, (*args, *flag))
 
 
-# The TF32 modes ('high': 3xTF32, 'default': 1xTF32; csrc/cgemm_tf32.cuh)
+# The TF32 modes ('high': 3xTF32, 'default': 1xTF32; csrc/wgmma_tf32.cuh, and
+# csrc/cgemm_tf32.cuh for rows that are not 16-byte aligned)
 # against their emulating plain versions (ops/kernels/precision.py): the
 # same TF32 operands and partial products, another summation order, so the
 # tolerance is the f32 one's order: 1e-5 x max |plain result|.
@@ -955,8 +956,9 @@ TF32_TOL = 1e-5
 @pytest.mark.parametrize("o,n,i", [(150, 200, 200), (30000, 200, 1), (1, 15, 40000), (40000, 15, 1),
                                    (2000, 200, 1), (10, 200, 200), (37, 64, 1), (3, 24, 7)])
 def test_dft_tf32_modes_match_their_emulation(dev, o, n, i, precision):
-    """Each tile of the TF32 path (128 x 40 and 64 x 40 with 16- or 4-byte
-    copies) in both instances, and N <= 16, which runs the FP32 kernel in
+    """Each tile of the TF32 path in both instances (the Hopper tile's
+    resident and streaming 128- and 64-row tiles, the mma.sync tile for rows
+    that are not 16-byte aligned), and N <= 16, which runs the FP32 kernel in
     every mode; the launch is counted under its precision; the result moves
     from 'highest' by the mode's rounding."""
     from cinemri_tpu_torch.ops import fft as F

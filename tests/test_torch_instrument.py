@@ -73,6 +73,27 @@ class TestTrace:
         assert len(list((tmp_path / "raised").glob("*.pt.trace.json"))) == 1
 
 
+@pytest.mark.parametrize("name,kind", [
+    ("void (anonymous namespace)::dft_wgmma_kernel<wgmma::Tile<2, 1, (wgmma::Source)1>>"
+     "(wgmma::Problem)", "dft_matmul (port kernel)"),
+    ("void (anonymous namespace)::dft_kernel_tf32<tf32::Tile<64, 40, 3, 2>, true, 1, 3>"
+     "(const float *, const float *, const float *, const float *, float *, float *, long, int, int, int)",
+     "dft_matmul (port kernel)"),
+    ("void (anonymous namespace)::normal_apply_wgmma_kernel<wgmma::Tile<1, 3, (wgmma::Source)2>>"
+     "(wgmma::Problem)", "normal_apply (port kernels)"),
+    ("void (anonymous namespace)::normal_apply_reduce_kernel<4>(const float *, const float *)",
+     "normal_apply (port kernels)"),
+    ("void (anonymous namespace)::normal_apply_bwd_contract_kernel<tf32::Tile<128, 40, 3, 2>, 4, "
+     "false, 1>(const float *)", "normal_apply_bwd (port kernels)"),
+])
+def test_fold_maps_the_port_kernels_to_their_kinds(name, kind):
+    """The TF32 modes' Hopper tile (dft_wgmma_kernel, the normal apply's fused
+    normal_apply_wgmma_kernel) and the kernels beside it fold into their
+    port kinds, so a profile's tables stay whole at every precision."""
+    events = [(name, 0.0, 2000.0), (name, 3000.0, 1000.0)]
+    assert opstats.fold_by_kind(events) == {kind: {"ms": 3.0, "count": 2}}
+
+
 @pytest.fixture(scope="module")
 def loader(tmp_path_factory):
     root = tmp_path_factory.mktemp("instrdata")
