@@ -1920,8 +1920,14 @@ FLAGSHIP_HPARAMS = dict(FLAGSHIP, dynamic_type="XF", weight_sharing=False)
 CINENET_HPARAMS = dict(num_cascades=CINENET["num_cascades"], CG_iters=CINENET["cg_iters"],
                        chans=CINENET["chans"], pools=CINENET["pools"], dynamic_type="XF",
                        weight_sharing=False)
-# the kernels a launch of each C entry runs (one launch counted per call)
-KERNELS_PER_LAUNCH = {"dft": 1, "normal": 3, "normal_bwd": 7}
+# the kernels a launch of each C entry runs at each precision on the
+# flagship's rows (one launch counted per call): at 'default' the normal
+# apply's products are formed in the resident TF32 tile's staging, in the
+# forward and in both contractions of the backward; the backward's TF32 modes
+# add one kernel, the conjugate-transposed copy of K its adjoint contracts with
+KERNELS_PER_LAUNCH = {"highest": {"dft": 1, "normal": 3, "normal_bwd": 7},
+                      "high": {"dft": 1, "normal": 3, "normal_bwd": 8},
+                      "default": {"dft": 1, "normal": 2, "normal_bwd": 6}}
 FOLD_KINDS = {"dft": "dft_matmul (port kernel)", "normal": "normal_apply (port kernels)",
               "normal_bwd": "normal_apply_bwd (port kernels)"}
 OP_NAMES = {"dft": "cinemri::dft_matmul", "normal": "cinemri::normal_apply",
@@ -2076,12 +2082,14 @@ def profile_phase(torch, dev, data, launches):
     and holds steps 2 and 3. The trace is folded by ``instrument.opstats``;
     each of the three on-path kernels must appear in it as many times as the
     counters report launches over those two steps, times its kernels per
-    launch (the DFT 1, the normal apply 3, its backward 7), and each custom
+    launch at the precision set (KERNELS_PER_LAUNCH; at 'highest' the DFT 1,
+    the normal apply 3, its backward 7), and each custom
     op's host events once per call. Per step: CUDA-event ms and host ms,
     traced and untraced."""
     from cinemri_tpu_torch.data import RandomMask, VarNetDataTransform
     from cinemri_tpu_torch.instrument import opstats
     from cinemri_tpu_torch.models import build_model
+    from cinemri_tpu_torch.ops import fft as FFT
     from cinemri_tpu_torch.train import Loader, Trainer, TrainerConfig
 
     t_phase = time.perf_counter()
@@ -2118,23 +2126,24 @@ def profile_phase(torch, dev, data, launches):
         fold = opstats.fold_by_kind(events)
         ops = op_events(traces[0])
         trace_mib = traces[0].stat().st_size / 2**20
-    traced = {k: sum(s[k] for s in rec["launches"][1:3]) for k in KERNELS_PER_LAUNCH}
-    seen = {k: fold.get(FOLD_KINDS[k], {}).get("count", 0) for k in KERNELS_PER_LAUNCH}
-    op_calls = {k: ops.get(OP_NAMES[k], 0) for k in KERNELS_PER_LAUNCH}
+    per_launch = KERNELS_PER_LAUNCH[FFT.get_dft_precision()]
+    traced = {k: sum(s[k] for s in rec["launches"][1:3]) for k in per_launch}
+    seen = {k: fold.get(FOLD_KINDS[k], {}).get("count", 0) for k in per_launch}
+    op_calls = {k: ops.get(OP_NAMES[k], 0) for k in per_launch}
     busy, window = opstats.busy_share(events)
     report = dict(steps=rec, traced_launches=traced, trace_kernel_events=seen,
                   trace_op_events=ops, trace_mib=trace_mib, device_busy_ms=busy,
                   device_window_ms=window, by_kind=fold, wall_s=time.perf_counter() - t_phase)
     print(f"[profile] Trainer.fit, 6 steps, profile_steps=2: launches per step {rec['launches']}; "
           f"steps 2-3 traced: launches {traced}, kernel events in the trace {seen} (expected "
-          f"launches x {KERNELS_PER_LAUNCH}), custom-op host events {op_calls}; trace "
+          f"launches x {per_launch}), custom-op host events {op_calls}; trace "
           f"{trace_mib:.1f} MiB, {len(events)} device events, device busy {busy:.2f} of "
           f"{window:.2f} ms; step ms (CUDA events) {[round(x, 3) for x in rec['ms']]}, host ms "
           f"{[round(x, 3) for x in rec['host_ms']]}; phase {report['wall_s']:.1f} s")
     print("[profile] fold by kind: " + json.dumps(
         {k: {"ms": round(v["ms"], 3), "count": v["count"]} for k, v in fold.items()}))
-    if any(seen[k] != traced[k] * KERNELS_PER_LAUNCH[k] or op_calls[k] != traced[k] or not traced[k]
-           for k in KERNELS_PER_LAUNCH):
+    if any(seen[k] != traced[k] * per_launch[k] or op_calls[k] != traced[k] or not traced[k]
+           for k in per_launch):
         fail(f"profile: the trace holds {seen} kernel events and {op_calls} op calls for "
              f"{traced} launches")
     return report
@@ -2180,16 +2189,21 @@ def precision_phase(torch, dev, peak_bw):
     (30000, 200, 1), (1, 15, 40000), (40000, 15, 1), the sens net's
     (10, 200, 200) and (30, 198, 201), whose rows are not 16-byte aligned)
     and the normal apply (b=1, t=15, c=10, 200x200, kt=15, and kt=1 with
-    λ = 0.37) and its backward (kt=15) in the TF32 modes
+    λ = 0.37) and its backward (kt=15, kt=1, and kt=15 with a K that is not
+    Hermitian, so that Kᴴ and K differ) in the TF32 modes
     'high' (3xTF32) and 'default' (1xTF32): each against its emulating plain
     version (TF32_TOL x max |out|), printed against the 'highest' plain
     version, timed (event loop and CUDA graph), beside its bound (the mode's
     FLOP over TF32_PEAK, 'high' three times the FLOP, or the bytes over the
     memory rate) and the nearest library call: one complex64 ``matmul`` /
     ``einsum``, with ``allow_tf32`` on for 'default' and in f32 for 'high'.
-    The DFT at N = 15 runs the FP32 kernel in every mode. Returns the report
-    and, per (kernel, mode), the largest error against the emulation over
-    the shapes (the ``kernels`` rows' ``max_abs_err``)."""
+    The DFT at N = 15 runs the FP32 kernel in every mode. Then the kernels
+    one call of the normal apply and of its backward runs at each mode, by
+    name under the profiler: KERNELS_PER_LAUNCH of them, and at 'high' and
+    'default' both of the backward's contractions on its own ``wgmma``
+    kernels, with no products pass at 'default'. Returns the report and, per
+    (kernel, mode), the largest error against the emulation over the shapes
+    (the ``kernels`` rows' ``max_abs_err``)."""
     from cinemri_tpu_torch.data.masks import RandomMask
     from cinemri_tpu_torch.ops import fft as FFT
     from cinemri_tpu_torch.ops.kernels import dft_cuda, normal_cuda
@@ -2257,20 +2271,100 @@ def precision_phase(torch, dev, peak_bw):
     shape = dict(b=1, t=T, c=C, h=H, w=W, kt=T)
     kern1 = masked_normal_kernel(mask[:, :1])  # one K for every frame: kt = 1
     ops1 = (kern1.re.contiguous(), kern1.im.contiguous()) + ops[2:]
+    # masked_normal_kernel's K is Hermitian (Kᴴ = K): a backward contracting
+    # with K where it should use Kᴴ passes with it, and not with this one
+    opsn = non_hermitian(torch, *ops[:2], randn) + ops[2:]
+    # a cotangent correlated with x, so that λ̄ does not cancel
+    gr, gi = xr + randn(1, T, H, W), xi + randn(1, T, H, W)
+    bwd = (normal_cuda.normal_apply_bwd, normal_cuda.normal_apply_bwd_torch,
+           normal_bwd_library(torch), normal_bwd_cost)
     for mode in TF32_PASSES:
         check("normal_apply", dict(shape, lam=0.0), (xr, xi) + ops + (0.0,), normal_cuda.normal_apply,
               normal_cuda.normal_apply_torch, normal_library(torch), normal_cost, mode, (slice(0, 2),))
         check("normal_apply", dict(shape, kt=1, lam=0.37), (xr, xi) + ops1 + (0.37,),
               normal_cuda.normal_apply, normal_cuda.normal_apply_torch, normal_library(torch),
               normal_cost, mode, (slice(0, 2),))
-        # a cotangent correlated with x, so that λ̄ does not cancel
-        check("normal_apply_bwd", dict(shape, lam=0.37),
-              (xr, xi, xr + randn(1, T, H, W), xi + randn(1, T, H, W)) + ops + (0.37,),
-              normal_cuda.normal_apply_bwd, normal_cuda.normal_apply_bwd_torch,
-              normal_bwd_library(torch), normal_bwd_cost, mode, (slice(0, 2), slice(2, 4)))
+        for label, k_ops in ((dict(shape, lam=0.37), ops), (dict(shape, kt=1, lam=0.37), ops1),
+                             (dict(shape, lam=0.37, K="non-Hermitian"), opsn)):
+            check("normal_apply_bwd", label, (xr, xi, gr, gi) + k_ops + (0.37,), *bwd, mode,
+                  (slice(0, 2), slice(2, 4)))
+    # the kernels one call runs at each mode, by name under the profiler
+    per_call = {}
+    for mode in ("highest",) + tuple(TF32_PASSES):
+        per_call[mode] = dict(
+            normal=kernels_of_call(torch, lambda: normal_cuda.normal_apply(xr, xi, *ops, 0.0, mode)),
+            normal_bwd=kernels_of_call(torch, lambda: normal_cuda.normal_apply_bwd(
+                xr, xi, gr, gi, *ops, 0.37, mode)))
+        for kind, kernels in per_call[mode].items():
+            ours = [n for n, _ in kernels if "normal_apply" in n]
+            print(f"[precision] {kind} at '{mode}' (b 1, t 15, c 10, 200x200, kt 15): "
+                  f"{len(ours)} kernels a call, device µs: "
+                  + "; ".join(f"{n} {us:.1f}" for n, us in kernels))
+            if len(ours) != KERNELS_PER_LAUNCH[mode][kind]:
+                fail(f"precision: {kind} at '{mode}' ran {len(ours)} kernels a call, not "
+                     f"{KERNELS_PER_LAUNCH[mode][kind]}")
+        if mode == "highest":
+            continue
+        names = [n for n, _ in per_call[mode]["normal_bwd"] if "normal_apply" in n]
+        wgmma = [n for n in names if "normal_apply_bwd_wgmma" in n]
+        if not all("normal_apply_bwd" in n for n in names) or len(wgmma) != 2 or \
+                (mode == "default" and any("products" in n for n in names)):
+            fail(f"precision: the backward at '{mode}' ran {names}: not both contractions on "
+                 f"the backward's own wgmma kernels" + (", products fused" if mode == "default" else ""))
     wall = time.perf_counter() - t_phase
     print(f"[precision] phase wall time {wall:.1f} s")
-    return dict(cases=cases, wall_s=wall), errs_by_row
+    return dict(cases=cases, kernels_per_call=per_call, wall_s=wall), errs_by_row
+
+
+def non_hermitian(torch, kr, ki, randn):
+    """``(K_re, K_im)`` plus a random complex perturbation of 1 / sqrt(h) a
+    part: a K that is not Hermitian (``masked_normal_kernel``'s is)."""
+    h = kr.shape[-1]
+    kr, ki = kr + randn(*kr.shape) / h ** 0.5, ki + randn(*ki.shape) / h ** 0.5
+    if not (kr - kr.transpose(-1, -2)).abs().max().item() > 0.1:
+        fail("non_hermitian: the perturbed K is still Hermitian")
+    return kr.contiguous(), ki.contiguous()
+
+
+def kernel_name(name: str) -> str:
+    """A demangled kernel name without its return type, namespace prefix and
+    argument list (template arguments kept)."""
+    name = name.removeprefix("void ").replace("(anonymous namespace)::", "")
+    depth = 0
+    for i, ch in enumerate(name):
+        depth += (ch == "<") - (ch == ">")
+        if ch == "(" and depth == 0:
+            return name[:i]
+    return name
+
+
+def kernels_of_call(torch, fn):
+    """The device kernels one warm call of ``fn`` runs under
+    ``torch.profiler``, in launch order: ``(name, device µs)``.
+
+    The call sits in the middle of a window of host sleeps: on the H100 a
+    window of one sub-millisecond call, taken late in this script's run,
+    held no device event at all (in a fresh process it holds every one),
+    as the profiler keeps only the device events it places inside its
+    window. The window is widened once more if it still holds none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from cinemri_tpu_torch.instrument import opstats
+
+    fn()
+    torch.cuda.synchronize()
+    for pad_s in (0.5, 3.0):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            time.sleep(pad_s)
+            fn()
+            torch.cuda.synchronize()
+            time.sleep(pad_s)
+        with tempfile.TemporaryDirectory() as tmp:
+            prof.export_chrome_trace(str(Path(tmp) / "trace.json"))
+            events = sorted(opstats.kernel_events(Path(tmp) / "trace.json"), key=lambda e: e[1])
+        if events:
+            break
+    return [(kernel_name(name), dur) for name, _, dur in events]
 
 
 def request_profile(torch, fn):

@@ -39,10 +39,9 @@
 // Bank conflicts: k-contiguous reads (stride 12 words) and column-contiguous
 // B reads (stride BN = 40) fall on distinct banks; a column-contiguous A
 // (stride BM, a multiple of 32) is read 4-way conflicted. Since the Hopper
-// tile of wgmma_tf32.cuh took the DFT and the normal apply's forward, this
-// tile runs rows that are not 16-byte aligned and the backward's two
-// contractions (its adjoint reads Kᴴ as a column-contiguous B, which TF32
-// wgmma cannot).
+// tile of wgmma_tf32.cuh took the DFT and the normal apply's forward and
+// backward, this tile runs only rows that are not 16-byte aligned (there
+// the backward's adjoint reads Kᴴ in place as a column-contiguous B).
 
 #pragma once
 

@@ -54,12 +54,12 @@
 // doubles the L2 traffic of streaming y (on an H100: 0.55 ms against the
 // three kernels' 0.30 at the flagship), so (a) stays and (b) runs on the
 // streaming tile. Rows that are not 16-byte aligned keep (a), (b) on the
-// mma.sync tile of cgemm_tf32.cuh and (c).
+// mma.sync tile of cgemm_tf32.cuh and (c). The TF32 routes are shared with
+// the backward's two contractions (normal_wgmma.cuh).
 
 #include <type_traits>
 
-#include "normal_passes.cuh"
-#include "wgmma_tf32.cuh"
+#include "normal_wgmma.cuh"
 
 namespace {
 
@@ -130,28 +130,21 @@ int contraction(const float* yr, const float* yi, const float* kr, const float* 
                    yr, yi, kr, ki, zr, zi, groups, G, h, w, s);
 }
 
-// z = K ·_h (S ⊙ x) at 'default', A resident, row tiles clipped at the groups
-// of G slabs that share one K
-int fused_contraction(const float* xr, const float* xi, const float* sr, const float* si,
-                      const float* kr, const float* ki, float* zr, float* zi, int groups, int G,
-                      int t, int c, int h, int w, cudaStream_t s) {
-  using R = wgmma::Resident<wgmma::FUSED>;
-  const wgmma::Problem p{xr, xi, sr, si, kr, ki, zr, zi, static_cast<long>(G) * w, h, w, c, t, groups};
-  return wgmma::launch_resident<R, normal_apply_wgmma_resident_kernel<R>>(p, s);
-}
-
-// z = K ·_h y on the streaming Hopper tile (PASSES 1, 3)
-template <int PASSES>
-int wgmma_contraction(const float* yr, const float* yi, const float* kr, const float* ki, float* zr,
-                      float* zi, int groups, int G, int h, int w, cudaStream_t s) {
-  using Wide = wgmma::Wide<PASSES, wgmma::SLAB>;
-  using Narrow = wgmma::Narrow<PASSES, wgmma::SLAB>;
-  const wgmma::Problem p{yr, yi, nullptr, nullptr, kr, ki, zr, zi, static_cast<long>(G) * w, h, w,
-                         1, 1, groups};
-  return wgmma::wide_fills(p.M, h, groups)
-             ? wgmma::launch<Wide, normal_apply_wgmma_kernel<Wide>>(p, s)
-             : wgmma::launch<Narrow, normal_apply_wgmma_kernel<Narrow>>(p, s);
-}
+// This file's kernels on the routes of normal_wgmma.cuh.
+struct Kernels {
+  template <class T>
+  static int streaming(const wgmma::Problem& p, cudaStream_t s) {
+    return wgmma::launch<T, normal_apply_wgmma_kernel<T>>(p, s);
+  }
+  template <class R>
+  static int resident(const wgmma::Problem& p, cudaStream_t s) {
+    return wgmma::launch_resident<R, normal_apply_wgmma_resident_kernel<R>>(p, s);
+  }
+  template <int VEC, bool UNFUSED, class... Args>
+  static int products(long n, cudaStream_t s, Args... args) {
+    return normal::launch_pass<normal_apply_products_kernel<VEC, UNFUSED>>(n, s, args...);
+  }
+};
 
 template <int VEC>
 int reduce(const float* zr, const float* zi, const float* sr, const float* si, const float* xr,
@@ -164,7 +157,18 @@ int reduce(const float* zr, const float* zi, const float* sr, const float* si, c
 
 }  // namespace
 
-// yr, yi, zr, zi: scratch of b·t·c·h·w floats each, allocated by the caller.
+// The route of a call (normal_wgmma.cuh: 0 the tile engines, 1 the products
+// pass and the streaming Hopper tile, 2 the resident Hopper tile with the
+// products fused), for the caller's operands and an output and scratch that
+// the caller allocates (16-byte aligned): which scratch the call needs.
+extern "C" int cinemri_normal_apply_route(const float* xr, const float* xi, const float* kr,
+                                          const float* ki, const float* sr, const float* si, int b,
+                                          int t, int c, int h, int w, int kt, int mode) {
+  return normal::route(mode, normal::all_aligned16(xr, xi, kr, ki, sr, si), b, t, c, h, w, kt);
+}
+
+// yr, yi, zr, zi: scratch of b·t·c·h·w floats each, allocated by the caller
+// (yr and yi unused, and may be null, on route 2).
 // mode: 0 'highest', 1 'high', 2 'default'.
 extern "C" int cinemri_normal_apply(const float* xr, const float* xi, const float* kr,
                                     const float* ki, const float* sr, const float* si,
@@ -174,24 +178,18 @@ extern "C" int cinemri_normal_apply(const float* xr, const float* xi, const floa
   if (mode < 0 || mode > 2) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long P = static_cast<long>(h) * w;
-  const bool vec = P % 4 == 0 && cgemm::aligned16(xr) && cgemm::aligned16(xi) &&
-                   cgemm::aligned16(sr) && cgemm::aligned16(si) && cgemm::aligned16(yr) &&
-                   cgemm::aligned16(yi) && cgemm::aligned16(zr) && cgemm::aligned16(zi) &&
-                   cgemm::aligned16(outr) && cgemm::aligned16(outi);
   const int groups = b * kt, G = t * c / kt;  // slabs sharing one K
-  if (mode != 0 && vec && normal::tile_vec(h, w, kr, ki, yr, yi, zr, zi)) {
-    int err;
-    if (mode == 2 && wgmma::resident_fills<wgmma::Resident<wgmma::FUSED>>(static_cast<long>(G) * w, h,
-                                                                          groups)) {
-      err = fused_contraction(xr, xi, sr, si, kr, ki, zr, zi, groups, G, t, c, h, w, s);
-    } else {
-      err = products<4>(xr, xi, sr, si, yr, yi, b, t, c, P, mode, s);
-      if (!err)
-        err = mode == 1 ? wgmma_contraction<3>(yr, yi, kr, ki, zr, zi, groups, G, h, w, s)
-                        : wgmma_contraction<1>(yr, yi, kr, ki, zr, zi, groups, G, h, w, s);
-    }
+  const normal::Route r = normal::route(
+      mode, normal::all_aligned16(xr, xi, kr, ki, sr, si, yr, yi, zr, zi, outr, outi), b, t, c, h,
+      w, kt);
+  if (r != normal::ENGINE) {
+    const int err = normal::wgmma_contraction<Kernels>(r, xr, xi, sr, si, kr, ki, yr, yi, zr, zi, b,
+                                                       t, c, h, w, kt, mode, s);
     return err ? err : reduce<4>(zr, zi, sr, si, xr, xi, lam, outr, outi, b, t, c, P, s);
   }
+  if (yr == nullptr || yi == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  const bool vec =
+      P % 4 == 0 && normal::all_aligned16(xr, xi, sr, si, yr, yi, zr, zi, outr, outi);
   int err = vec ? products<4>(xr, xi, sr, si, yr, yi, b, t, c, P, mode, s)
                 : products<1>(xr, xi, sr, si, yr, yi, b, t, c, P, mode, s);
   if (err) return err;

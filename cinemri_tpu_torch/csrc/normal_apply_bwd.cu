@@ -18,19 +18,20 @@
 //
 // Arithmetic of the two contractions, by the launch's mode, as in the
 // forward (csrc/normal_apply.cu): 0, 'highest', full f32 FMA on CUDA cores;
-// 1, 'high', 3xTF32 and 2, 'default', 1xTF32 on the tensor cores
-// (cgemm_tf32.cuh). The products and the passes after the contractions stay
-// f32 in every mode.
+// 1, 'high', 3xTF32 and 2, 'default', 1xTF32 on the tensor cores. The
+// products and the passes after the contractions stay f32 in every mode.
 //
 // What bounds it on the H100: two h-contractions per coil, 16·t·c·h·h·w
 // FLOP (19.2 GFLOP at t=15, c=10, h=w=200) against about 30 MB of inputs
-// and outputs: the FP32 rate (0.29 ms at 67 TFLOP/s).
+// and outputs: the FP32 rate at 'highest' (0.29 ms at 67 TFLOP/s); the TF32
+// rate at 'default' (0.039 ms at 495 TFLOP/s) and 'high' (3 passes, 0.12 ms).
 //
-// Design: the two contractions are the forward's coil-stacked per-frame
-// products on the tile engine (normal_passes.cuh), ȳ with Kᴴ read in place
-// (a conjugated, column-contiguous B: no transposed copy of K). One C entry
-// launches seven kernels on three (b·t·c, h, w) scratch pairs (144 MB at
-// the flagship):
+// Design at 'highest', and for rows that are not 16-byte aligned in every
+// mode: the two contractions are the forward's coil-stacked per-frame
+// products on the tile engine (normal_passes.cuh; the TF32 modes on the
+// mma.sync tile of cgemm_tf32.cuh), ȳ with Kᴴ read in place (a conjugated,
+// column-contiguous B: no transposed copy of K). One C entry launches seven
+// kernels on three (b·t·c, h, w) scratch pairs (144 MB at the flagship):
 // 1. v = S_c ⊙ g into the products scratch;
 // 2. ȳ = Kᴴ ·_h v (the tile normal::Adjoint, 3 blocks an SM);
 // 3. y = S_c ⊙ x into the products scratch (v is consumed);
@@ -47,10 +48,30 @@
 // in registers, would read ȳ once, but has b·h·w threads of ~200
 // registers: too few warps to cover the memory latency, and it measured
 // slower than the two passes together on the H100.
+//
+// Design of the TF32 modes on 16-byte rows: both contractions on the Hopper
+// tile of the forward (wgmma_tf32.cuh, through the routes of
+// normal_wgmma.cuh): at 'default', where the resident tile fills the card,
+// each contraction forms its products S_c ⊙ g and S_c ⊙ x in the tile's
+// staging (no products pass, no products scratch: 6 kernels a call, 96 MB of
+// scratch); at 'high', and on grids the resident tile does not fill, the
+// products pass and the streaming tile (8 kernels). Steps 5-7 are the same
+// kernels as above. TF32 wgmma reads its shared operands K-major only, and
+// on this tile row i of B is B[i, :]: ȳ needs B = Kᴴ, row i conj(K[:, i]).
+// Kᴴ comes from a conjugate-transposed copy of K, written by one small
+// kernel (normal_apply_bwd_adjoint_kernel) into scratch, (b·kt, h, h) re/im
+// planes (4.8 MB at kt = 15, h = 200; a few µs of memory time), so the
+// forward's routes run unchanged with B = the copy. Transposing and
+// conjugating in the tile's rounding pass instead would save the copy, but
+// it needs a transposed-read variant of the tile's staging without bank
+// conflicts, for a copy that costs a few percent of a call. cvt.rna and the
+// hi/lo split commute with negation, so rounding the copy's conj(K) gives
+// the bits of the plain version's tf32(conj K): kernel and emulation differ
+// in summation order only.
 
 #include <type_traits>
 
-#include "normal_passes.cuh"
+#include "normal_wgmma.cuh"
 
 namespace {
 
@@ -72,6 +93,53 @@ normal_apply_bwd_contract_kernel(const float* __restrict__ yr, const float* __re
                                  float* __restrict__ zr, float* __restrict__ zi, int H, int W,
                                  int G, int n_tiles) {
   normal::contract<T, VEC, ADJOINT, PASSES>(yr, yi, kr, ki, zr, zi, H, W, G, n_tiles);
+}
+
+// The TF32 modes' contractions on the Hopper tile (normal_wgmma.cuh):
+// z[f, c] = B_g ·_h y[f, c] from the products' scratch ('high'), with B = K
+// or its conjugate-transposed copy Kᴴ.
+template <class T>
+__global__ void __launch_bounds__(T::THREADS, 1)
+normal_apply_bwd_wgmma_kernel(const wgmma::Problem p) {
+  wgmma::run<T>(p);
+}
+
+// 'default': the same with the products S_c ⊙ u_f formed in the staging of
+// the resident tile (h ≤ 224).
+template <class R>
+__global__ void __launch_bounds__(R::THREADS, 1)
+normal_apply_bwd_wgmma_resident_kernel(const wgmma::Problem p) {
+  wgmma::run_resident<R>(p);
+}
+
+// Kᴴ of each of the b·kt matrices K (H x H): kh[g][i][k] = conj(K[g][k][i]),
+// the B of ȳ's contraction on the Hopper tile. A block moves one 32 x 32 tile
+// through shared memory (rows of 33 floats: the transposed reads hit distinct
+// banks), reading and writing whole rows of 32 floats.
+constexpr int ADJ_TILE = 32, ADJ_THREADS = 256;
+
+__global__ void __launch_bounds__(ADJ_THREADS)
+normal_apply_bwd_adjoint_kernel(const float* __restrict__ kr, const float* __restrict__ ki,
+                                float* __restrict__ khr, float* __restrict__ khi, int H) {
+  __shared__ float tr[ADJ_TILE][ADJ_TILE + 1], ti[ADJ_TILE][ADJ_TILE + 1];
+  const long base = static_cast<long>(blockIdx.z) * H * H;
+  const int tx = threadIdx.x % ADJ_TILE, ty = threadIdx.x / ADJ_TILE;
+  const int r0 = blockIdx.y * ADJ_TILE, c0 = blockIdx.x * ADJ_TILE;  // K's rows r0.., columns c0..
+  for (int j = ty; j < ADJ_TILE; j += ADJ_THREADS / ADJ_TILE) {
+    const int r = r0 + j, col = c0 + tx;
+    if (r < H && col < H) {
+      tr[j][tx] = kr[base + static_cast<long>(r) * H + col];
+      ti[j][tx] = ki[base + static_cast<long>(r) * H + col];
+    }
+  }
+  __syncthreads();
+  for (int j = ty; j < ADJ_TILE; j += ADJ_THREADS / ADJ_TILE) {
+    const int r = c0 + j, col = r0 + tx;  // Kᴴ[r][col] = conj(K[col][r])
+    if (r < H && col < H) {
+      khr[base + static_cast<long>(r) * H + col] = tr[tx][j];
+      khi[base + static_cast<long>(r) * H + col] = -ti[tx][j];
+    }
+  }
 }
 
 // Step 5: x̄[f] = Σ_c conj(S_c) ⊙ ȳ[f, c] + λ·g[f], the forward's coil
@@ -189,6 +257,31 @@ int contraction(const float* yr, const float* yi, const float* kr, const float* 
                      : contract_in<ADJOINT, 1>(yr, yi, kr, ki, zr, zi, groups, G, h, w, wide, s);
 }
 
+// This file's kernels on the routes of normal_wgmma.cuh.
+struct Kernels {
+  template <class T>
+  static int streaming(const wgmma::Problem& p, cudaStream_t s) {
+    return wgmma::launch<T, normal_apply_bwd_wgmma_kernel<T>>(p, s);
+  }
+  template <class R>
+  static int resident(const wgmma::Problem& p, cudaStream_t s) {
+    return wgmma::launch_resident<R, normal_apply_bwd_wgmma_resident_kernel<R>>(p, s);
+  }
+  template <int VEC, bool UNFUSED, class... Args>
+  static int products(long n, cudaStream_t s, Args... args) {
+    return normal::launch_pass<normal_apply_bwd_products_kernel<VEC, UNFUSED>>(n, s, args...);
+  }
+};
+
+// kh = Kᴴ for the `groups` matrices K (h x h)
+int adjoint(const float* kr, const float* ki, float* khr, float* khi, int groups, int h,
+            cudaStream_t s) {
+  const unsigned tiles = (h + ADJ_TILE - 1) / ADJ_TILE;
+  if (tiles == 0 || groups == 0) return 0;
+  return cgemm::launch<normal_apply_bwd_adjoint_kernel>(dim3(tiles, tiles, groups), ADJ_THREADS, 0,
+                                                        s, kr, ki, khr, khi, h);
+}
+
 template <int VEC>
 int passes(const float* xr, const float* xi, const float* gr, const float* gi, const float* sr,
            const float* si, const float* lam, float* xbr, float* xbi, float* sbr, float* sbi,
@@ -207,27 +300,57 @@ int passes(const float* xr, const float* xi, const float* gr, const float* gi, c
 
 }  // namespace
 
-// pr, pi, ybr, ybi, zr, zi: scratch of b·t·c·h·w floats each, allocated by
-// the caller. mode: 0 'highest', 1 'high', 2 'default'.
+// The route of a call (normal_wgmma.cuh: 0 the tile engines, 1 the products
+// pass and the streaming Hopper tile, 2 the resident Hopper tile with the
+// products fused), for the caller's operands and outputs and scratch that
+// the caller allocates (16-byte aligned): which scratch the call needs.
+extern "C" int cinemri_normal_apply_bwd_route(const float* xr, const float* xi, const float* gr,
+                                              const float* gi, const float* kr, const float* ki,
+                                              const float* sr, const float* si, int b, int t,
+                                              int c, int h, int w, int kt, int mode) {
+  return normal::route(mode, normal::all_aligned16(xr, xi, gr, gi, kr, ki, sr, si), b, t, c, h, w,
+                       kt);
+}
+
+// Scratch allocated by the caller: pr, pi, ybr, ybi, zr, zi of b·t·c·h·w
+// floats each (pr and pi unused, and may be null, on route 2), and on routes
+// 1 and 2 khr, khi of b·kt·h·h floats each (else unused, may be null).
+// mode: 0 'highest', 1 'high', 2 'default'.
 extern "C" int cinemri_normal_apply_bwd(const float* xr, const float* xi, const float* gr,
                                         const float* gi, const float* kr, const float* ki,
                                         const float* sr, const float* si, const float* lam,
                                         float* xbr, float* xbi, float* sbr, float* sbi, float* lb,
                                         float* pr, float* pi, float* ybr, float* ybi, float* zr,
-                                        float* zi, int b, int t, int c, int h, int w, int kt,
-                                        int mode, void* stream) {
+                                        float* zi, float* khr, float* khi, int b, int t, int c,
+                                        int h, int w, int kt, int mode, void* stream) {
   if (mode < 0 || mode > 2) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long P = static_cast<long>(h) * w;
-  const bool vec = P % 4 == 0 && cgemm::aligned16(xr) && cgemm::aligned16(xi) &&
-                   cgemm::aligned16(gr) && cgemm::aligned16(gi) && cgemm::aligned16(sr) &&
-                   cgemm::aligned16(si) && cgemm::aligned16(pr) && cgemm::aligned16(pi) &&
-                   cgemm::aligned16(ybr) && cgemm::aligned16(ybi) && cgemm::aligned16(zr) &&
-                   cgemm::aligned16(zi) && cgemm::aligned16(xbr) && cgemm::aligned16(xbi) &&
-                   cgemm::aligned16(sbr) && cgemm::aligned16(sbi);
-  const bool wide = normal::tile_vec(h, w, kr, ki, pr, pi, ybr, ybi) &&
-                    cgemm::aligned16(zr) && cgemm::aligned16(zi);
   const int groups = b * kt, G = t * c / kt;  // slabs sharing one K
+  const normal::Route r =
+      normal::route(mode,
+                    normal::all_aligned16(xr, xi, gr, gi, kr, ki, sr, si, pr, pi, ybr, ybi, zr, zi,
+                                          khr, khi, xbr, xbi, sbr, sbi),
+                    b, t, c, h, w, kt);
+  if (r != normal::ENGINE) {
+    if (khr == nullptr || khi == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    // ȳ = Kᴴ ·_h (S ⊙ g), on the copy Kᴴ; z = K ·_h (S ⊙ x)
+    int err = adjoint(kr, ki, khr, khi, groups, h, s);
+    if (!err)
+      err = normal::wgmma_contraction<Kernels>(r, gr, gi, sr, si, khr, khi, pr, pi, ybr, ybi, b, t,
+                                               c, h, w, kt, mode, s);
+    if (!err)
+      err = normal::wgmma_contraction<Kernels>(r, xr, xi, sr, si, kr, ki, pr, pi, zr, zi, b, t, c,
+                                               h, w, kt, mode, s);
+    return err ? err
+               : passes<4>(xr, xi, gr, gi, sr, si, lam, xbr, xbi, sbr, sbi, lb, ybr, ybi, zr, zi, b,
+                           t, c, P, s);
+  }
+  if (pr == nullptr || pi == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  const bool vec = P % 4 == 0 && normal::all_aligned16(xr, xi, gr, gi, sr, si, pr, pi, ybr, ybi,
+                                                        zr, zi, xbr, xbi, sbr, sbi);
+  const bool wide = normal::tile_vec(h, w, kr, ki, pr, pi, ybr, ybi) &&
+                    normal::all_aligned16(zr, zi);
   // 1-2: ȳ = Kᴴ ·_h (S ⊙ g)
   int err = vec ? products<4>(gr, gi, sr, si, pr, pi, b, t, c, P, mode, s)
                 : products<1>(gr, gi, sr, si, pr, pi, b, t, c, P, mode, s);

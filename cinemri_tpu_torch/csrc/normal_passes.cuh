@@ -21,10 +21,9 @@
 //   a block reads one K. Kᴴ is read in place as a column-contiguous,
 //   conjugated B: no transposed copy of K. With PASSES = 1 or 3 (the
 //   'default' and 'high' modes) the contraction runs on the mma.sync TF32
-//   tile of cgemm_tf32.cuh (the backward's two contractions, and the
-//   forward's where rows are not 16-byte aligned: its aligned TF32 calls
-//   form the products and contract them on wgmma_tf32.cuh), else on the
-//   FP32 engine of cgemm_tile.cuh.
+//   tile of cgemm_tf32.cuh (rows that are not 16-byte aligned: the aligned
+//   TF32 calls of the forward and the backward run on wgmma_tf32.cuh through
+//   normal_wgmma.cuh), else on the FP32 engine of cgemm_tile.cuh.
 //
 // Each __global__ kernel is defined in the .cu that launches it, under a
 // name that the profiler fold (instrument/opstats.py) maps to its kind.

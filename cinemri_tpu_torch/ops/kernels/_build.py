@@ -57,13 +57,20 @@ KERNELS: Dict[str, Dict[str, tuple]] = {
         # b, t, c, h, w, kt, mode, stream
         "cinemri_normal_apply": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                  _I, _I, _I, _I, _I, _I, _I, _P),
+        # the route of a call, which sets its scratch: xr, xi, kr, ki, sr, si,
+        # b, t, c, h, w, kt, mode
+        "cinemri_normal_apply_route": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I),
     },
     "normal_apply_bwd": {
         # xr, xi, gr, gi, kr, ki, sr, si, lam, xbr, xbi, sbr, sbi, lb,
-        # scratch pr, pi, ybr, ybi, zr, zi, b, t, c, h, w, kt, mode, stream
+        # scratch pr, pi, ybr, ybi, zr, zi, khr, khi, b, t, c, h, w, kt,
+        # mode, stream
         "cinemri_normal_apply_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                     _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                     _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                      _I, _I, _I, _I, _I, _I, _I, _P),
+        # xr, xi, gr, gi, kr, ki, sr, si, b, t, c, h, w, kt, mode
+        "cinemri_normal_apply_bwd_route": (_P, _P, _P, _P, _P, _P, _P, _P,
+                                           _I, _I, _I, _I, _I, _I, _I),
     },
     "fft2_plane": {
         # xr, xi, whr, whi, wwr, wwi, yr, yi, B, h, w, stream

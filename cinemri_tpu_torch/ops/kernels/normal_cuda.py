@@ -35,21 +35,28 @@ Precision: the contractions take the DFT's precision (the JAX package's
 get_dft_precision` here): ``'highest'`` on the FP32 engine, ``'high'``
 (3xTF32) and ``'default'`` (1xTF32) on the tensor cores; the products and
 the coil passes stay f32. The forward's contraction runs on the Hopper tile
-of ``csrc/wgmma_tf32.cuh``; at ``'default'`` that tile forms the products
-while staging its operand (the scratch ``y`` goes unused), so a call runs two
-kernels, the contraction and the coil reduction; at ``'high'`` the three
-passes stay. Rows that are not 16-byte aligned keep the three passes on the
-``mma.sync`` tile of ``csrc/cgemm_tf32.cuh``, as do the backward's
-contractions. The
-plain versions take the same ``precision`` and round the contraction's
-operands as the tile does (:mod:`.precision`). The kernels form each
-product ``S ⊙ u`` with separate roundings, as PyTorch does, so that a TF32
-operand is the same on both sides.
+of ``csrc/wgmma_tf32.cuh`` (routes shared with the backward in
+``csrc/normal_wgmma.cuh``); at ``'default'``, where the resident tile fills
+the card, that tile forms the products while staging its operand (no ``y``
+scratch is allocated), so a call runs two kernels, the contraction and the
+coil reduction; at ``'high'`` the three passes stay. Rows that are not
+16-byte aligned keep the three passes on the ``mma.sync`` tile of
+``csrc/cgemm_tf32.cuh``. The plain versions take the same ``precision`` and
+round the contraction's operands as the tile does (:mod:`.precision`). The
+kernels form each product ``S ⊙ u`` with separate roundings, as PyTorch
+does, so that a TF32 operand is the same on both sides.
 
 Backward kernel (``csrc/normal_apply_bwd.cu``): the products and
 contractions for ``ȳ`` (``Kᴴ`` read in place) and ``z``, then ``x̄`` by the
 coil reduction and ``s̄`` by a pass that sums over the frames in registers
-(:func:`bwd_pixel_pass`): deterministic, no atomics, no partials.
+(:func:`bwd_pixel_pass`): deterministic, no atomics, no partials. In the
+TF32 modes on 16-byte rows both contractions run on the forward's Hopper
+routes, ``ȳ`` with ``B = Kᴴ`` from a conjugate-transposed copy of ``K``
+written by one small kernel (TF32 ``wgmma`` reads its shared operands
+K-major only); at ``'default'`` both form their products in the resident
+tile's staging (6 kernels a call, no products scratch), at ``'high'`` they
+keep the products pass (8 kernels). The C entries report their route
+(``cinemri_normal_apply[_bwd]_route``), which sets the scratch allocated.
 
 λ stays on the device: both kernels read it through a pointer to a
 one-element f32 tensor (:func:`lambda_tensor`), so a learned λ (CineNet's
@@ -281,11 +288,23 @@ def lambda_tensor(lam, device: torch.device) -> torch.Tensor:
     return trace_safe(_constant_lambda, lam, device)
 
 
-def _planes(scratch):
-    """Device pointers of ``scratch[0], scratch[1], ...`` (no view made)."""
-    n = scratch.shape[0]
-    step = scratch.numel() // n * scratch.element_size()
-    return [scratch.data_ptr() + i * step for i in range(n)]
+# Routes of a call (csrc/normal_wgmma.cuh's Route), which set its scratch: the
+# tile engines ('highest', rows that are not 16-byte aligned; no copy Kᴴ), and
+# the resident Hopper tile with the products formed in its staging (no
+# products planes); route 1, the products pass and the streaming Hopper tile,
+# takes both.
+_ENGINE, _RESIDENT = 0, 2
+
+
+def _scratch(device, sizes):
+    """One f32 allocation cut into planes of ``sizes`` floats: the tensor,
+    which keeps them alive, and each plane's device pointer."""
+    buf = torch.empty(sum(sizes), dtype=torch.float32, device=device)
+    ptrs, at = [], buf.data_ptr()
+    for n in sizes:
+        ptrs.append(at)
+        at += n * buf.element_size()
+    return buf, ptrs
 
 
 def _on_cuda(name: str, xr) -> bool:
@@ -316,16 +335,20 @@ def normal_apply(xr, xi, kr, ki, sr, si, lam,
     if xr.numel() == 0:
         return outr, outi
     lam_t = lambda_tensor(lam, xr.device)
-    # products y and contraction z, (b·t·c, h, w) each, re and im
-    scratch = torch.empty((4, b * t * c, h, w), dtype=torch.float32, device=xr.device)
     lib = _build.load("normal_apply")
+    operands = (xr.data_ptr(), xi.data_ptr(), kr.data_ptr(), ki.data_ptr(), sr.data_ptr(),
+                si.data_ptr())
+    n = b * t * c * h * w
     with torch.cuda.device(xr.device):
+        route = lib.cinemri_normal_apply_route(*operands, b, t, c, h, w, kt, MODES[p])
+        # products y (none on the resident route) and contraction z,
+        # (b·t·c, h, w) each, re and im
+        k = 0 if route == _RESIDENT else 2
+        scratch, planes = _scratch(xr.device, [n] * (k + 2))
         stream = torch.cuda.current_stream().cuda_stream
         code = lib.cinemri_normal_apply(
-            xr.data_ptr(), xi.data_ptr(), kr.data_ptr(), ki.data_ptr(),
-            sr.data_ptr(), si.data_ptr(), lam_t.data_ptr(),
-            outr.data_ptr(), outi.data_ptr(), *_planes(scratch), b, t, c, h, w, kt, MODES[p],
-            stream,
+            *operands, lam_t.data_ptr(), outr.data_ptr(), outi.data_ptr(),
+            *(planes[:k] or [None, None]), *planes[k:], b, t, c, h, w, kt, MODES[p], stream,
         )
     _build.check(lib, code, "cinemri_normal_apply launch")
     global LAUNCHES
@@ -356,17 +379,24 @@ def normal_apply_bwd(xr, xi, gr, gi, kr, ki, sr, si, lam, precision: str = "high
     lb = torch.empty((b, t), dtype=torch.float32, device=xr.device)
     if xr.numel() == 0:
         return xbr, xbi, sbr.zero_(), sbi.zero_(), lb.zero_()
-    # products (S⊙g, then S⊙x), ȳ and z, (b·t·c, h, w) each, re and im
-    scratch = torch.empty((6, b * t * c, h, w), dtype=torch.float32, device=xr.device)
     lam_t = lambda_tensor(lam, xr.device)
     lib = _build.load("normal_apply_bwd")
+    operands = (xr.data_ptr(), xi.data_ptr(), gr.data_ptr(), gi.data_ptr(), kr.data_ptr(),
+                ki.data_ptr(), sr.data_ptr(), si.data_ptr())
+    n, nk = b * t * c * h * w, b * kt * h * h
     with torch.cuda.device(xr.device):
+        route = lib.cinemri_normal_apply_bwd_route(*operands, b, t, c, h, w, kt, MODES[p])
+        # products (S⊙g, then S⊙x; none on the resident route), ȳ and z,
+        # (b·t·c, h, w) each, and on the Hopper routes the copy Kᴴ,
+        # (b·kt, h, h); re and im
+        k = 0 if route == _RESIDENT else 2
+        scratch, planes = _scratch(xr.device,
+                                   [n] * (k + 4) + ([nk] * 2 if route != _ENGINE else []))
         stream = torch.cuda.current_stream().cuda_stream
         code = lib.cinemri_normal_apply_bwd(
-            xr.data_ptr(), xi.data_ptr(), gr.data_ptr(), gi.data_ptr(),
-            kr.data_ptr(), ki.data_ptr(), sr.data_ptr(), si.data_ptr(), lam_t.data_ptr(),
-            xbr.data_ptr(), xbi.data_ptr(), sbr.data_ptr(), sbi.data_ptr(), lb.data_ptr(),
-            *_planes(scratch), b, t, c, h, w, kt, MODES[p], stream,
+            *operands, lam_t.data_ptr(), xbr.data_ptr(), xbi.data_ptr(), sbr.data_ptr(),
+            sbi.data_ptr(), lb.data_ptr(), *(planes[:k] or [None, None]), *planes[k:k + 4],
+            *(planes[k + 4:] or [None, None]), b, t, c, h, w, kt, MODES[p], stream,
         )
     _build.check(lib, code, "cinemri_normal_apply_bwd launch")
     global BWD_LAUNCHES

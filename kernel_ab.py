@@ -23,7 +23,9 @@ checked against this checkout's plain version at the mode, at
 ``chip_smoke.py``'s tolerances (``TF32_TOL`` at a TF32 mode), and the two
 checkouts' results against each other (max |this - other|, 0 where both
 compute the same bits; the ``[ab] identical`` line lists the cases where it
-is 0). Then the entries the models call,
+is 0). Each case also gives its bound (``chip_smoke.py``'s cost of the call
+over the card's FP32 or TF32 rate, or over its memory rate) and the
+event-loop time of ``chip_smoke.py``'s library yardstick for it. Then the entries the models call,
 ``dft_cuda.ComplexDFTMatmul.apply`` at (1, 15, 40000) and
 ``normal_cuda.NormalApply.apply`` at the flagship shape (autograd Functions
 or custom ops, with the wrappers and kernels behind them), the host's time
@@ -225,6 +227,39 @@ def end_to_end(torch, dev, ports, precision):
     return out
 
 
+# each kernel's (FLOP, bytes) and library yardstick, as chip_smoke.py counts
+# and times them
+COSTS = {"normal_apply": CS.normal_cost, "normal_apply_bwd": CS.normal_bwd_cost,
+         "complex_dft_matmul": CS.dft_cost, "fft2_plane": CS.fft2_cost}
+LIBRARIES = {"normal_apply": CS.normal_library, "normal_apply_bwd": CS.normal_bwd_library,
+             "complex_dft_matmul": CS.dft_library, "fft2_plane": CS.fft2_library}
+
+
+def case_bound(kernel, call_args, mode, peak_flops, peak_bw):
+    """``(bound ms, "operations" or "bytes")`` of one call: its FLOP over the
+    FP32 rate at 'highest' (and for ``fft2_plane``), over the TF32 rate at
+    the TF32 modes ('high' three times the FLOP), or its bytes over the
+    memory rate, whichever is larger."""
+    flops, nbytes = COSTS[kernel](*call_args)
+    if kernel != "fft2_plane" and mode != "highest":
+        flops, peak_flops = flops * CS.TF32_PASSES[mode], CS.TF32_PEAK
+    return CS.bound((flops, nbytes), peak_flops, peak_bw)
+
+
+def case_library(torch, kernel, call_args, mode):
+    """Event-loop ms of the one library call that computes the same function
+    (chip_smoke.py's yardsticks; at a TF32 mode ``tf32_library``'s nearest
+    library arithmetic)."""
+    library = LIBRARIES[kernel](torch)
+    if kernel != "fft2_plane" and mode != "highest":
+        library = CS.tf32_library(torch, mode, library)
+    prep, call = library
+    lib_in = prep(*call_args)
+    ms = CS.cuda_ms(torch, lambda: call(*lib_in), iters=5, warmup=1)
+    del lib_in
+    return ms
+
+
 def entries(torch, dev, ports, randn):
     """The host's time per call (µs, HOST_CALLS calls after a synchronize,
     the device running behind) of each checkout's entries as the models call
@@ -300,6 +335,7 @@ def main() -> int:
         return torch.randn(shape, generator=gen, device=dev, dtype=torch.float32)
 
     T, C, H, W = CS.T, CS.C, CS.H, CS.W
+    peak_flops, peak_bw = CS.peaks(torch.cuda.get_device_name(0))
     cases = []  # (label, kernel name, args, plain, tolerance at 'highest')
     lam_dev = torch.tensor(0.37, device=dev)
     for b, kt, seed, lam in ((1, T, 1, 0.0), (1, 1, 2, 0.37), (2, T, 3, 0.0), (1, T, 4, lam_dev)):
@@ -371,19 +407,26 @@ def main() -> int:
             host[side].append((time.perf_counter() - t0) / HOST_CALLS * 1e6)
         torch.cuda.synchronize()
         host_us = {k: statistics.mean(v) for k, v in host.items()}
+        bound_ms, bound_by = case_bound(kernel, call_args, mode, peak_flops, peak_bw)
+        library_ms = case_library(torch, kernel, call_args, mode)
         results.append(dict(case=label, precision=mode if kernel != "fft2_plane" else None,
                             device_ms=times, mean_device_ms=mean, host_us=host,
-                            mean_host_us=host_us, max_rel_err=errs, max_abs_diff_vs_other=vs_other))
+                            mean_host_us=host_us, max_rel_err=errs, max_abs_diff_vs_other=vs_other,
+                            bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms))
         print(f"[ab] {label}: device alone ms other {mean['other']:.4f} "
               f"({', '.join(f'{x:.4f}' for x in times['other'])}) this {mean['this']:.4f} "
               f"({', '.join(f'{x:.4f}' for x in times['this'])}); this/other "
-              f"{mean['this'] / mean['other']:.3f}; host per call µs other {host_us['other']:.1f} "
+              f"{mean['this'] / mean['other']:.3f}; bound {bound_ms:.4f} ms ({bound_by}); library "
+              f"{library_ms:.4f} ms; host per call µs other {host_us['other']:.1f} "
               f"this {host_us['this']:.1f}; rel err other {errs['other']:.2e} this "
               f"{errs['this']:.2e}; max |this - other| {vs_other:.3e}")
         del want
     del cases
     same = [r["case"] for r in results if r["max_abs_diff_vs_other"] == 0]
     print(f"[ab] identical (max |this - other| = 0): {len(same)} of {len(results)}: {same}")
+    highest = [r["case"] for r in results if r["precision"] == "highest"]
+    print(f"[ab] 'highest' cases identical: {sum(c in same for c in highest)} of {len(highest)}; "
+          f"differing: {[c for c in highest if c not in same]}")
     torch.cuda.empty_cache()
     report = dict(device=smi, other=str(args.other), precision=args.precision, results=results,
                   identical=same,

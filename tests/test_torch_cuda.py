@@ -151,18 +151,42 @@ def test_normal_kernel_matches_plain(dev, b, t, c, h, w, kt, lam):
     _close(got, normal_cuda.normal_apply_torch(*args))
 
 
-@pytest.mark.parametrize("b,t,c,h,w,kt,lam", NORMAL_SHAPES + [(1, 4, 3, 24, 20, 4, 0.0)])
-def test_normal_bwd_kernel_matches_plain(dev, b, t, c, h, w, kt, lam):
-    from cinemri_tpu_torch.ops.kernels import normal_cuda
+def _normal_k(rng, b, kt, h, hermitian, dev):
+    """``(K_re, K_im)`` of ``masked_normal_kernel`` on a random line mask,
+    which is Hermitian (``Kᴴ = K``); without ``hermitian`` a random complex
+    perturbation of it, so that a backward contracting with ``K`` where it
+    should use ``Kᴴ`` disagrees with the plain version."""
     from cinemri_tpu_torch.physics.operators import masked_normal_kernel
 
-    rng = np.random.default_rng(2)
     mask = torch.from_numpy((rng.random((b, kt, 1, h, 1)) < 0.4).astype(np.float32)).to(dev)
     k = masked_normal_kernel(mask)
+    kr, ki = k.re.contiguous(), k.im.contiguous()
+    if not hermitian:
+        d = lambda: torch.from_numpy(rng.standard_normal((b, kt, h, h)).astype(np.float32)).to(dev)
+        kr, ki = kr + d() / h ** 0.5, ki + d() / h ** 0.5
+        assert (kr - kr.transpose(-1, -2)).abs().max().item() > 0.1
+    return kr, ki
+
+
+# the flagship and ragged shapes (4-byte copies at w = 33, kt = 1; 16-byte
+# rows on the TF32 modes' streaming tile at 36 x 28) with a K that is not
+# Hermitian
+NON_HERMITIAN = [(1, 15, 10, 200, 200, 15, 0.0, False), (2, 3, 2, 70, 33, 1, 0.37, False),
+                 (1, 2, 3, 36, 28, 2, 0.37, False)]
+
+
+@pytest.mark.parametrize("b,t,c,h,w,kt,lam,hermitian",
+                         [s + (True,) for s in NORMAL_SHAPES + [(1, 4, 3, 24, 20, 4, 0.0)]]
+                         + NON_HERMITIAN)
+def test_normal_bwd_kernel_matches_plain(dev, b, t, c, h, w, kt, lam, hermitian):
+    from cinemri_tpu_torch.ops.kernels import normal_cuda
+
+    rng = np.random.default_rng(2)
+    kr, ki = _normal_k(rng, b, kt, h, hermitian, dev)
     g = torch.Generator(device=dev).manual_seed(3)
     r = lambda *s: torch.randn(s, generator=g, device=dev)
-    args = (r(b, t, h, w), r(b, t, h, w), r(b, t, h, w), r(b, t, h, w), k.re.contiguous(),
-            k.im.contiguous(), r(b, c, h, w), r(b, c, h, w), lam)
+    args = (r(b, t, h, w), r(b, t, h, w), r(b, t, h, w), r(b, t, h, w), kr, ki, r(b, c, h, w),
+            r(b, c, h, w), lam)
     before = normal_cuda.BWD_LAUNCHES
     got = normal_cuda.normal_apply_bwd(*args)
     assert normal_cuda.BWD_LAUNCHES == before + 1
@@ -978,27 +1002,28 @@ def test_dft_tf32_modes_match_their_emulation(dev, o, n, i, precision):
 
 
 @pytest.mark.parametrize("precision", ["high", "default"])
-@pytest.mark.parametrize("b,t,c,h,w,kt,lam", [(1, 15, 10, 200, 200, 15, 0.0), (2, 3, 2, 70, 33, 1, 0.37),
-                                              (1, 2, 3, 36, 28, 2, 0.37)])
-def test_normal_apply_tf32_modes_match_their_emulation(dev, b, t, c, h, w, kt, lam, precision):
+@pytest.mark.parametrize("b,t,c,h,w,kt,lam,hermitian",
+                         [(1, 15, 10, 200, 200, 15, 0.0, True), (2, 3, 2, 70, 33, 1, 0.37, True),
+                          (1, 2, 3, 36, 28, 2, 0.37, True)] + NON_HERMITIAN)
+def test_normal_apply_tf32_modes_match_their_emulation(dev, b, t, c, h, w, kt, lam, hermitian,
+                                                       precision):
     """The forward and the backward's x̄, s̄ and λ̄ at the flagship shape
-    and at ragged ones (4-byte copies at w = 33, the 64-row tile)."""
+    and at ragged ones (4-byte copies at w = 33, the 64-row tile), with
+    ``masked_normal_kernel``'s Hermitian K and with one that is not."""
     from cinemri_tpu_torch.ops.kernels import normal_cuda
-    from cinemri_tpu_torch.physics.operators import masked_normal_kernel
 
     rng = np.random.default_rng(4)
-    mask = torch.from_numpy((rng.random((b, kt, 1, h, 1)) < 0.4).astype(np.float32)).to(dev)
-    k = masked_normal_kernel(mask)
+    k = _normal_k(rng, b, kt, h, hermitian, dev)
     g = torch.Generator(device=dev).manual_seed(5)
     r = lambda *s: torch.randn(s, generator=g, device=dev)
     x, s = (r(b, t, h, w), r(b, t, h, w)), (r(b, c, h, w), r(b, c, h, w))
-    args = (*x, k.re.contiguous(), k.im.contiguous(), *s, lam)
+    args = (*x, *k, *s, lam)
     before = normal_cuda.LAUNCHES_BY_PRECISION[precision]
     got = normal_cuda.normal_apply(*args, precision)
     assert normal_cuda.LAUNCHES_BY_PRECISION[precision] == before + 1
     _close(got, normal_cuda.normal_apply_torch(*args, precision), TF32_TOL)
     gr = (r(b, t, h, w), r(b, t, h, w))
-    bargs = (*x, *gr, k.re.contiguous(), k.im.contiguous(), *s, lam)
+    bargs = (*x, *gr, *k, *s, lam)
     before = normal_cuda.BWD_LAUNCHES_BY_PRECISION[precision]
     got = normal_cuda.normal_apply_bwd(*bargs, precision)
     assert normal_cuda.BWD_LAUNCHES_BY_PRECISION[precision] == before + 1

@@ -180,21 +180,29 @@ class TestNormalApplyBackward:
 
     TOL = dict(rtol=2e-4, atol=2e-4)
 
-    def _inputs(self, rng, b, kt, t=3, c=3, h=16, w=12):
+    def _inputs(self, rng, b, kt, t=3, c=3, h=16, w=12, hermitian=True):
+        """Operands of one call. ``K`` is ``masked_normal_kernel``'s, which is
+        Hermitian (``Kᴴ = K``); without ``hermitian`` a random complex
+        perturbation of it, so that a backward contracting with ``K`` where
+        it should use ``Kᴴ`` disagrees."""
         x, s = c64(rng, b, t, h, w), c64(rng, b, c, h, w)
         kern = TO.masked_normal_kernel(torch.from_numpy(line_mask(rng, b, kt, h)))
+        k = kern.re.numpy() + 1j * kern.im.numpy()
+        if not hermitian:
+            k = k + c64(rng, b, kt, h, h) / np.sqrt(h)
+            assert np.abs(k - np.conj(np.swapaxes(k, -1, -2))).max() > 0.1
         g = c64(rng, b, t, h, w)
         f32 = lambda a: np.ascontiguousarray(a, dtype=np.float32)
-        arrays = (f32(x.real), f32(x.imag), f32(kern.re.numpy()), f32(kern.im.numpy()),
-                  f32(s.real), f32(s.imag))
+        arrays = (f32(x.real), f32(x.imag), f32(k.real), f32(k.imag), f32(s.real), f32(s.imag))
         return arrays, (f32(g.real), f32(g.imag))
 
     @pytest.mark.parametrize("b", [1, 2])
-    @pytest.mark.parametrize("kt", [1, 3])
-    def test_matches_jax_custom_vjp(self, rng, b, kt):
+    @pytest.mark.parametrize("kt,hermitian", [(1, True), (3, True), (1, False), (3, False)],
+                             ids=["1", "3", "1-nonhermitian", "3-nonhermitian"])
+    def test_matches_jax_custom_vjp(self, rng, b, kt, hermitian):
         import jax
 
-        arrays, (gr, gi) = self._inputs(rng, b, kt)
+        arrays, (gr, gi) = self._inputs(rng, b, kt, hermitian=hermitian)
         lam = 0.21
         old = NP._INTERPRET
         try:
