@@ -8,7 +8,8 @@ Builds the port's CUDA kernels from ``cinemri_tpu_torch/csrc`` with nvcc
 PyTorch version and one library call at the shapes of the serving and
 training paths: the DFT at the six ``(O, N, I)`` layouts of the path and two
 ragged ones; the normal apply and its backward at four flagship cases, the
-forward also beside its contraction alone as one complex64 ``matmul``; the
+forward also beside its contraction alone as one complex64 ``matmul``, the
+backward beside its two contractions alone as two; the
 fused 2-D DFT ``fft2_plane``, which no path runs (as in the JAX package),
 at the 2-D DFT shapes of the ported paths, beside the two 1-D DFT launches
 that ``ifft2c`` makes today and cuFFT. Each is also timed on the device
@@ -30,7 +31,10 @@ than PR 3's). CineNet-XF (10 cascades, 6 CG
 iterations, chans 16, pools 3, with RSS-normalized sensitivity maps as
 input): the same forward, profile and serving runs, one warm forward under
 ``torch.cuda.set_sync_debug_mode("error")`` (λ stays on the device), the same
-four train runs, one profiled step and the host syncs of one step.
+four train runs, one profiled step and the host syncs of one step, and the
+same four steps with the normal apply on the fused FP32 tile
+(``normal_cuda.set_fp32_tile('fused')``, ``[cinenet-train-fused]``: every
+call on it, the losses against the engine route's).
 XPDNet-XF (9 cascades, MWCNN 16/32/64, n_primal 5, kernel DC): the kernels
 first on its new operands (the DFT on the alt matrices at (1, 15, 240000)
 and its backward, the inverse at (1, 15, 200000), the normal apply with
@@ -130,7 +134,12 @@ and (40000, 15, 1) and the normal apply and its backward at the flagship
 shape in the TF32 modes 'high' (3xTF32) and 'default' (1xTF32) of the
 tensor-core tile (the N = 15 DFTs run the FP32 kernel in every mode), each
 against its emulating plain version (TF32_TOL), against 'highest', timed
-beside its TF32 bound and the complex64 library call (TF32 for 'default').
+beside its TF32 bound and the complex64 library call (TF32 for 'default');
+then each call's kernels by name under the profiler at every mode, 'highest'
+with every contraction on the FP32 tile and ȳ on the copy Kᴴ; last the
+fused FP32 tile at 'highest' at the flagship cases, against the plain
+version, its bits against the engine route's, both timed, and its kernels
+by name.
 ``[bf16]``: the flagship VarNet-XF served (4 requests) and fitted (3 steps)
 in f32 at 'highest' and in bf16 at 'highest', 'high' and 'default' (ms per
 volume, ms per step, peak memory, the bf16 images against f32 at the JAX
@@ -170,7 +179,10 @@ eight f32 requests and four steps) and, for ``fft2_plane``,
 ``"check"``; the TF32 modes as their own rows, ``complex_dft_matmul[high]``
 ... ``normal_apply_bwd[default]``, from ``[bf16]``'s run at that mode and
 its repeats through the plain versions and the library calls, with the
-largest error of ``[precision]``'s checks), the card's
+largest error of ``[precision]``'s checks); the fused FP32 tile's rows
+``normal_apply[highest fused]`` and ``normal_apply_bwd[highest fused]``
+from ``"cinenet-train-fused"`` (the plain versions' and library calls' times
+over the engine route's run of the same steps), the card's
 name and power limit as nvidia-smi
 reports them, and ``{"ok": true, "device": {...}}``. A row's ``ms``,
 ``plain_ms`` and ``library_ms`` sum CUDA-event times taken around every
@@ -420,6 +432,25 @@ def fft2_library(torch):
         return torch.einsum("ij,bjk,lk->bil", wh, x, ww)
 
     return prep, call
+
+
+def bwd_contractions_matmul(torch, normal_cuda, xr, xi, gr, gi, kr, ki, sr, si):
+    """The backward's two contractions alone, ȳ = Kᴴ·(S⊙g) and z = K·(S⊙x),
+    the same 16·b·t·c·h²·w FLOP as two complex64 ``matmul`` calls on the
+    coil-stacked operands (Kᴴ and the stacks made outside the timed call).
+    Returns the call."""
+    b, t, h, w = xr.shape
+    kt = kr.shape[1]
+
+    def stacked(ur, ui):
+        y = torch.complex(*normal_cuda.coil_products(sr, si, ur, ui))  # (b·t·c, h, w)
+        g = y.shape[0] // (b * kt)
+        return y.reshape(b * kt, g, h, w).transpose(1, 2).reshape(b * kt, h, g * w).contiguous()
+
+    k = torch.complex(kr, ki).reshape(b * kt, h, h)
+    kh = k.conj().transpose(1, 2).contiguous()
+    v, y = stacked(gr, gi), stacked(xr, xi)
+    return lambda: (torch.matmul(kh, v), torch.matmul(k, y))
 
 
 def normal_bwd_library(torch):
@@ -1923,11 +1954,20 @@ CINENET_HPARAMS = dict(num_cascades=CINENET["num_cascades"], CG_iters=CINENET["c
 # the kernels a launch of each C entry runs at each precision on the
 # flagship's rows (one launch counted per call): at 'default' the normal
 # apply's products are formed in the resident TF32 tile's staging, in the
-# forward and in both contractions of the backward; the backward's TF32 modes
-# add one kernel, the conjugate-transposed copy of K its adjoint contracts with
-KERNELS_PER_LAUNCH = {"highest": {"dft": 1, "normal": 3, "normal_bwd": 7},
+# forward and in both contractions of the backward; the backward adds one
+# kernel, the conjugate-transposed copy of K its adjoint contracts with (at
+# 'highest' on the FP32 tile)
+KERNELS_PER_LAUNCH = {"highest": {"dft": 1, "normal": 3, "normal_bwd": 8},
                       "high": {"dft": 1, "normal": 3, "normal_bwd": 8},
                       "default": {"dft": 1, "normal": 2, "normal_bwd": 6}}
+# the 'highest' contractions' tile on 16-byte rows (csrc/normal_passes.cuh
+# Fp32Tile), as the profiler names its kernels' template argument
+FP32_TILE = "cgemm::Tile<96, 40, 16, 8, 5, 3, 4, 1>"
+# the kernels a launch runs at 'highest' on the fused FP32 tile
+# (normal_cuda.set_fp32_tile('fused'), csrc/fp32_hopper.cuh): the tile with
+# the products formed in its staging, then the coil reduction; the backward's
+# copy Kᴴ, its two contractions on the tile and its three passes
+FUSED_KERNELS_PER_LAUNCH = {"normal": 2, "normal_bwd": 6}
 FOLD_KINDS = {"dft": "dft_matmul (port kernel)", "normal": "normal_apply (port kernels)",
               "normal_bwd": "normal_apply_bwd (port kernels)"}
 OP_NAMES = {"dft": "cinemri::dft_matmul", "normal": "cinemri::normal_apply",
@@ -2083,7 +2123,7 @@ def profile_phase(torch, dev, data, launches):
     each of the three on-path kernels must appear in it as many times as the
     counters report launches over those two steps, times its kernels per
     launch at the precision set (KERNELS_PER_LAUNCH; at 'highest' the DFT 1,
-    the normal apply 3, its backward 7), and each custom
+    the normal apply 3, its backward 8), and each custom
     op's host events once per call. Per step: CUDA-event ms and host ms,
     traced and untraced."""
     from cinemri_tpu_torch.data import RandomMask, VarNetDataTransform
@@ -2184,7 +2224,7 @@ BF16_LOSS_RTOL = 1e-3
 REMAT_RTOL, REMAT_ATOL = 1e-5, 1e-7
 
 
-def precision_phase(torch, dev, peak_bw):
+def precision_phase(torch, dev, peak_flops, peak_bw):
     """``[precision]``: the DFT (at the flagship layouts (150, 200, 200),
     (30000, 200, 1), (1, 15, 40000), (40000, 15, 1), the sens net's
     (10, 200, 200) and (30, 198, 201), whose rows are not 16-byte aligned)
@@ -2201,9 +2241,15 @@ def precision_phase(torch, dev, peak_bw):
     one call of the normal apply and of its backward runs at each mode, by
     name under the profiler: KERNELS_PER_LAUNCH of them, and at 'high' and
     'default' both of the backward's contractions on its own ``wgmma``
-    kernels, with no products pass at 'default'. Returns the report and, per
-    (kernel, mode), the largest error against the emulation over the shapes
-    (the ``kernels`` rows' ``max_abs_err``)."""
+    kernels, with no products pass at 'default'. Last, the fused FP32 tile
+    at 'highest' (``normal_cuda.set_fp32_tile('fused')``, csrc/fp32_hopper.cuh)
+    at the flagship cases: against the plain version (NORMAL_TOL), its bits
+    against the engine route's, its device time alone beside the engine
+    route's, the plain version's and the complex64 library call's, and its
+    kernels by name (FUSED_KERNELS_PER_LAUNCH, no products pass). Returns the
+    report and, per (kernel, mode), the largest error against the emulation
+    or the plain version over the shapes (the ``kernels`` rows'
+    ``max_abs_err``; mode 'highest fused' for the fused tile)."""
     from cinemri_tpu_torch.data.masks import RandomMask
     from cinemri_tpu_torch.ops import fft as FFT
     from cinemri_tpu_torch.ops.kernels import dft_cuda, normal_cuda
@@ -2304,6 +2350,16 @@ def precision_phase(torch, dev, peak_bw):
                 fail(f"precision: {kind} at '{mode}' ran {len(ours)} kernels a call, not "
                      f"{KERNELS_PER_LAUNCH[mode][kind]}")
         if mode == "highest":
+            # every contraction on the FP32 tile, ȳ on the copy Kᴴ (no other
+            # tile, so not the adjoint's conjugated read of K); the products
+            # pass stays (csrc/normal_passes.cuh says why)
+            fwd = [n for n, _ in per_call[mode]["normal"] if "contract_kernel" in n]
+            names = [n for n, _ in per_call[mode]["normal_bwd"] if "normal_apply" in n]
+            bwd = [n for n in names if "contract_kernel" in n]
+            if len(fwd) != 1 or len(bwd) != 2 or not all(FP32_TILE in n for n in fwd + bwd) or \
+                    sum("normal_apply_bwd_adjoint_kernel" in n for n in names) != 1:
+                fail(f"precision: at 'highest' the forward ran {fwd} and the backward {names}: "
+                     f"not every contraction on the FP32 tile, ȳ on the copy Kᴴ")
             continue
         names = [n for n, _ in per_call[mode]["normal_bwd"] if "normal_apply" in n]
         wgmma = [n for n in names if "normal_apply_bwd_wgmma" in n]
@@ -2311,9 +2367,98 @@ def precision_phase(torch, dev, peak_bw):
                 (mode == "default" and any("products" in n for n in names)):
             fail(f"precision: the backward at '{mode}' ran {names}: not both contractions on "
                  f"the backward's own wgmma kernels" + (", products fused" if mode == "default" else ""))
+    fused = fused_tile_checks(torch, normal_cuda, peak_flops, peak_bw, errs_by_row, [
+        ("normal_apply", dict(shape, lam=0.0), (xr, xi) + ops + (0.0,)),
+        ("normal_apply", dict(shape, kt=1, lam=0.37), (xr, xi) + ops1 + (0.37,)),
+        ("normal_apply_bwd", dict(shape, lam=0.37), (xr, xi, gr, gi) + ops + (0.37,)),
+        ("normal_apply_bwd", dict(shape, kt=1, lam=0.37), (xr, xi, gr, gi) + ops1 + (0.37,)),
+        ("normal_apply_bwd", dict(shape, lam=0.37, K="non-Hermitian"),
+         (xr, xi, gr, gi) + opsn + (0.37,))])
     wall = time.perf_counter() - t_phase
     print(f"[precision] phase wall time {wall:.1f} s")
-    return dict(cases=cases, kernels_per_call=per_call, wall_s=wall), errs_by_row
+    return dict(cases=cases, kernels_per_call=per_call, fused=fused, wall_s=wall), errs_by_row
+
+
+def fused_tile_checks(torch, normal_cuda, peak_flops, peak_bw, errs_by_row, cases_):
+    """The fused FP32 tile at 'highest' on ``cases_`` ((kernel, shape label,
+    args) of the flagship): each call against the plain version (x̄ and s̄,
+    or out, at NORMAL_TOL x max |plain|; λ̄ at LAM_TOL), the largest |fused -
+    engine| over its outputs (0: the same bits), the device time alone of
+    both routes, the plain version's and the library call's time and the
+    bound; then the kernels one fused call of each runs, by name."""
+    fns = {"normal_apply": (normal_cuda.normal_apply, normal_cuda.normal_apply_torch,
+                            normal_library(torch), normal_cost),
+           "normal_apply_bwd": (normal_cuda.normal_apply_bwd, normal_cuda.normal_apply_bwd_torch,
+                                normal_bwd_library(torch), normal_bwd_cost)}
+    routes = {"normal_apply": normal_cuda.LAUNCHES_BY_ROUTE,
+              "normal_apply_bwd": normal_cuda.BWD_LAUNCHES_BY_ROUTE}
+    report = dict(cases=[], kernels_per_call={})
+
+    def on_fused(fn):
+        normal_cuda.set_fp32_tile("fused")
+        try:
+            return fn()
+        finally:
+            normal_cuda.set_fp32_tile("engine")
+
+    for kernel, shape, args in cases_:
+        fn, plain, (prep, lib_fn), cost = fns[kernel]
+        before = routes[kernel]["fp32_fused"]
+        got = on_fused(lambda: fn(*args))
+        if routes[kernel]["fp32_fused"] != before + 1:
+            fail(f"fused tile: {kernel} at {shape} did not take the fused route")
+        engine, want = fn(*args), plain(*args)
+        lib_in = prep(*args)
+        lib_fn(*lib_in)
+        torch.cuda.synchronize()
+        parts = (slice(0, 2),) if kernel == "normal_apply" else (slice(0, 2), slice(2, 4))
+        err = 0.0
+        for sl in parts:
+            scale = max(a.abs().max().item() for a in want[sl])
+            part_err = max((a - b_).abs().max().item() for a, b_ in zip(got[sl], want[sl]))
+            err = max(err, part_err)
+            if not part_err <= NORMAL_TOL * scale:
+                fail(f"fused tile: {kernel} disagrees with its plain version at {shape}: "
+                     f"{part_err} > {NORMAL_TOL * scale}")
+        if kernel == "normal_apply_bwd":
+            lam_err = abs(got[4].sum().item() - want[4].sum().item()) / abs(want[4].sum().item())
+            if not lam_err <= LAM_TOL:
+                fail(f"fused tile: normal_apply_bwd λ̄ disagrees at {shape}: rel {lam_err} > {LAM_TOL}")
+        bits = max((a - b_).abs().max().item() for a, b_ in zip(got, engine))
+        flops, nbytes = cost(*args)
+        t_ops, t_bytes = flops / peak_flops * 1e3, nbytes / peak_bw * 1e3
+        case = dict(kernel=kernel, **shape, max_abs_err=err, max_abs_vs_engine=bits,
+                    device_ms=on_fused(lambda: graph_ms(torch, lambda: fn(*args))),
+                    engine_device_ms=graph_ms(torch, lambda: fn(*args)),
+                    plain_ms=cuda_ms(torch, lambda: plain(*args), iters=10),
+                    library_ms=cuda_ms(torch, lambda: lib_fn(*lib_in), iters=10),
+                    bound_ms=max(t_ops, t_bytes),
+                    bound_by="operations" if t_ops >= t_bytes else "bytes")
+        report["cases"].append(case)
+        errs_by_row[kernel, "highest fused"] = max(errs_by_row.get((kernel, "highest fused"), 0.0), err)
+        print(f"[precision] {kernel}[highest, fused tile] {shape}: vs plain max_abs_err {err:.3e} "
+              f"(tol {NORMAL_TOL:.0e} x max); max |fused - engine| {bits:.3e}; device alone: fused "
+              f"{case['device_ms']:.4f} ms, engine {case['engine_device_ms']:.4f} ms; plain "
+              f"{case['plain_ms']:.4f} ms library {case['library_ms']:.4f} ms bound "
+              f"{case['bound_ms']:.4f} ms ({case['bound_by']})")
+        del got, engine, want, lib_in
+    xr_args = cases_[0][2]
+    bwd_args = next(a for k, _, a in cases_ if k == "normal_apply_bwd")
+    for kind, call in (("normal", lambda: normal_cuda.normal_apply(*xr_args)),
+                       ("normal_bwd", lambda: normal_cuda.normal_apply_bwd(*bwd_args))):
+        kernels = on_fused(lambda: kernels_of_call(torch, call))
+        report["kernels_per_call"][kind] = kernels
+        ours = [n for n, _ in kernels if "normal_apply" in n]
+        print(f"[precision] {kind} at 'highest' on the fused tile (b 1, t 15, c 10, 200x200, "
+              f"kt 15): {len(ours)} kernels a call, device µs: "
+              + "; ".join(f"{n} {us:.1f}" for n, us in kernels))
+        contractions = [n for n in ours if "fp32_fused_kernel" in n]
+        if len(ours) != FUSED_KERNELS_PER_LAUNCH[kind] or \
+                len(contractions) != (1 if kind == "normal" else 2) or \
+                any("products" in n or "contract_kernel" in n for n in ours):
+            fail(f"fused tile: {kind} ran {ours}: not every contraction on the fused tile, or a "
+                 f"products pass")
+    return report
 
 
 def non_hermitian(torch, kr, ki, randn):
@@ -2928,8 +3073,16 @@ def main() -> int:
         # the backward on the same operands; g = x + noise keeps λ̄ = Σ Re⟨g, x⟩
         # from cancelling, so its relative error measures the kernel
         xr, xi = args[0], args[1]
-        check_bwd_case(dict(b=b, t=T, c=C, h=H, w=W, kt=kt, lam=lam_label),
-                       (xr, xi, xr + randn(b, T, H, W), xi + randn(b, T, H, W)) + args[2:6] + (lam,))
+        bwd_args = (xr, xi, xr + randn(b, T, H, W), xi + randn(b, T, H, W)) + args[2:6] + (lam,)
+        check_bwd_case(dict(b=b, t=T, c=C, h=H, w=W, kt=kt, lam=lam_label), bwd_args)
+        # its two contractions alone as complex64 matmuls
+        matmul = bwd_contractions_matmul(torch, normal_cuda, *bwd_args[:8])
+        cases[-1].update(contractions_matmul_ms=cuda_ms(torch, matmul, iters=10),
+                         contractions_matmul_device_ms=graph_ms(torch, matmul, iters=10))
+        print(f"[kernel] normal_apply_bwd {(b, kt)}: its two contractions alone as complex64 "
+              f"matmuls {cases[-1]['contractions_matmul_ms']:.4f} ms (device alone "
+              f"{cases[-1]['contractions_matmul_device_ms']:.4f} ms)")
+        del matmul, bwd_args
     del args, sr, si, rss, kern, xr, xi
 
     # the coil axis's shards (``[mesh]``): each of two ranks runs the sens
@@ -3641,6 +3794,38 @@ def main() -> int:
                           "normal": 2 * cnc * (1 + cgi), "normal_bwd": cnc * (1 + cgi)},
                          CINENET_TRAIN_LOSS_TOL, CINENET_TRAIN_GRAD_TOL, f64_reference=True)
 
+    # the same steps with the normal apply on the fused FP32 tile
+    # (normal_cuda.set_fp32_tile('fused'), csrc/fp32_hopper.cuh): its calls
+    # counted (every one on the fused route) and timed, the run against the
+    # engine route's (the same bits in the normal apply; cuDNN's algorithms
+    # may differ between runs)
+    c_per_step = ctrain["launches_per_step"]
+    tfused = (Timed(torch, normal_cuda, "normal_apply", normal_cost),
+              Timed(torch, normal_cuda, "normal_apply_bwd", normal_bwd_cost))
+    route_before = (normal_cuda.LAUNCHES_BY_ROUTE["fp32_fused"],
+                    normal_cuda.BWD_LAUNCHES_BY_ROUTE["fp32_fused"])
+    normal_cuda.set_fp32_tile("fused")
+    try:
+        frec, _ = train_run(ctmodel, ctrain["init"], cbatch, TRAIN_STEPS, *tfused)
+    finally:
+        normal_cuda.set_fp32_tile("engine")
+    fused_launches = {"normal": normal_cuda.LAUNCHES_BY_ROUTE["fp32_fused"] - route_before[0],
+                      "normal_bwd": normal_cuda.BWD_LAUNCHES_BY_ROUTE["fp32_fused"] - route_before[1]}
+    loss_gap = max(abs(a - b_) / abs(b_) for a, b_ in zip(frec["loss"], ctrain["kernels"]["loss"]))
+    print(f"[cinenet-train-fused] the fused FP32 tile: launches on it {fused_launches} (expected "
+          f"{TRAIN_STEPS} x {c_per_step['normal']} and {TRAIN_STEPS} x {c_per_step['normal_bwd']}); "
+          f"ms/step {[round(x, 3) for x in frec['ms']]} (engine route "
+          f"{[round(x, 3) for x in ctrain['kernels']['ms']]}); normal apply device ms over the run "
+          f"{tfused[0].ms():.3f}, backward {tfused[1].ms():.3f} (engine route "
+          f"{ctrain['timers'][0][1].ms():.3f}, {ctrain['timers'][0][2].ms():.3f}); loss "
+          f"{frec['loss']} against the engine route's {ctrain['kernels']['loss']}: rel {loss_gap:.3e} "
+          f"(tol {CINENET_TRAIN_LOSS_TOL:.0e})")
+    if fused_launches != {k_: TRAIN_STEPS * c_per_step[k_] for k_ in fused_launches}:
+        fail(f"cinenet-train-fused: {fused_launches} calls on the fused tile")
+    if not loss_gap <= CINENET_TRAIN_LOSS_TOL:
+        fail(f"cinenet-train-fused: the losses leave the engine route's by {loss_gap}")
+    cfused = dict(launches=fused_launches, steps=frec, loss_gap=loss_gap,
+                  timers=(tfused, ctrain["timers"][1][1:], ctrain["timers"][2][1:]))
     ctrain.update(step_host_syncs("cinenet-train", ctmodel, ctrain.pop("init"), cbatch))
     del ctmodel, cbatch, ctrain["batch"]
     torch.cuda.empty_cache()
@@ -4114,7 +4299,7 @@ def main() -> int:
     prof = profile_phase(torch, dev, data, launches)
 
     # -- 12f. the TF32 modes of the kernels, bf16 activations, the remat policies --------
-    precision, tf32_errs = precision_phase(torch, dev, peak_bw)
+    precision, tf32_errs = precision_phase(torch, dev, peak_flops, peak_bw)
     bf16, tf32_timers = bf16_phase(torch, dev, data)
     remat_report = remat_phase(torch, dev)
     del data["decoded"]
@@ -4414,6 +4599,18 @@ def main() -> int:
                     crnn["xpdnet_dual"]["kern"][0], crnn["xpdnet_dual"]["plain"][0],
                     crnn["xpdnet_dual"]["lib"][0]))
     rows.append(row(*dft_src, "soft-sense", ss_launches, skern, splain, slib))
+    # the fused FP32 tile at 'highest': its calls in the CineNet-XF train run
+    # on it, the plain versions' and library calls' times over the engine
+    # route's run of the same steps, the errors of [precision]'s checks
+    fkern, fplain, flib = cfused.pop("timers")
+    for i, ((kernel, _, replaces), key) in enumerate(((fwd_src, "normal"), (bwd_src, "normal_bwd"))):
+        b_ms, b_by = fkern[i].bound(peak_flops, peak_bw)
+        rows.append(dict(name=f"{kernel}[highest fused]", route="cuda",
+                         source="cinemri_tpu_torch/csrc/fp32_hopper.cuh", replaces=replaces,
+                         run="cinenet-train-fused", launches=cfused["launches"][key],
+                         max_abs_err=tf32_errs[kernel, "highest fused"], ms=fkern[i].ms(),
+                         plain_ms=fplain[i].ms(), bound_ms=b_ms, bound_by=b_by,
+                         library_ms=flib[i].ms()))
     rows.append(row(*fft2_src, "check", fft2_launches, *fft2_runs))
     # the TF32 modes: launches and times of [bf16]'s run at that mode (the
     # plain and library times of its repeats through them), the errors of
@@ -4439,7 +4636,7 @@ def main() -> int:
             srv.pop(key)
     print("[details] " + json.dumps(dict(
         cases=cases, forward=vfwd, serve=vserve, train=vtrain,
-        cinenet=dict(config=CINENET, forward=cfwd, serve=cserve, train=ctrain),
+        cinenet=dict(config=CINENET, forward=cfwd, serve=cserve, train=ctrain, train_fused=cfused),
         xpdnet=dict(config=XPDNET, forward=xfwd, serve=xserve, train=xtrain, variants=xvariants),
         cascades_2d3d=dict(forward=c2d3d, train_3d=c3train),
         crnn=dict(crnn, wall_s=crnn_wall),

@@ -24,38 +24,47 @@
 //
 // What bounds it on the H100: per apply it does 8·t·c·h·h·w FLOP (9.6 GFLOP
 // at t=15, c=10, h=w=200) against about 18 MB of inputs and outputs, so it
-// is bound by the FP32 rate (0.14 ms at 67 TFLOP/s). The Pallas program
-// keeps a whole (h, w) plane, K and the coil stack on chip (about 8 MB); a
-// block has 227 KB of shared memory.
+// is bound by the FP32 rate at 'highest' (0.1446 ms at 67 TFLOP/s). The
+// Pallas program keeps a whole (h, w) plane, K and the coil stack on chip
+// (about 8 MB); a block has 227 KB of shared memory.
 //
 // Design: for one frame the contraction over all coils is one complex
 // product, K_t (h x h) · [S_1⊙x_t | … | S_C⊙x_t] (h x c·w); at the flagship
-// 15 of them, the shape and FLOP of the DFT kernel's (150, 200, 200) slab
-// instance. So one C entry launches three kernels (normal_passes.cuh):
-// (a) the products y = S_c ⊙ x_t into a (b·t·c, h, w) scratch (48 MB at
-//     the flagship), one memory pass;
+// 15 of them. At 'highest' a call launches three kernels (the engine route
+// of normal_wgmma.cuh):
+// (a) the products y = S_c ⊙ x_t into a (b·t·c, h, w) scratch (48 MB at the
+//     flagship), one memory pass;
 // (b) z = K_t ·_h y on the tile engine (cgemm_tile.cuh: cp.async ring, 8 x 5
-//     complex outputs a thread, column tiles of 40 that divide 200), row
-//     tiles clipped at frame boundaries so that each block reads one K;
+//     complex outputs a thread), row tiles clipped at frame boundaries so
+//     that each block reads one K; on 16-byte rows its instance Fp32Tile
+//     (normal_passes.cuh: 96 slab columns x 40 rows, 16-deep chunks, four
+//     blocks an SM, 2.98 waves at the flagship);
 // (c) out = Σ_c conj(S_c) ⊙ z_c + λx, one memory pass reading z once.
-// The scratch costs three passes over 48 MB (~0.05 ms at 3.35 TB/s) and
-// buys the engine's tile. A kernel that forms S_c⊙x in shared memory per
-// (w-tile, h-tile, frame) block instead has to restage K per coil, and its
-// 64 x 64 output tiles over a 200 x 200 plane spend 39% of the FMAs on
-// padding.
+// On an NVIDIA H100 80GB HBM3 at 700 W at the flagship a call takes 0.328 ms
+// device alone, 0.287 of it the contraction, against the FP32 bound of
+// 0.1446 ms (PERF.md: kernel_ab.py, chip_smoke.py [precision]); one
+// complex64 matmul of the contraction takes 0.240. Summing the coils in
+// (b)'s epilogue would need a tile per frame holding every coil, or atomics,
+// whose order is not deterministic.
+// Where the caller asks for it (normal_cuda.set_fp32_tile('fused')), 16-byte
+// rows take the fused route instead: one kernel for (a) and (b), the FP32
+// tile of fp32_hopper.cuh (persistent blocks over all of h, S_c ⊙ x_t formed
+// in its staging, y never in device memory), then (c). Its outputs are the
+// engine route's, bit for bit; it is slower on the H100, 0.431 ms a call
+// (fp32_hopper.cuh says why).
 //
 // The TF32 modes run (b) on the Hopper tile of wgmma_tf32.cuh. At 'default'
-// it fuses (a) into (b): the resident tile stages x_t and S_c (raw, by
-// cp.async) and forms y = S_c ⊙ x_t while rounding its A, one operation at a
-// time as (a) does, once per element, so a call launches two kernels, the
-// contraction with its products and (c), and y never reaches device memory
-// (the caller's y scratch goes unused). At 'high' the products' hi and lo
-// would not fit a resident A, and streaming x and S per 40-column tile
-// doubles the L2 traffic of streaming y (on an H100: 0.55 ms against the
-// three kernels' 0.30 at the flagship), so (a) stays and (b) runs on the
-// streaming tile. Rows that are not 16-byte aligned keep (a), (b) on the
-// mma.sync tile of cgemm_tf32.cuh and (c). The TF32 routes are shared with
-// the backward's two contractions (normal_wgmma.cuh).
+// the resident tile stages x_t and S_c (raw, by cp.async) and forms y =
+// S_c ⊙ x_t while rounding its A, one operation at a time, once per element,
+// so a call launches two kernels, the contraction with its products and (c).
+// At 'high' the products' hi and lo would not fit a resident A, and
+// streaming x and S per 40-column tile doubles the L2 traffic of streaming
+// y (on an H100: 0.55 ms against the three kernels' 0.30 at the flagship), so
+// (a) stays and (b) runs on the streaming tile (three kernels). Rows that
+// are not 16-byte aligned keep the engine route in every mode: (a), the
+// contraction on the tile engine (cgemm_tile.cuh at 'highest', the mma.sync
+// tile of cgemm_tf32.cuh in the TF32 modes) and (c). The Hopper routes are
+// shared with the backward's two contractions (normal_wgmma.cuh).
 
 #include <type_traits>
 
@@ -96,6 +105,13 @@ normal_apply_wgmma_resident_kernel(const wgmma::Problem p) {
   wgmma::run_resident<R>(p);
 }
 
+// 'highest' on the fused route: z[f, c] = K_g ·_h (S_c ⊙ x_f) on the FP32
+// tile of fp32_hopper.cuh, the products formed in its staging.
+__global__ void __launch_bounds__(fp32::MAX_THREADS, 1)
+normal_apply_fp32_fused_kernel(const __grid_constant__ fp32::Problem p) {
+  fp32::run(p);
+}
+
 template <int VEC>
 __global__ void __launch_bounds__(normal::PASS_THREADS)
 normal_apply_reduce_kernel(const float* __restrict__ zr, const float* __restrict__ zi,
@@ -121,7 +137,7 @@ int products(const float* xr, const float* xi, const float* sr, const float* si,
 template <int PASSES>
 int contraction(const float* yr, const float* yi, const float* kr, const float* ki, float* zr,
                 float* zi, int groups, int G, int h, int w, cudaStream_t s) {
-  using TL = std::conditional_t<PASSES == 0, cgemm::Large, tf32::Large>;
+  using TL = std::conditional_t<PASSES == 0, normal::Fp32Tile, tf32::Large>;
   using TS = std::conditional_t<PASSES == 0, cgemm::Small, tf32::Small>;
   return normal::tile_vec(h, w, kr, ki, yr, yi, zr, zi)
              ? normal::launch_contract<TL, false, normal_apply_contract_kernel<TL, 4, PASSES>>(
@@ -132,6 +148,9 @@ int contraction(const float* yr, const float* yi, const float* kr, const float* 
 
 // This file's kernels on the routes of normal_wgmma.cuh.
 struct Kernels {
+  static int fused(const fp32::Problem& p, cudaStream_t s) {
+    return fp32::launch<normal_apply_fp32_fused_kernel>(p, s);
+  }
   template <class T>
   static int streaming(const wgmma::Problem& p, cudaStream_t s) {
     return wgmma::launch<T, normal_apply_wgmma_kernel<T>>(p, s);
@@ -157,34 +176,37 @@ int reduce(const float* zr, const float* zi, const float* sr, const float* si, c
 
 }  // namespace
 
-// The route of a call (normal_wgmma.cuh: 0 the tile engines, 1 the products
-// pass and the streaming Hopper tile, 2 the resident Hopper tile with the
-// products fused), for the caller's operands and an output and scratch that
+// The route of a call (normal_wgmma.cuh: 0 the engine, 1 the products pass
+// and the streaming TF32 tile, 2 the resident TF32 tile with the products
+// fused, 3 the FP32 tile with the products fused, where `fused` asks for it
+// at 'highest'), for the caller's operands and an output and scratch that
 // the caller allocates (16-byte aligned): which scratch the call needs.
 extern "C" int cinemri_normal_apply_route(const float* xr, const float* xi, const float* kr,
                                           const float* ki, const float* sr, const float* si, int b,
-                                          int t, int c, int h, int w, int kt, int mode) {
-  return normal::route(mode, normal::all_aligned16(xr, xi, kr, ki, sr, si), b, t, c, h, w, kt);
+                                          int t, int c, int h, int w, int kt, int mode, int fused) {
+  return normal::route(mode, fused != 0, normal::all_aligned16(xr, xi, kr, ki, sr, si), b, t, c, h,
+                       w, kt);
 }
 
 // yr, yi, zr, zi: scratch of b·t·c·h·w floats each, allocated by the caller
-// (yr and yi unused, and may be null, on route 2).
-// mode: 0 'highest', 1 'high', 2 'default'.
+// (yr and yi unused, and may be null, on routes 2 and 3).
+// mode: 0 'highest', 1 'high', 2 'default'; fused: 1 for the fused FP32
+// route at 'highest' (route 3 on 16-byte rows), else 0.
 extern "C" int cinemri_normal_apply(const float* xr, const float* xi, const float* kr,
                                     const float* ki, const float* sr, const float* si,
                                     const float* lam, float* outr, float* outi, float* yr,
                                     float* yi, float* zr, float* zi, int b, int t, int c, int h,
-                                    int w, int kt, int mode, void* stream) {
+                                    int w, int kt, int mode, int fused, void* stream) {
   if (mode < 0 || mode > 2) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long P = static_cast<long>(h) * w;
   const int groups = b * kt, G = t * c / kt;  // slabs sharing one K
   const normal::Route r = normal::route(
-      mode, normal::all_aligned16(xr, xi, kr, ki, sr, si, yr, yi, zr, zi, outr, outi), b, t, c, h,
-      w, kt);
+      mode, fused != 0, normal::all_aligned16(xr, xi, kr, ki, sr, si, yr, yi, zr, zi, outr, outi),
+      b, t, c, h, w, kt);
   if (r != normal::ENGINE) {
-    const int err = normal::wgmma_contraction<Kernels>(r, xr, xi, sr, si, kr, ki, yr, yi, zr, zi, b,
-                                                       t, c, h, w, kt, mode, s);
+    const int err = normal::hopper_contraction<Kernels>(r, xr, xi, sr, si, kr, ki, yr, yi, zr, zi,
+                                                        b, t, c, h, w, kt, mode, s);
     return err ? err : reduce<4>(zr, zi, sr, si, xr, xi, lam, outr, outi, b, t, c, P, s);
   }
   if (yr == nullptr || yi == nullptr) return static_cast<int>(cudaErrorInvalidValue);

@@ -23,51 +23,57 @@
 //
 // What bounds it on the H100: two h-contractions per coil, 16·t·c·h·h·w
 // FLOP (19.2 GFLOP at t=15, c=10, h=w=200) against about 30 MB of inputs
-// and outputs: the FP32 rate at 'highest' (0.29 ms at 67 TFLOP/s); the TF32
+// and outputs: the FP32 rate at 'highest' (0.2899 ms at 67 TFLOP/s); the TF32
 // rate at 'default' (0.039 ms at 495 TFLOP/s) and 'high' (3 passes, 0.12 ms).
 //
-// Design at 'highest', and for rows that are not 16-byte aligned in every
-// mode: the two contractions are the forward's coil-stacked per-frame
-// products on the tile engine (normal_passes.cuh; the TF32 modes on the
-// mma.sync tile of cgemm_tf32.cuh), ȳ with Kᴴ read in place (a conjugated,
-// column-contiguous B: no transposed copy of K). One C entry launches seven
-// kernels on three (b·t·c, h, w) scratch pairs (144 MB at the flagship):
-// 1. v = S_c ⊙ g into the products scratch;
-// 2. ȳ = Kᴴ ·_h v (the tile normal::Adjoint, 3 blocks an SM);
-// 3. y = S_c ⊙ x into the products scratch (v is consumed);
-// 4. z = K ·_h y;
-// 5. x̄_t = Σ_c conj(S_c) ⊙ ȳ_c + λg, the forward's coil reduction;
-// 6. s̄_c = Σ_t conj(g_t) ⊙ z_{t,c} + ȳ_{t,c} ⊙ conj(x_t): a thread owns
+// Design: at 'highest' a call launches eight kernels on three (b·t·c, h, w)
+// scratch pairs (144 MB at the flagship) and the (b·kt, h, h) copy Kᴴ (the
+// engine route of normal_wgmma.cuh):
+// 1. Kᴴ, the conjugate-transposed copy of K (normal_apply_bwd_adjoint_kernel,
+//    a few µs of memory time): the FP32 tiles read B's rows along k;
+// 2. v = S ⊙ g into the products scratch;
+// 3. ȳ = Kᴴ ·_h v on the tile engine (Fp32Tile of normal_passes.cuh on
+//    16-byte rows);
+// 4. y = S ⊙ x into the products scratch (v is consumed);
+// 5. z = K ·_h y, the same kernel;
+// 6. x̄_t = Σ_c conj(S_c) ⊙ ȳ_c + λg, the forward's coil reduction;
+// 7. s̄_c = Σ_t conj(g_t) ⊙ z_{t,c} + ȳ_{t,c} ⊙ conj(x_t): a thread owns
 //    four pixels of one coil and sums over the frames in registers. The
 //    Pallas kernel sums s̄ into an output block that stays resident across
 //    the TPU's sequential grid; here no per-frame partials and no atomics
 //    are needed, and the sum is deterministic;
-// 7. λ̄'s partials, one block per (b, t).
-// Passes 5 and 6 read ȳ twice (one more 48 MB pass) and keep b·c·h·w / 4
-// threads busy. One pass per pixel over t and c, holding s̄ for every coil
-// in registers, would read ȳ once, but has b·h·w threads of ~200
-// registers: too few warps to cover the memory latency, and it measured
-// slower than the two passes together on the H100.
+// 8. λ̄'s partials, one block per (b, t).
+// With the copy the tile's chains are those of a conjugated read of K (br
+// = Re K, bi = −Im K, and the FMAs' sign flips are exact), so ȳ has the
+// bits of a ȳ that reads Kᴴ in place. On an NVIDIA H100 80GB HBM3 at 700 W
+// at the flagship a call takes 0.690 ms device alone, 0.287 + 0.285 of it
+// the two contractions, against the FP32 bound of 0.2899 ms (PERF.md:
+// kernel_ab.py, chip_smoke.py [precision]). Passes 6 and 7
+// read ȳ twice (one more 48 MB pass) and keep b·c·h·w / 4 threads busy. One
+// pass per pixel over t and c, holding s̄ for every coil in registers, would
+// read ȳ once, but has b·h·w threads of ~200 registers: too few warps to
+// cover the memory latency, and it measured slower than the two passes
+// together on the H100.
+// Where the caller asks for it (normal_cuda.set_fp32_tile('fused')), 16-byte
+// rows take the fused route instead: steps 2-3 and 4-5 each one kernel on
+// the FP32 tile of fp32_hopper.cuh, which forms S ⊙ g and S ⊙ x in its
+// staging (six kernels a call, no products scratch); the same bits, slower
+// on the H100, 0.894 ms a call (fp32_hopper.cuh says why).
 //
-// Design of the TF32 modes on 16-byte rows: both contractions on the Hopper
-// tile of the forward (wgmma_tf32.cuh, through the routes of
-// normal_wgmma.cuh): at 'default', where the resident tile fills the card,
-// each contraction forms its products S_c ⊙ g and S_c ⊙ x in the tile's
-// staging (no products pass, no products scratch: 6 kernels a call, 96 MB of
-// scratch); at 'high', and on grids the resident tile does not fill, the
-// products pass and the streaming tile (8 kernels). Steps 5-7 are the same
-// kernels as above. TF32 wgmma reads its shared operands K-major only, and
-// on this tile row i of B is B[i, :]: ȳ needs B = Kᴴ, row i conj(K[:, i]).
-// Kᴴ comes from a conjugate-transposed copy of K, written by one small
-// kernel (normal_apply_bwd_adjoint_kernel) into scratch, (b·kt, h, h) re/im
-// planes (4.8 MB at kt = 15, h = 200; a few µs of memory time), so the
-// forward's routes run unchanged with B = the copy. Transposing and
-// conjugating in the tile's rounding pass instead would save the copy, but
-// it needs a transposed-read variant of the tile's staging without bank
-// conflicts, for a copy that costs a few percent of a call. cvt.rna and the
-// hi/lo split commute with negation, so rounding the copy's conj(K) gives
-// the bits of the plain version's tf32(conj K): kernel and emulation differ
-// in summation order only.
+// The TF32 modes take the same steps on the TF32 tiles of wgmma_tf32.cuh
+// (normal_wgmma.cuh): at 'default', where the resident tile fills the card,
+// each contraction forms its products in the tile's staging (6 kernels a
+// call, no products scratch); at 'high', and on grids the resident tile
+// does not fill, the steps above on the streaming tile (8 kernels).
+// cvt.rna and the hi/lo split commute with negation, so rounding the copy's
+// conj(K) gives the bits of the plain version's tf32(conj K): kernel and
+// emulation differ in summation order only.
+//
+// Rows that are not 16-byte aligned: steps 2-8 with the two contractions on
+// the tile engines (normal_passes.cuh): at 'highest' cgemm_tile.cuh's with
+// ȳ on the copy Kᴴ (step 1, eight kernels); in the TF32 modes the mma.sync
+// tile of cgemm_tf32.cuh with Kᴴ read in place as a conjugated,
+// column-contiguous B (seven kernels).
 
 #include <type_traits>
 
@@ -112,8 +118,16 @@ normal_apply_bwd_wgmma_resident_kernel(const wgmma::Problem p) {
   wgmma::run_resident<R>(p);
 }
 
+// 'highest' on the fused route: z[f, c] = B_g ·_h (S_c ⊙ u_f), B = K or the
+// copy Kᴴ, on the FP32 tile of fp32_hopper.cuh, the products formed in its
+// staging.
+__global__ void __launch_bounds__(fp32::MAX_THREADS, 1)
+normal_apply_bwd_fp32_fused_kernel(const __grid_constant__ fp32::Problem p) {
+  fp32::run(p);
+}
+
 // Kᴴ of each of the b·kt matrices K (H x H): kh[g][i][k] = conj(K[g][k][i]),
-// the B of ȳ's contraction on the Hopper tile. A block moves one 32 x 32 tile
+// the B of ȳ's contraction at 'highest' and on the Hopper tiles. A block moves one 32 x 32 tile
 // through shared memory (rows of 33 floats: the transposed reads hit distinct
 // banks), reading and writing whole rows of 32 floats.
 constexpr int ADJ_TILE = 32, ADJ_THREADS = 256;
@@ -237,13 +251,14 @@ int contract(const float* yr, const float* yi, const float* kr, const float* ki,
       yr, yi, kr, ki, zr, zi, groups, G, h, w, s);
 }
 
-// The contraction with K (ADJOINT: Kᴴ) in the mode's engine: the FP32 tiles
-// (PASSES 0; the adjoint's own wide tile) or the TF32 tiles (1, 3).
+// The contraction with B (ADJOINT: B = Kᴴ read in place) on the mode's
+// tile engine: the FP32 tiles (PASSES 0; B = K or the copy Kᴴ, never read in
+// place) or the TF32 tiles (1, 3).
 template <bool ADJOINT, int PASSES>
 int contract_in(const float* yr, const float* yi, const float* kr, const float* ki, float* zr,
                 float* zi, int groups, int G, int h, int w, bool wide, cudaStream_t s) {
-  using FL = std::conditional_t<ADJOINT, normal::Adjoint, cgemm::Large>;
-  using TL = std::conditional_t<PASSES == 0, FL, tf32::Large>;
+  static_assert(PASSES != 0 || !ADJOINT, "'highest' contracts with the copy Kᴴ");
+  using TL = std::conditional_t<PASSES == 0, normal::Fp32Tile, tf32::Large>;
   using TS = std::conditional_t<PASSES == 0, cgemm::Small, tf32::Small>;
   return wide ? contract<TL, 4, ADJOINT, PASSES>(yr, yi, kr, ki, zr, zi, groups, G, h, w, s)
               : contract<TS, 1, ADJOINT, PASSES>(yr, yi, kr, ki, zr, zi, groups, G, h, w, s);
@@ -252,13 +267,21 @@ int contract_in(const float* yr, const float* yi, const float* kr, const float* 
 template <bool ADJOINT>
 int contraction(const float* yr, const float* yi, const float* kr, const float* ki, float* zr,
                 float* zi, int groups, int G, int h, int w, bool wide, int mode, cudaStream_t s) {
-  return mode == 0   ? contract_in<ADJOINT, 0>(yr, yi, kr, ki, zr, zi, groups, G, h, w, wide, s)
-         : mode == 1 ? contract_in<ADJOINT, 3>(yr, yi, kr, ki, zr, zi, groups, G, h, w, wide, s)
-                     : contract_in<ADJOINT, 1>(yr, yi, kr, ki, zr, zi, groups, G, h, w, wide, s);
+  if constexpr (ADJOINT) {  // the TF32 modes only
+    return mode == 1 ? contract_in<true, 3>(yr, yi, kr, ki, zr, zi, groups, G, h, w, wide, s)
+                     : contract_in<true, 1>(yr, yi, kr, ki, zr, zi, groups, G, h, w, wide, s);
+  } else {
+    return mode == 0   ? contract_in<false, 0>(yr, yi, kr, ki, zr, zi, groups, G, h, w, wide, s)
+           : mode == 1 ? contract_in<false, 3>(yr, yi, kr, ki, zr, zi, groups, G, h, w, wide, s)
+                       : contract_in<false, 1>(yr, yi, kr, ki, zr, zi, groups, G, h, w, wide, s);
+  }
 }
 
 // This file's kernels on the routes of normal_wgmma.cuh.
 struct Kernels {
+  static int fused(const fp32::Problem& p, cudaStream_t s) {
+    return fp32::launch<normal_apply_bwd_fp32_fused_kernel>(p, s);
+  }
   template <class T>
   static int streaming(const wgmma::Problem& p, cudaStream_t s) {
     return wgmma::launch<T, normal_apply_bwd_wgmma_kernel<T>>(p, s);
@@ -300,35 +323,38 @@ int passes(const float* xr, const float* xi, const float* gr, const float* gi, c
 
 }  // namespace
 
-// The route of a call (normal_wgmma.cuh: 0 the tile engines, 1 the products
-// pass and the streaming Hopper tile, 2 the resident Hopper tile with the
-// products fused), for the caller's operands and outputs and scratch that
-// the caller allocates (16-byte aligned): which scratch the call needs.
+// The route of a call (normal_wgmma.cuh: 0 the engine, 1 the products pass
+// and the streaming TF32 tile, 2 the resident TF32 tile with the products
+// fused, 3 the FP32 tile with the products fused, where `fused` asks for it
+// at 'highest'), for the caller's operands and outputs and scratch that the
+// caller allocates (16-byte aligned): which scratch the call needs.
 extern "C" int cinemri_normal_apply_bwd_route(const float* xr, const float* xi, const float* gr,
                                               const float* gi, const float* kr, const float* ki,
                                               const float* sr, const float* si, int b, int t,
-                                              int c, int h, int w, int kt, int mode) {
-  return normal::route(mode, normal::all_aligned16(xr, xi, gr, gi, kr, ki, sr, si), b, t, c, h, w,
-                       kt);
+                                              int c, int h, int w, int kt, int mode, int fused) {
+  return normal::route(mode, fused != 0, normal::all_aligned16(xr, xi, gr, gi, kr, ki, sr, si), b,
+                       t, c, h, w, kt);
 }
 
 // Scratch allocated by the caller: pr, pi, ybr, ybi, zr, zi of b·t·c·h·w
-// floats each (pr and pi unused, and may be null, on route 2), and on routes
-// 1 and 2 khr, khi of b·kt·h·h floats each (else unused, may be null).
-// mode: 0 'highest', 1 'high', 2 'default'.
+// floats each (pr and pi unused, and may be null, on routes 2 and 3), and
+// khr, khi of b·kt·h·h floats each on routes 1-3 and at 'highest' (else
+// unused, may be null).
+// mode: 0 'highest', 1 'high', 2 'default'; fused: 1 for the fused FP32
+// route at 'highest' (route 3 on 16-byte rows), else 0.
 extern "C" int cinemri_normal_apply_bwd(const float* xr, const float* xi, const float* gr,
                                         const float* gi, const float* kr, const float* ki,
                                         const float* sr, const float* si, const float* lam,
                                         float* xbr, float* xbi, float* sbr, float* sbi, float* lb,
                                         float* pr, float* pi, float* ybr, float* ybi, float* zr,
                                         float* zi, float* khr, float* khi, int b, int t, int c,
-                                        int h, int w, int kt, int mode, void* stream) {
+                                        int h, int w, int kt, int mode, int fused, void* stream) {
   if (mode < 0 || mode > 2) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long P = static_cast<long>(h) * w;
   const int groups = b * kt, G = t * c / kt;  // slabs sharing one K
   const normal::Route r =
-      normal::route(mode,
+      normal::route(mode, fused != 0,
                     normal::all_aligned16(xr, xi, gr, gi, kr, ki, sr, si, pr, pi, ybr, ybi, zr, zi,
                                           khr, khi, xbr, xbi, sbr, sbi),
                     b, t, c, h, w, kt);
@@ -337,33 +363,38 @@ extern "C" int cinemri_normal_apply_bwd(const float* xr, const float* xi, const 
     // ȳ = Kᴴ ·_h (S ⊙ g), on the copy Kᴴ; z = K ·_h (S ⊙ x)
     int err = adjoint(kr, ki, khr, khi, groups, h, s);
     if (!err)
-      err = normal::wgmma_contraction<Kernels>(r, gr, gi, sr, si, khr, khi, pr, pi, ybr, ybi, b, t,
-                                               c, h, w, kt, mode, s);
+      err = normal::hopper_contraction<Kernels>(r, gr, gi, sr, si, khr, khi, pr, pi, ybr, ybi, b,
+                                                t, c, h, w, kt, mode, s);
     if (!err)
-      err = normal::wgmma_contraction<Kernels>(r, xr, xi, sr, si, kr, ki, pr, pi, zr, zi, b, t, c,
-                                               h, w, kt, mode, s);
+      err = normal::hopper_contraction<Kernels>(r, xr, xi, sr, si, kr, ki, pr, pi, zr, zi, b, t,
+                                                c, h, w, kt, mode, s);
     return err ? err
                : passes<4>(xr, xi, gr, gi, sr, si, lam, xbr, xbi, sbr, sbi, lb, ybr, ybi, zr, zi, b,
                            t, c, P, s);
   }
   if (pr == nullptr || pi == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  if (mode == 0 && (khr == nullptr || khi == nullptr)) return static_cast<int>(cudaErrorInvalidValue);
   const bool vec = P % 4 == 0 && normal::all_aligned16(xr, xi, gr, gi, sr, si, pr, pi, ybr, ybi,
                                                         zr, zi, xbr, xbi, sbr, sbi);
-  const bool wide = normal::tile_vec(h, w, kr, ki, pr, pi, ybr, ybi) &&
-                    normal::all_aligned16(zr, zi);
-  // 1-2: ȳ = Kᴴ ·_h (S ⊙ g)
-  int err = vec ? products<4>(gr, gi, sr, si, pr, pi, b, t, c, P, mode, s)
-                : products<1>(gr, gi, sr, si, pr, pi, b, t, c, P, mode, s);
+  // 1-3: ȳ = Kᴴ ·_h (S ⊙ g), at 'highest' on the copy Kᴴ, else Kᴴ read in place
+  int err = mode == 0 ? adjoint(kr, ki, khr, khi, groups, h, s) : 0;
   if (err) return err;
-  err = contraction<true>(pr, pi, kr, ki, ybr, ybi, groups, G, h, w, wide, mode, s);
+  err = vec ? products<4>(gr, gi, sr, si, pr, pi, b, t, c, P, mode, s)
+            : products<1>(gr, gi, sr, si, pr, pi, b, t, c, P, mode, s);
   if (err) return err;
-  // 3-4: z = K ·_h (S ⊙ x)
+  err = mode == 0 ? contraction<false>(pr, pi, khr, khi, ybr, ybi, groups, G, h, w,
+                                       normal::tile_vec(h, w, khr, khi, pr, pi, ybr, ybi), mode, s)
+                  : contraction<true>(pr, pi, kr, ki, ybr, ybi, groups, G, h, w,
+                                      normal::tile_vec(h, w, kr, ki, pr, pi, ybr, ybi), mode, s);
+  if (err) return err;
+  // 4-5: z = K ·_h (S ⊙ x)
   err = vec ? products<4>(xr, xi, sr, si, pr, pi, b, t, c, P, mode, s)
             : products<1>(xr, xi, sr, si, pr, pi, b, t, c, P, mode, s);
   if (err) return err;
-  err = contraction<false>(pr, pi, kr, ki, zr, zi, groups, G, h, w, wide, mode, s);
+  err = contraction<false>(pr, pi, kr, ki, zr, zi, groups, G, h, w,
+                           normal::tile_vec(h, w, kr, ki, pr, pi, zr, zi), mode, s);
   if (err) return err;
-  // 5-7: x̄, s̄ and λ̄'s partials
+  // 6-8: x̄, s̄ and λ̄'s partials
   return vec ? passes<4>(xr, xi, gr, gi, sr, si, lam, xbr, xbi, sbr, sbi, lb, ybr, ybi, zr, zi, b,
                          t, c, P, s)
              : passes<1>(xr, xi, gr, gi, sr, si, lam, xbr, xbi, sbr, sbi, lb, ybr, ybi, zr, zi, b,

@@ -1,6 +1,10 @@
 // Passes shared by the masked normal apply (csrc/normal_apply.cu) and its
 // backward (csrc/normal_apply_bwd.cu), on planar (re, im) float32 operands
-// with frames f = b·T + t, coils c and P = H·W pixels a plane:
+// with frames f = b·T + t, coils c and P = H·W pixels a plane. The engine
+// route of normal_wgmma.cuh runs these passes: at 'highest' by default (on
+// 16-byte rows with the tile Fp32Tile below), and in every mode on rows
+// that are not 16-byte aligned; the other routes are the TF32 tiles and the
+// fused FP32 tile, which form the products in their staging:
 //
 // - products: y[f, c] = S[b, c] ⊙ u[f], written as (B·T·C, H, W) slabs
 //   (u = x, or the cotangent g); one memory pass. With UNFUSED (the TF32
@@ -17,10 +21,11 @@
 //   per frame (kt = T), a batch row's T·C slabs when it is not (kt = 1,
 //   then the product is the DFT instance as it stands). A row tile never
 //   straddles two groups: tiles are clipped at group boundaries (the last
-//   tile of a group is partial: 80 of 128 slab columns at C·W = 2000), so
-//   a block reads one K. Kᴴ is read in place as a column-contiguous,
-//   conjugated B: no transposed copy of K. With PASSES = 1 or 3 (the
-//   'default' and 'high' modes) the contraction runs on the mma.sync TF32
+//   tile of a group is partial: 80 of Fp32Tile's 96 slab columns at C·W =
+//   2000), so a block reads one K. In the TF32 modes Kᴴ is read in place as
+//   a column-contiguous, conjugated B; at 'highest' the backward contracts
+//   with its conjugate-transposed copy, k-contiguous. With PASSES = 1 or 3
+//   (the 'default' and 'high' modes) the contraction runs on the mma.sync TF32
 //   tile of cgemm_tf32.cuh (rows that are not 16-byte aligned: the aligned
 //   TF32 calls of the forward and the backward run on wgmma_tf32.cuh through
 //   normal_wgmma.cuh), else on the FP32 engine of cgemm_tile.cuh.
@@ -176,12 +181,16 @@ int launch_contract(const float* yr, const float* yi, const float* kr, const flo
   return cgemm::launch<Kernel>(grid, T::THREADS, smem, s, yr, yi, kr, ki, zr, zi, H, W, G, n_tiles);
 }
 
-// The tile of the adjoint contraction (Kᴴ read in place, a conjugated
-// column-contiguous B). Under the large tile's cap of 128 registers (4
-// blocks an SM) it holds one A value at a time and waits on each shared
-// load; with 3 blocks an SM (161 registers) and two k steps unrolled it
-// loads ahead, as the k-contiguous instance does at 128.
-using Adjoint = cgemm::Tile<128, 40, 8, 8, 5, 3, 3, 2>;
+// The 'highest' engine's tile on 16-byte rows, for the forward and both
+// contractions of the backward (ȳ on the copy Kᴴ, k-contiguous like K): the
+// engine at 96 slab columns x 40 rows, 16-deep chunks, four blocks an SM (12
+// warps; 158 registers a thread, 56 KB of shared memory a block). Every
+// output keeps the engine's chain (k ascending, the same FMAs), so its bits
+// are those of cgemm::Large and of the conjugated read of K. At the flagship
+// (b 1, t 15, c 10, 200 x 200, kt 15) its 1575 blocks fill 2.98 waves of the
+// H100's 4 x 132 slots (Large's 1200: 2.27 waves); its times are in PERF.md
+// (kernel_ab.py against Large, chip_smoke.py [precision]).
+using Fp32Tile = cgemm::Tile<96, 40, 16, 8, 5, 3, 4, 1>;
 
 // 16-byte copies in the contraction when K's rows and the slabs' rows are
 // 16-byte aligned (the large tile), else 4-byte ones (the small tile), as

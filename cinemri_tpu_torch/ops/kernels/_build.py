@@ -46,7 +46,8 @@ _I = ctypes.c_int
 # C entry points of each library: name -> {function: argtypes}. Every
 # operand, scalars such as λ included, is a device pointer; ``mode`` is the
 # precision (ops/kernels/precision.py MODES: 0 'highest', 1 'high', 2
-# 'default').
+# 'default'); ``fused`` asks for the normal apply's fused FP32 route at
+# 'highest' (ops/kernels/normal_cuda.py set_fp32_tile).
 KERNELS: Dict[str, Dict[str, tuple]] = {
     "dft_matmul": {
         # xr, xi, wr, wi, yr, yi, O, N, I, mode, stream
@@ -54,23 +55,23 @@ KERNELS: Dict[str, Dict[str, tuple]] = {
     },
     "normal_apply": {
         # xr, xi, kr, ki, sr, si, lam, outr, outi, scratch yr, yi, zr, zi,
-        # b, t, c, h, w, kt, mode, stream
+        # b, t, c, h, w, kt, mode, fused, stream
         "cinemri_normal_apply": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                 _I, _I, _I, _I, _I, _I, _I, _P),
+                                 _I, _I, _I, _I, _I, _I, _I, _I, _P),
         # the route of a call, which sets its scratch: xr, xi, kr, ki, sr, si,
-        # b, t, c, h, w, kt, mode
-        "cinemri_normal_apply_route": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I),
+        # b, t, c, h, w, kt, mode, fused
+        "cinemri_normal_apply_route": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I),
     },
     "normal_apply_bwd": {
         # xr, xi, gr, gi, kr, ki, sr, si, lam, xbr, xbi, sbr, sbi, lb,
         # scratch pr, pi, ybr, ybi, zr, zi, khr, khi, b, t, c, h, w, kt,
-        # mode, stream
+        # mode, fused, stream
         "cinemri_normal_apply_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P,
                                      _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                     _I, _I, _I, _I, _I, _I, _I, _P),
-        # xr, xi, gr, gi, kr, ki, sr, si, b, t, c, h, w, kt, mode
+                                     _I, _I, _I, _I, _I, _I, _I, _I, _P),
+        # xr, xi, gr, gi, kr, ki, sr, si, b, t, c, h, w, kt, mode, fused
         "cinemri_normal_apply_bwd_route": (_P, _P, _P, _P, _P, _P, _P, _P,
-                                           _I, _I, _I, _I, _I, _I, _I),
+                                           _I, _I, _I, _I, _I, _I, _I, _I),
     },
     "fft2_plane": {
         # xr, xi, whr, whi, wwr, wwi, yr, yi, B, h, w, stream

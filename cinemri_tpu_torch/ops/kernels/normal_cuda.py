@@ -22,41 +22,55 @@ and ``z_c = K (S_c ⊙ x)`` (recomputed)::
 Forward kernel (``csrc/normal_apply.cu``): bound by the FP32 rate (9.6 GFLOP
 against ~18 MB per apply at t=15, c=10, h=w=200). For one frame the
 contraction over every coil is one complex product, ``K_t (h × h) ·
-[S_1⊙x_t | … | S_C⊙x_t] (h × c·w)``, so the C entry runs three passes:
-the products ``S_c ⊙ x_t`` into a ``(b·t·c, h, w)`` scratch, the
-coil-stacked per-frame contraction on the FP32 tile engine of the DFT
-kernel (``csrc/cgemm_tile.cuh``), and the coil reduction ``Σ_c conj(S_c) ⊙
-z_c + λx``. :func:`coil_products`, :func:`frame_contract` and
-:func:`coil_reduce` are those passes in plain PyTorch, for the CPU tests.
+[S_1⊙x_t | … | S_C⊙x_t] (h × c·w)``, so the C entry runs three passes: the
+products ``S_c ⊙ x_t`` into a ``(b·t·c, h, w)`` scratch, the coil-stacked
+per-frame contraction on the FP32 tile engine of ``csrc/cgemm_tile.cuh``
+(on 16-byte rows its instance ``normal::Fp32Tile``: 96 slab columns × 40
+rows a block, 16-deep chunks, four blocks an SM), and the coil reduction
+``Σ_c conj(S_c) ⊙ z_c + λx``. :func:`coil_products`, :func:`frame_contract`
+and :func:`coil_reduce` are those passes in plain PyTorch, for the CPU
+tests.
+
+The FP32 tile at ``'highest'`` (:func:`set_fp32_tile`): ``'engine'``, the
+default, is the route above; ``'fused'`` runs the contraction on 16-byte
+rows on the tile of ``csrc/fp32_hopper.cuh`` instead, which forms ``S ⊙ u``
+in its staging (no products pass, no products scratch). Both give the same
+bits; the fused tile is slower on the H100 (``PERF.md``). Rows that are not
+16-byte aligned take the engine route either way.
 
 Precision: the contractions take the DFT's precision (the JAX package's
 ``normal_pallas.py::_precision`` reads ``ops/fft.py``'s, as
 ``physics/operators.py`` passes :func:`~cinemri_tpu_torch.ops.fft.
-get_dft_precision` here): ``'highest'`` on the FP32 engine, ``'high'``
-(3xTF32) and ``'default'`` (1xTF32) on the tensor cores; the products and
-the coil passes stay f32. The forward's contraction runs on the Hopper tile
-of ``csrc/wgmma_tf32.cuh`` (routes shared with the backward in
-``csrc/normal_wgmma.cuh``); at ``'default'``, where the resident tile fills
-the card, that tile forms the products while staging its operand (no ``y``
-scratch is allocated), so a call runs two kernels, the contraction and the
-coil reduction; at ``'high'`` the three passes stay. Rows that are not
-16-byte aligned keep the three passes on the ``mma.sync`` tile of
-``csrc/cgemm_tf32.cuh``. The plain versions take the same ``precision`` and
-round the contraction's operands as the tile does (:mod:`.precision`). The
-kernels form each product ``S ⊙ u`` with separate roundings, as PyTorch
-does, so that a TF32 operand is the same on both sides.
+get_dft_precision` here): ``'highest'`` in full f32 on the CUDA cores,
+``'high'`` (3xTF32) and ``'default'`` (1xTF32) on the tensor cores; the
+products and the coil passes stay f32. In the TF32 modes the contraction
+runs on the Hopper tile of ``csrc/wgmma_tf32.cuh`` (every Hopper route is
+shared with the backward in ``csrc/normal_wgmma.cuh``); at ``'default'``,
+where the resident tile fills the card, that tile forms the products while
+staging its operand, so a call runs two kernels; at ``'high'`` the three
+passes stay. Rows that are not 16-byte aligned keep the three passes, on
+``csrc/cgemm_tile.cuh`` at ``'highest'`` and the ``mma.sync`` tile of
+``csrc/cgemm_tf32.cuh`` in the TF32 modes. No ``y`` scratch is allocated
+where the products are formed in staging. The plain versions take the same
+``precision`` and round the contraction's operands as the tile does
+(:mod:`.precision`). In the TF32 modes the kernels form each product ``S ⊙
+u`` with separate roundings, as PyTorch does, so that a TF32 operand is the
+same on both sides; ``'highest'`` keeps the FMA-contracted products.
 
 Backward kernel (``csrc/normal_apply_bwd.cu``): the products and
-contractions for ``ȳ`` (``Kᴴ`` read in place) and ``z``, then ``x̄`` by the
-coil reduction and ``s̄`` by a pass that sums over the frames in registers
-(:func:`bwd_pixel_pass`): deterministic, no atomics, no partials. In the
-TF32 modes on 16-byte rows both contractions run on the forward's Hopper
-routes, ``ȳ`` with ``B = Kᴴ`` from a conjugate-transposed copy of ``K``
-written by one small kernel (TF32 ``wgmma`` reads its shared operands
-K-major only); at ``'default'`` both form their products in the resident
-tile's staging (6 kernels a call, no products scratch), at ``'high'`` they
-keep the products pass (8 kernels). The C entries report their route
-(``cinemri_normal_apply[_bwd]_route``), which sets the scratch allocated.
+contractions for ``ȳ`` and ``z``, then ``x̄`` by the coil reduction and
+``s̄`` by a pass that sums over the frames in registers
+(:func:`bwd_pixel_pass`): deterministic, no atomics, no partials. ``ȳ``
+contracts with ``B = Kᴴ`` from a conjugate-transposed copy of ``K``, written
+by one small kernel, at ``'highest'`` and on the Hopper routes (the FP32
+tiles and TF32 ``wgmma`` read B's rows along k): 8 kernels a call at
+``'highest'`` and ``'high'``, 6 at ``'default'`` where both contractions
+form their products in the resident tile's staging, and 6 on the fused FP32
+route. Rows that are not 16-byte aligned take 7 kernels in the TF32 modes,
+``Kᴴ`` read in place. The C entries report their route
+(``cinemri_normal_apply[_bwd]_route``), which sets the scratch allocated
+(:func:`_planes`); ``LAUNCHES_BY_ROUTE`` and ``BWD_LAUNCHES_BY_ROUTE`` count
+the calls on each.
 
 λ stays on the device: both kernels read it through a pointer to a
 one-element f32 tensor (:func:`lambda_tensor`), so a learned λ (CineNet's
@@ -108,12 +122,47 @@ __all__ = [
     "BWD_LAUNCHES",
     "LAUNCHES_BY_PRECISION",
     "BWD_LAUNCHES_BY_PRECISION",
+    "LAUNCHES_BY_ROUTE",
+    "BWD_LAUNCHES_BY_ROUTE",
+    "ROUTES",
+    "FP32_TILES",
+    "set_fp32_tile",
+    "get_fp32_tile",
 ]
 
 LAUNCHES = 0
 BWD_LAUNCHES = 0
 LAUNCHES_BY_PRECISION = dict.fromkeys(MODES, 0)
 BWD_LAUNCHES_BY_PRECISION = dict.fromkeys(MODES, 0)
+# Routes of a call (csrc/normal_wgmma.cuh's Route), by the number its C entry
+# reports: the products pass and the tile engines ('highest' by default, and
+# rows that are not 16-byte aligned), the products pass and the streaming TF32
+# tile ('high'), the resident TF32 tile with the products formed in its
+# staging ('default'), and the FP32 tile with the products formed in its
+# staging ('highest' with set_fp32_tile('fused')).
+ROUTES = ("engine", "streaming", "resident", "fp32_fused")
+LAUNCHES_BY_ROUTE = dict.fromkeys(ROUTES, 0)
+BWD_LAUNCHES_BY_ROUTE = dict.fromkeys(ROUTES, 0)
+
+# The FP32 tile of the 'highest' contractions on 16-byte rows: the engine's
+# Fp32Tile after the products pass, or the fused tile of csrc/fp32_hopper.cuh.
+FP32_TILES = ("engine", "fused")
+_FP32_TILE = "engine"
+
+
+def set_fp32_tile(tile: str) -> None:
+    """Set the FP32 tile that the normal apply and its backward contract on
+    at ``'highest'``: ``'engine'`` (the default) or ``'fused'``. It applies
+    from the next call; both give the same bits."""
+    global _FP32_TILE
+    if tile not in FP32_TILES:
+        raise ValueError(f"the FP32 tile is one of {FP32_TILES}, got {tile!r}")
+    _FP32_TILE = tile
+
+
+def get_fp32_tile() -> str:
+    """The current FP32 tile: ``'engine'`` or ``'fused'``."""
+    return _FP32_TILE
 
 
 def _cmul(ar, ai, br, bi):
@@ -288,12 +337,17 @@ def lambda_tensor(lam, device: torch.device) -> torch.Tensor:
     return trace_safe(_constant_lambda, lam, device)
 
 
-# Routes of a call (csrc/normal_wgmma.cuh's Route), which set its scratch: the
-# tile engines ('highest', rows that are not 16-byte aligned; no copy Kᴴ), and
-# the resident Hopper tile with the products formed in its staging (no
-# products planes); route 1, the products pass and the streaming Hopper tile,
-# takes both.
-_ENGINE, _RESIDENT = 0, 2
+def _planes(route: int, n: int, nk: int, backward: bool, highest: bool):
+    """``(k, sizes)``: the scratch planes (floats each) a call on ``route``
+    needs, in the C entry's order, the first ``k`` of them the products
+    ``y`` re and im (none on the routes that form them in their staging);
+    then the contraction outputs (``z``; the backward's ``ȳ`` and ``z``),
+    ``n`` floats each; and for the backward at ``'highest'`` (``highest``)
+    and off the engine route the copy ``Kᴴ`` re and im, ``nk`` floats each."""
+    k = 0 if ROUTES[route] in ("resident", "fp32_fused") else 2
+    sizes = [n] * (k + (4 if backward else 2))
+    copy = backward and (highest or ROUTES[route] != "engine")
+    return k, sizes + ([nk] * 2 if copy else [])
 
 
 def _scratch(device, sizes):
@@ -340,20 +394,23 @@ def normal_apply(xr, xi, kr, ki, sr, si, lam,
                 si.data_ptr())
     n = b * t * c * h * w
     with torch.cuda.device(xr.device):
-        route = lib.cinemri_normal_apply_route(*operands, b, t, c, h, w, kt, MODES[p])
-        # products y (none on the resident route) and contraction z,
+        fused = int(_FP32_TILE == "fused")
+        route = lib.cinemri_normal_apply_route(*operands, b, t, c, h, w, kt, MODES[p], fused)
+        # products y (none where the route forms them) and contraction z,
         # (b·t·c, h, w) each, re and im
-        k = 0 if route == _RESIDENT else 2
-        scratch, planes = _scratch(xr.device, [n] * (k + 2))
+        k, sizes = _planes(route, n, 0, False, p == "highest")
+        scratch, planes = _scratch(xr.device, sizes)
         stream = torch.cuda.current_stream().cuda_stream
         code = lib.cinemri_normal_apply(
             *operands, lam_t.data_ptr(), outr.data_ptr(), outi.data_ptr(),
-            *(planes[:k] or [None, None]), *planes[k:], b, t, c, h, w, kt, MODES[p], stream,
+            *(planes[:k] or [None, None]), *planes[k:], b, t, c, h, w, kt, MODES[p], fused,
+            stream,
         )
     _build.check(lib, code, "cinemri_normal_apply launch")
     global LAUNCHES
     LAUNCHES += 1
     LAUNCHES_BY_PRECISION[p] += 1
+    LAUNCHES_BY_ROUTE[ROUTES[route]] += 1
     return outr, outi
 
 
@@ -385,23 +442,24 @@ def normal_apply_bwd(xr, xi, gr, gi, kr, ki, sr, si, lam, precision: str = "high
                 ki.data_ptr(), sr.data_ptr(), si.data_ptr())
     n, nk = b * t * c * h * w, b * kt * h * h
     with torch.cuda.device(xr.device):
-        route = lib.cinemri_normal_apply_bwd_route(*operands, b, t, c, h, w, kt, MODES[p])
-        # products (S⊙g, then S⊙x; none on the resident route), ȳ and z,
-        # (b·t·c, h, w) each, and on the Hopper routes the copy Kᴴ,
-        # (b·kt, h, h); re and im
-        k = 0 if route == _RESIDENT else 2
-        scratch, planes = _scratch(xr.device,
-                                   [n] * (k + 4) + ([nk] * 2 if route != _ENGINE else []))
+        fused = int(_FP32_TILE == "fused")
+        route = lib.cinemri_normal_apply_bwd_route(*operands, b, t, c, h, w, kt, MODES[p], fused)
+        # products (S⊙g, then S⊙x; none where the route forms them), ȳ and
+        # z, (b·t·c, h, w) each, and at 'highest' and on the Hopper routes
+        # the copy Kᴴ, (b·kt, h, h); re and im
+        k, sizes = _planes(route, n, nk, True, p == "highest")
+        scratch, planes = _scratch(xr.device, sizes)
         stream = torch.cuda.current_stream().cuda_stream
         code = lib.cinemri_normal_apply_bwd(
             *operands, lam_t.data_ptr(), xbr.data_ptr(), xbi.data_ptr(), sbr.data_ptr(),
             sbi.data_ptr(), lb.data_ptr(), *(planes[:k] or [None, None]), *planes[k:k + 4],
-            *(planes[k + 4:] or [None, None]), b, t, c, h, w, kt, MODES[p], stream,
+            *(planes[k + 4:] or [None, None]), b, t, c, h, w, kt, MODES[p], fused, stream,
         )
     _build.check(lib, code, "cinemri_normal_apply_bwd launch")
     global BWD_LAUNCHES
     BWD_LAUNCHES += 1
     BWD_LAUNCHES_BY_PRECISION[p] += 1
+    BWD_LAUNCHES_BY_ROUTE[ROUTES[route]] += 1
     return xbr, xbi, sbr, sbi, lb
 
 

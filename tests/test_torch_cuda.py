@@ -131,24 +131,70 @@ def test_dft_every_axis_matches_plain_backend(dev, layout):
 # copies); 18 coils.
 NORMAL_SHAPES = [(1, 3, 4, 24, 20, 3, 0.0), (2, 3, 2, 70, 33, 1, 0.37), (2, 3, 3, 200, 200, 3, 0.0),
                  (1, 2, 3, 36, 28, 2, 0.37), (2, 3, 3, 200, 200, 1, 0.37), (1, 2, 18, 24, 20, 2, 0.37)]
+# The FP32 tiles at 'highest' on 16-byte rows (csrc/normal_passes.cuh
+# Fp32Tile, 96 x 40 blocks, the default; csrc/fp32_hopper.cuh, the fused
+# tile over all of h in 40-row squads): the flagship, kt = 1 with λ, b = 2;
+# h = 52 and 244 (16-byte rows that 40 does not divide, 244 in two passes of
+# the fused tile's squads), where 96 and 64 columns do not divide c·w either.
+FP32_SHAPES = [(1, 15, 10, 200, 200, 15, 0.0), (1, 15, 10, 200, 200, 1, 0.37),
+               (2, 15, 10, 200, 200, 15, 0.0), (2, 3, 3, 52, 48, 3, 0.37), (1, 2, 2, 244, 12, 2, 0.2)]
+# (tile, offset) of each case: the FP32 tile asked for (normal_cuda.
+# set_fp32_tile), and whether x, g and S start one float past a 16-byte
+# boundary (K's rows stay 16-byte aligned), which keeps a call off the fused
+# route and takes 4-byte passes around the contraction
+FWD_CASES = ([s + ("engine", False) for s in NORMAL_SHAPES + FP32_SHAPES]
+             + [s + ("fused", False) for s in FP32_SHAPES + NORMAL_SHAPES[1:2] + NORMAL_SHAPES[3:4]]
+             + [FP32_SHAPES[0] + ("engine", True), FP32_SHAPES[3] + ("fused", True)])
 
 
-@pytest.mark.parametrize("b,t,c,h,w,kt,lam", NORMAL_SHAPES)
-def test_normal_kernel_matches_plain(dev, b, t, c, h, w, kt, lam):
+def _route(h, w, tile, offset):
+    """The route a call at 'highest' takes: the fused FP32 tile where it is
+    asked for on 16-byte rows, else the engine (Fp32Tile on 16-byte rows)."""
+    aligned = h % 4 == 0 and w % 4 == 0 and not offset
+    return "fp32_fused" if tile == "fused" and aligned else "engine"
+
+
+def _randn(g, dev, offset):
+    """``torch.randn`` from ``g``; with ``offset`` a contiguous view that
+    starts one float past the allocation (4-byte aligned only)."""
+    def r(*shape):
+        n = int(np.prod(shape))
+        a = torch.randn(n + int(offset), generator=g, device=dev)
+        return a[int(offset):].view(shape)
+    return r
+
+
+def _on_tile(tile, fn):
+    """``fn()`` with the FP32 tile ``tile`` set, the default restored after."""
+    from cinemri_tpu_torch.ops.kernels import normal_cuda
+
+    try:
+        normal_cuda.set_fp32_tile(tile)
+        return fn()
+    finally:
+        normal_cuda.set_fp32_tile("engine")
+
+
+@pytest.mark.parametrize("b,t,c,h,w,kt,lam,tile,offset", FWD_CASES)
+def test_normal_kernel_matches_plain(dev, b, t, c, h, w, kt, lam, tile, offset):
     from cinemri_tpu_torch.ops.kernels import normal_cuda
     from cinemri_tpu_torch.physics.operators import masked_normal_kernel
 
     rng = np.random.default_rng(0)
     mask = torch.from_numpy((rng.random((b, kt, 1, h, 1)) < 0.4).astype(np.float32)).to(dev)
     k = masked_normal_kernel(mask)
-    g = torch.Generator(device=dev).manual_seed(1)
-    r = lambda *s: torch.randn(s, generator=g, device=dev)
+    r = _randn(torch.Generator(device=dev).manual_seed(1), dev, offset)
     args = (r(b, t, h, w), r(b, t, h, w), k.re.contiguous(), k.im.contiguous(),
             r(b, c, h, w), r(b, c, h, w), lam)
-    before = normal_cuda.LAUNCHES
-    got = normal_cuda.normal_apply(*args)
-    assert normal_cuda.LAUNCHES == before + 1
+    route = _route(h, w, tile, offset)
+    before = normal_cuda.LAUNCHES, normal_cuda.LAUNCHES_BY_ROUTE[route]
+    got = _on_tile(tile, lambda: normal_cuda.normal_apply(*args))
+    assert (normal_cuda.LAUNCHES, normal_cuda.LAUNCHES_BY_ROUTE[route]) == \
+        (before[0] + 1, before[1] + 1)
     _close(got, normal_cuda.normal_apply_torch(*args))
+    if tile == "fused":  # the same bits as the engine route
+        for a, b_ in zip(got, normal_cuda.normal_apply(*args)):
+            assert torch.equal(a, b_)
 
 
 def _normal_k(rng, b, kt, h, hermitian, dev):
@@ -175,26 +221,109 @@ NON_HERMITIAN = [(1, 15, 10, 200, 200, 15, 0.0, False), (2, 3, 2, 70, 33, 1, 0.3
                  (1, 2, 3, 36, 28, 2, 0.37, False)]
 
 
-@pytest.mark.parametrize("b,t,c,h,w,kt,lam,hermitian",
-                         [s + (True,) for s in NORMAL_SHAPES + [(1, 4, 3, 24, 20, 4, 0.0)]]
-                         + NON_HERMITIAN)
-def test_normal_bwd_kernel_matches_plain(dev, b, t, c, h, w, kt, lam, hermitian):
+@pytest.mark.parametrize("b,t,c,h,w,kt,lam,hermitian,tile,offset",
+                         [s + (True, "engine", False)
+                          for s in NORMAL_SHAPES + [(1, 4, 3, 24, 20, 4, 0.0)]]
+                         + [s + ("engine", False) for s in NON_HERMITIAN]
+                         + [s + (True, "engine", False) for s in FP32_SHAPES]
+                         + [s + (False, "engine", False) for s in FP32_SHAPES[1:]]
+                         + [s + (h_, "fused", False) for s in FP32_SHAPES for h_ in (True, False)]
+                         + [s + ("fused", False) for s in NON_HERMITIAN[1:]]
+                         + [FP32_SHAPES[0] + (False, "engine", True),
+                            FP32_SHAPES[3] + (False, "fused", True)])
+def test_normal_bwd_kernel_matches_plain(dev, b, t, c, h, w, kt, lam, hermitian, tile, offset):
     from cinemri_tpu_torch.ops.kernels import normal_cuda
 
     rng = np.random.default_rng(2)
     kr, ki = _normal_k(rng, b, kt, h, hermitian, dev)
-    g = torch.Generator(device=dev).manual_seed(3)
-    r = lambda *s: torch.randn(s, generator=g, device=dev)
+    r = _randn(torch.Generator(device=dev).manual_seed(3), dev, offset)
     args = (r(b, t, h, w), r(b, t, h, w), r(b, t, h, w), r(b, t, h, w), kr, ki, r(b, c, h, w),
             r(b, c, h, w), lam)
-    before = normal_cuda.BWD_LAUNCHES
-    got = normal_cuda.normal_apply_bwd(*args)
-    assert normal_cuda.BWD_LAUNCHES == before + 1
+    route = _route(h, w, tile, offset)
+    before = normal_cuda.BWD_LAUNCHES, normal_cuda.BWD_LAUNCHES_BY_ROUTE[route]
+    got = _on_tile(tile, lambda: normal_cuda.normal_apply_bwd(*args))
+    assert (normal_cuda.BWD_LAUNCHES, normal_cuda.BWD_LAUNCHES_BY_ROUTE[route]) == \
+        (before[0] + 1, before[1] + 1)
     want = normal_cuda.normal_apply_bwd_torch(*args)
     _close(got[:2], want[:2])
     _close(got[2:4], want[2:4])
     assert got[4].shape == (b, t)
     torch.testing.assert_close(got[4].sum(), want[4].sum(), rtol=1e-5, atol=0)
+    if tile == "fused":  # the same bits as the engine route
+        for a, b_ in zip(got, normal_cuda.normal_apply_bwd(*args)):
+            assert torch.equal(a, b_)
+
+
+def _kernels_of_call(fn):
+    """The names of the device kernels one warm call of ``fn`` runs, under
+    ``torch.profiler``, in launch order. Host sleeps pad the window, which
+    keeps only the device events it places inside it."""
+    import tempfile
+    import time
+    from pathlib import Path
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from cinemri_tpu_torch.instrument import opstats
+
+    fn()
+    torch.cuda.synchronize()
+    for pad_s in (0.2, 2.0):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            time.sleep(pad_s)
+            fn()
+            torch.cuda.synchronize()
+            time.sleep(pad_s)
+        with tempfile.TemporaryDirectory() as tmp:
+            prof.export_chrome_trace(str(Path(tmp) / "trace.json"))
+            events = sorted(opstats.kernel_events(Path(tmp) / "trace.json"), key=lambda e: e[1])
+        if events:
+            break
+    return [name for name, _, _ in events if "normal_apply" in name]
+
+
+FP32_TILE = "cgemm::Tile<96, 40, 16, 8, 5, 3, 4, 1>"  # csrc/normal_passes.cuh Fp32Tile
+SMALL_TILE = "cgemm::Tile<48, 40, 8, 3, 5, 3, 4, 8>"  # csrc/cgemm_tile.cuh Small
+
+
+@pytest.mark.parametrize("b,t,c,h,w,kt,tile,offset,fwd,bwd", [
+    # 16-byte rows: the products pass, Fp32Tile, the passes; ȳ on the copy Kᴴ
+    (2, 3, 3, 52, 48, 3, "engine", False, ["products_kernel<4", FP32_TILE, "reduce_kernel<4"],
+     ["adjoint", "products_kernel<4", FP32_TILE, "products_kernel<4", FP32_TILE, "xbar", "sbar",
+      "lambda"]),
+    # the fused FP32 tile forms the products in its staging
+    (2, 3, 3, 52, 48, 3, "fused", False, ["fp32_fused", "reduce_kernel<4"],
+     ["adjoint", "fp32_fused", "fp32_fused", "xbar", "sbar", "lambda"]),
+    # x, g and S one float off: 4-byte passes, Fp32Tile on K's 16-byte rows
+    (2, 3, 3, 52, 48, 3, "fused", True, ["products_kernel<1", FP32_TILE, "reduce_kernel<1"],
+     ["adjoint", "products_kernel<1", FP32_TILE, "products_kernel<1", FP32_TILE, "xbar", "sbar",
+      "lambda"]),
+    # rows that are not 16-byte aligned: the small tile, ȳ on the copy Kᴴ
+    (2, 3, 2, 70, 33, 1, "fused", False, ["products_kernel<1", SMALL_TILE, "reduce_kernel<1"],
+     ["adjoint", "products_kernel<1", SMALL_TILE, "products_kernel<1", SMALL_TILE, "xbar", "sbar",
+      "lambda"]),
+])
+def test_normal_highest_kernels_by_name(dev, b, t, c, h, w, kt, tile, offset, fwd, bwd):
+    """The kernels one 'highest' call of the normal apply and of its backward
+    runs, by name under the profiler: the FP32 tile of each route, and no
+    contraction that reads Kᴴ in place (the backward's contractions are its
+    k-contiguous instances, ADJOINT false)."""
+    from cinemri_tpu_torch.ops.kernels import normal_cuda
+
+    rng = np.random.default_rng(4)
+    kr, ki = _normal_k(rng, b, kt, h, False, dev)
+    r = _randn(torch.Generator(device=dev).manual_seed(5), dev, offset)
+    x, g, s = (r(b, t, h, w), r(b, t, h, w)), (r(b, t, h, w), r(b, t, h, w)), \
+        (r(b, c, h, w), r(b, c, h, w))
+    names = _on_tile(tile, lambda: (
+        _kernels_of_call(lambda: normal_cuda.normal_apply(*x, kr, ki, *s, 0.37)),
+        _kernels_of_call(lambda: normal_cuda.normal_apply_bwd(*x, *g, kr, ki, *s, 0.37))))
+    for got, want in zip(names, (fwd, bwd)):
+        assert len(got) == len(want), got
+        for name, part in zip(got, want):
+            assert part in name, (part, got)
+    contractions = [n for n in names[1] if "contract_kernel" in n]
+    assert all(", false, 0>" in n for n in contractions), contractions
 
 
 @pytest.mark.parametrize("c", [5, 1])

@@ -172,6 +172,54 @@ class TestLambdaTensor:
         assert a.dtype == torch.float32 and a.item() == 0.125
 
 
+class TestScratchByRoute:
+    """The scratch planes a kernel call allocates follow its route: no
+    products planes where the route forms ``S ⊙ u`` in its staging (the
+    resident TF32 tile, the fused FP32 tile), a copy ``Kᴴ`` for the
+    backward at 'highest' (every route) and off the engine route."""
+
+    N, NK = 600, 75  # b·t·c·h·w and b·kt·h·h floats
+
+    @pytest.mark.parametrize("route,highest,forward,backward", [
+        ("engine", True, (2, [N] * 4), (2, [N] * 6 + [NK] * 2)),
+        ("engine", False, (2, [N] * 4), (2, [N] * 6)),
+        ("streaming", False, (2, [N] * 4), (2, [N] * 6 + [NK] * 2)),
+        ("resident", False, (0, [N] * 2), (0, [N] * 4 + [NK] * 2)),
+        ("fp32_fused", True, (0, [N] * 2), (0, [N] * 4 + [NK] * 2)),
+    ])
+    def test_planes(self, route, highest, forward, backward):
+        r = normal_cuda.ROUTES.index(route)
+        assert normal_cuda._planes(r, self.N, self.NK, False, highest) == forward
+        assert normal_cuda._planes(r, self.N, self.NK, True, highest) == backward
+
+    def test_route_counters_cover_every_route(self):
+        assert set(normal_cuda.LAUNCHES_BY_ROUTE) == set(normal_cuda.ROUTES)
+        assert set(normal_cuda.BWD_LAUNCHES_BY_ROUTE) == set(normal_cuda.ROUTES)
+        # csrc/normal_wgmma.cuh: Route FP32_FUSED = 3
+        assert normal_cuda.ROUTES[3] == "fp32_fused"
+
+    def test_fp32_tile_setting(self):
+        """The FP32 tile is 'engine' unless set; an unknown name raises and
+        leaves it as it was; on the CPU either gives the plain version."""
+        assert normal_cuda.get_fp32_tile() == "engine"
+        with pytest.raises(ValueError):
+            normal_cuda.set_fp32_tile("wide")
+        assert normal_cuda.get_fp32_tile() == "engine"
+        rng = np.random.default_rng(3)
+        x = [torch.from_numpy(rng.standard_normal((1, 2, 8, 8), dtype=np.float32)) for _ in range(2)]
+        k = [torch.from_numpy(rng.standard_normal((1, 2, 8, 8), dtype=np.float32)) for _ in range(2)]
+        s = [torch.from_numpy(rng.standard_normal((1, 3, 8, 8), dtype=np.float32)) for _ in range(2)]
+        want = normal_cuda.normal_apply(*x, *k, *s, 0.5)
+        try:
+            normal_cuda.set_fp32_tile("fused")
+            assert normal_cuda.get_fp32_tile() == "fused"
+            got = normal_cuda.normal_apply(*x, *k, *s, 0.5)
+        finally:
+            normal_cuda.set_fp32_tile("engine")
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+
+
 class TestNormalApplyBackward:
     """The port's plain backward against the JAX custom VJP of
     ``normal_apply_pallas`` (Pallas interpret mode, as tests/test_kernels.py
