@@ -37,7 +37,9 @@ artifact (``serve.export_model``; ``<save_path>/<family>_<type>.pt2`` by
 default), shaped like the first test batch, from the best checkpoint
 (``--load_model`` defaults to 1 there), in one process. ``--profile_steps``
 traces that many training steps into ``--profile_dir``
-(``Trainer``; fold the trace with ``instrument.opstats``).
+(``Trainer``; fold the trace with ``instrument.opstats``; the step's phases
+and the model's sens net, regularizers and data consistency show as the
+program spans of ``instrument.SPANS``).
 
 ``--bf16 1`` builds the model with bf16 denoiser activations (the JAX
 package's ``bf16``; ``models/denoisers/activations.py``). The DFT and

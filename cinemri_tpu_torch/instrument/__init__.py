@@ -2,6 +2,8 @@
 
 Counterpart of ``cinemri_tpu/instrument/__init__.py``, on torch:
 
+  * :func:`span` — a named range of the program in the profiler's trace,
+    recorded only while a profiler records (:data:`SPANS`).
   * :func:`trace` — ``torch.profiler`` over a block (CUDA activity when a
     card is present), written as a chrome trace that
     :func:`~cinemri_tpu_torch.instrument.opstats.kernel_events` folds.
@@ -12,6 +14,38 @@ Counterpart of ``cinemri_tpu/instrument/__init__.py``, on torch:
     not finite (JAX's ``jax_debug_nans``).
   * :func:`assert_finite` — host-side finiteness check of a tree of tensors
     or arrays, naming the leaf.
+
+Program spans. Where the work happens, the program opens these spans; a
+span's parent is the span open around it on the same thread:
+
+  ========================== =================================================
+  ``cinemri.serve``          ``serve.bind_model``'s ``serve(...)``, the whole call
+  ``cinemri.serve.h2d``      the request's copies to the device
+  ``cinemri.sens_net``       VarNet's ``SensitivityModel.forward``
+  ``cinemri.regularizer``    a VarNet or CineNet cascade's denoiser (XT / XF
+                             plane nets, or the 2D / 3D net)
+  ``cinemri.dc``             a cascade's data consistency: VarNet's soft DC,
+                             CineNet's right-hand side and CG solve
+  ``cinemri.dc.cg_step``     one step of that CG solve (``physics/cg.py``)
+  ``cinemri.train.forward``  ``make_train_step``'s loss and output (and the
+                             mesh's weight all-reduce)
+  ``cinemri.train.backward`` ``loss.backward()``
+  ``cinemri.train.optimizer`` the gradient all-reduces, the global norm and
+                             the optimizer step
+  ========================== =================================================
+
+With remat the replay during the backward opens the model spans again, on
+the autograd engine's thread. XPDNet and CRNN open no model span (CRNN's CG
+steps open ``cinemri.dc.cg_step``). Spans exist
+exactly while a profiler records: in :func:`trace` and so in the trainer's
+``profile_steps`` (``--profile_steps``), in any ``torch.profiler.profile``
+around the program, and in ``cinebench``'s traced runs. Each is a host range
+on the profiler's clock, recorded like an op (``cpu_op`` in the chrome
+trace, not ``user_annotation``): the profiler draws no range on the device
+for it, so a fold of device events counts no span as device work. With no
+profiler a span is one check of the profiler's flag; outputs are the same
+bits either way, and ``torch.export`` traces with no profiler, so no span
+enters an exported artifact.
 """
 
 from __future__ import annotations
@@ -25,10 +59,27 @@ from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
 from cinemri_tpu_torch.ops.cplx import Complex
 
-__all__ = ["trace", "StepTimer", "enable_nan_checks", "assert_finite"]
+__all__ = ["SPANS", "span", "trace", "StepTimer", "enable_nan_checks", "assert_finite"]
+
+SPANS = ("cinemri.serve", "cinemri.serve.h2d", "cinemri.sens_net", "cinemri.regularizer",
+         "cinemri.dc", "cinemri.dc.cg_step", "cinemri.train.forward", "cinemri.train.backward",
+         "cinemri.train.optimizer")
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A context manager that records the program span ``name`` (one of
+    :data:`SPANS`) while a profiler records, and is the one shared
+    ``nullcontext`` otherwise: the only cost then is the check of the
+    profiler's flag."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _NO_SPAN
+    return torch._C._profiler._RecordFunctionFast(name)
 
 
 @contextlib.contextmanager

@@ -23,7 +23,8 @@ KINDS: Tuple[Tuple[str, Tuple[str, ...]], ...] = (
     ("dft_matmul (port kernel)", ("dft_matmul_kernel", "dft_kernel", "dft_small_", "dft_wgmma_")),
     ("normal_apply_bwd (port kernels)", ("normal_apply_bwd",)),
     ("normal_apply (port kernels)", ("normal_apply_products", "normal_apply_contract",
-                                     "normal_apply_reduce", "normal_apply_wgmma_")),
+                                     "normal_apply_reduce", "normal_apply_wgmma_",
+                                     "normal_apply_fp32")),
     # before the convolutions, whose keys include cuDNN's fft2d_*
     ("fft2_plane (port kernel)", ("fft2_plane_kernel",)),
     ("instance norm", ("batch_norm", "instance_norm", "welford")),

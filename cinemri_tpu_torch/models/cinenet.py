@@ -20,6 +20,9 @@ JAX package) each cascade is checkpointed when autograd records, under
 ``remat_policy`` (``models/remat.py``). ``bf16`` stores the U-Nets'
 activations in bf16 (``models/denoisers/activations.py``); the CG solve, the
 normal-apply kernel and the output stay f32, as in the JAX package.
+Each cascade's denoiser and its right-hand side and CG solve open the
+program spans ``cinemri.regularizer`` and ``cinemri.dc``
+(``instrument.span``).
 ``packed`` runs the U-Nets on the space-to-depth layout
 (``models/denoisers/packed_unet.py``; the same parameters and function).
 ``plane_axis`` and ``coil_axis`` split the plane batches and the coils over
@@ -39,6 +42,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from cinemri_tpu_torch.instrument import span
 from cinemri_tpu_torch.models.denoisers.activations import resolve_dtype
 from cinemri_tpu_torch.models.denoisers.unet import Unet
 from cinemri_tpu_torch.models.remat import call_remat, check_remat_policy
@@ -119,23 +123,26 @@ class CineNetCascade(nn.Module):
                 mask: torch.Tensor, sens_maps: Complex, dc_kernel) -> Complex:
         x = image_pred[:, :, 0]  # (b, t, h, w)
         b, t, h, w = x.shape
-        if self.dynamic_type == "2D":
-            out = self.net(to_channels(x.reshape(b * t, h, w), axis=1))  # (b·t, 2, h, w)
-            model_out = from_channels(out, axis=1).reshape(b, t, h, w)
-        elif self.dynamic_type == "3D":
-            model_out = from_channels(self.net(to_channels(x, axis=1)), axis=1)  # (b, 2, t, h, w)
-        else:
-            model_out = self._xfyf(x)
+        with span("cinemri.regularizer"):
+            if self.dynamic_type == "2D":
+                out = self.net(to_channels(x.reshape(b * t, h, w), axis=1))  # (b·t, 2, h, w)
+                model_out = from_channels(out, axis=1).reshape(b, t, h, w)
+            elif self.dynamic_type == "3D":
+                # (b, 2, t, h, w)
+                model_out = from_channels(self.net(to_channels(x, axis=1)), axis=1)
+            else:
+                model_out = self._xfyf(x)
         model_out = model_out[:, :, None]  # (b, t, 1, h, w)
-        v = F.softplus(lam)  # a 0-d tensor on the device
-        rhs = image_ref + v * model_out
-        if dc_kernel is None:
-            def op(z):
-                return normal_plus_lambda(z, mask, sens_maps, v, self.coil_axis)
-        else:
-            def op(z):
-                return normal_plus_lambda_kernel(z, dc_kernel, sens_maps, v, self.coil_axis)
-        return conj_grad(op, rhs, model_out, self.cg_iters)
+        with span("cinemri.dc"):
+            v = F.softplus(lam)  # a 0-d tensor on the device
+            rhs = image_ref + v * model_out
+            if dc_kernel is None:
+                def op(z):
+                    return normal_plus_lambda(z, mask, sens_maps, v, self.coil_axis)
+            else:
+                def op(z):
+                    return normal_plus_lambda_kernel(z, dc_kernel, sens_maps, v, self.coil_axis)
+            return conj_grad(op, rhs, model_out, self.cg_iters)
 
 
 class CineNet(nn.Module):

@@ -16,7 +16,10 @@ cascade is checkpointed when autograd records, under ``remat_policy``
 (``models/remat.py``). ``bf16`` stores the activations of every NormUnet
 (the sens net's and the regularizer's) in bf16 (``models/denoisers/
 activations.py``); the parameters, data consistency, the DFT and
-normal-apply kernels and the output stay f32, as in the JAX package.
+normal-apply kernels and the output stay f32, as in the JAX package. The
+sens net, each cascade's regularizer and its data consistency open the
+program spans ``cinemri.sens_net``, ``cinemri.regularizer`` and
+``cinemri.dc`` (``instrument.span``).
 
 On a mesh (``parallel.set_mesh``), ``plane_axis`` splits the XT / XF
 plane batches over that dim: each rank runs the plane nets on its share of
@@ -40,6 +43,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from cinemri_tpu_torch.instrument import span
 from cinemri_tpu_torch.models.denoisers.activations import resolve_dtype
 from cinemri_tpu_torch.models.denoisers.norm_unet import NormUnet, NormUnet3D
 from cinemri_tpu_torch.models.remat import call_remat, check_remat_policy
@@ -81,11 +85,13 @@ class SensitivityModel(nn.Module):
         self.norm_unet = NormUnet(chans, num_pools, packed=packed, dtype=dtype)
 
     def forward(self, masked_kspace: Complex, mask: torch.Tensor) -> Complex:
-        x = ifft2c(low_frequency_kspace(masked_kspace, mask))  # (b, c, h, w), a band per sample
-        b, c, h, w = x.shape
-        x = self.norm_unet(x.reshape(b * c, h, w)).reshape(b, c, h, w)
-        x = x / coil_copy(rss_complex(x, axis=1, coil_axis=self.coil_axis), self.coil_axis)[:, None]
-        return x[:, None]
+        with span("cinemri.sens_net"):
+            x = ifft2c(low_frequency_kspace(masked_kspace, mask))  # (b, c, h, w), a band per sample
+            b, c, h, w = x.shape
+            x = self.norm_unet(x.reshape(b * c, h, w)).reshape(b, c, h, w)
+            rss = coil_copy(rss_complex(x, axis=1, coil_axis=self.coil_axis), self.coil_axis)
+            x = x / rss[:, None]
+            return x[:, None]
 
 
 class VarNetCascade(nn.Module):
@@ -140,18 +146,20 @@ class VarNetCascade(nn.Module):
         else:
             image = carry[:, :, 0]
         b, t, h, w = image.shape
-        if self.dynamic_type == "2D":  # per-frame static reconstruction
-            model_out = self.net(image.reshape(b * t, h, w)).reshape(b, t, h, w)
-        elif self.dynamic_type == "3D":
-            model_out = self.net(image)
-        else:
-            model_out = self._xfyf(image)
+        with span("cinemri.regularizer"):
+            if self.dynamic_type == "2D":  # per-frame static reconstruction
+                model_out = self.net(image.reshape(b * t, h, w)).reshape(b, t, h, w)
+            elif self.dynamic_type == "3D":
+                model_out = self.net(image)
+            else:
+                model_out = self._xfyf(image)
         model_out = model_out[:, :, None]
-        v = F.softplus(lam)
-        if dc_kernel is None:
-            return soft_dc(sens_expand(model_out, sens_maps, coil), ref, mask, v)
-        return soft_dc_image_kernel(model_out, ref, dc_kernel, sens_maps, v, rss_sq=rss0,
-                                    coil_axis=coil)
+        with span("cinemri.dc"):
+            v = F.softplus(lam)
+            if dc_kernel is None:
+                return soft_dc(sens_expand(model_out, sens_maps, coil), ref, mask, v)
+            return soft_dc_image_kernel(model_out, ref, dc_kernel, sens_maps, v, rss_sq=rss0,
+                                        coil_axis=coil)
 
 
 class VarNet(nn.Module):

@@ -24,6 +24,7 @@ from typing import Callable
 
 import torch
 
+from cinemri_tpu_torch.instrument import span
 from cinemri_tpu_torch.ops.cplx import Complex, real_dot
 
 __all__ = ["conj_grad"]
@@ -45,14 +46,15 @@ def conj_grad(operator: Callable[[Complex], Complex], rhs: Complex, x0: Complex,
     p = r
     rs_old = real_dot(r, r)
     for i in range(iters):
-        d = operator(p)
-        alpha = _safe_div(rs_old, real_dot(p, d))
-        x = x + alpha * p
-        if i == iters - 1:
-            break
-        r = r - alpha * d
-        rs_new = real_dot(r, r)
-        beta = _safe_div(rs_new, rs_old)
-        p = r + beta * p
-        rs_old = rs_new
+        with span("cinemri.dc.cg_step"):
+            d = operator(p)
+            alpha = _safe_div(rs_old, real_dot(p, d))
+            x = x + alpha * p
+            if i == iters - 1:
+                break
+            r = r - alpha * d
+            rs_new = real_dot(r, r)
+            beta = _safe_div(rs_new, rs_old)
+            p = r + beta * p
+            rs_old = rs_new
     return x

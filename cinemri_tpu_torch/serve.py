@@ -8,7 +8,9 @@ sensitivity maps (CineNet) gets them with the request, as ``(sens_re,
 sens_im)`` of shape ``(n, 1, c, h, w)``, the JAX artifact's extra two
 arguments. A batch of n volumes is reconstructed one volume at a time
 (:func:`serial_batch`), maps included, as the JAX package serves batches.
-Requests run under ``torch.inference_mode()``. A model with a ``coil_axis``
+Requests run under ``torch.inference_mode()``, in the program spans
+``cinemri.serve`` and, for the copies to the device, ``cinemri.serve.h2d``
+(``instrument.span``). A model with a ``coil_axis``
 takes the whole request and keeps this rank's coils of the k-space and maps
 (``parallel.coil_shard``), under the ambient mesh (``parallel.set_mesh``)
 that every rank of its coil group serves in.
@@ -33,6 +35,7 @@ import torch
 from torch import nn
 
 from cinemri_tpu_torch import resolve_device
+from cinemri_tpu_torch.instrument import span
 from cinemri_tpu_torch.ops.cplx import Complex
 from cinemri_tpu_torch.parallel.mesh import coil_shard
 
@@ -99,8 +102,10 @@ def bind_model(
         if (sens_re is None) != (sens_im is None):
             raise ValueError("pass both sens_re and sens_im, or neither")
         args = (kspace_re, kspace_im, mask) + (() if sens_re is None else (sens_re, sens_im))
-        with torch.inference_mode():
-            return batched(*(_as_f32(a, dev) for a in args))
+        with span("cinemri.serve"), torch.inference_mode():
+            with span("cinemri.serve.h2d"):
+                args = [_as_f32(a, dev) for a in args]
+            return batched(*args)
 
     return serve
 

@@ -26,7 +26,8 @@ the ``reduce_fn`` sums over the ``data`` group
 index 0 write ``SSIMs.csv`` rows, so each volume counts once.
 ``profile_steps`` traces that many train steps with ``instrument.trace``
 (the window skips this process's first step, and each traced step ends on
-its loss, so the trace holds its device work); ``debug_nans`` turns on
+its loss, so the trace holds its device work, under the program spans of
+``instrument.SPANS``); ``debug_nans`` turns on
 ``instrument.enable_nan_checks`` for ``fit`` and ``test``.
 """
 

@@ -35,6 +35,10 @@ takes the same update and the weights stay bit-identical. And every rank
 agrees on the stop flag: the scalar all-reduces run over the whole world,
 with only the ranks at plane and coil index 0 contributing the weights and
 the loss, so each data shard counts once.
+
+A step opens the program spans ``cinemri.train.forward`` (the loss and
+output), ``cinemri.train.backward`` and ``cinemri.train.optimizer`` (the
+gradient all-reduces, the global norm and the update; ``instrument.span``).
 """
 
 from __future__ import annotations
@@ -48,6 +52,7 @@ from torch import nn
 
 from cinemri_tpu_torch import resolve_device
 from cinemri_tpu_torch.data.transforms import center_crop_to_smallest
+from cinemri_tpu_torch.instrument import span
 from cinemri_tpu_torch.ops.cplx import Complex
 from cinemri_tpu_torch.ops.ssim import ssim_loss
 from cinemri_tpu_torch.parallel.distributed import all_reduce_sum
@@ -180,25 +185,30 @@ def make_train_step(mesh=None, data_axis: str = "data") -> Callable:
             scales.update(model=state.model, of=_replica_scales(state.model, opt.params, sizes))
         gden = None
         with set_mesh(mesh):
-            if mesh is not None:
-                # the global weight denominator first: it depends on no
-                # parameter, so each rank's loss is a contribution whose sum
-                # is the global weighted mean, and the gradients sum the same
-                # way; the ranks at plane and coil index 0 count each row
-                w = _sample_weight(batch, next(state.model.parameters()).device).sum().reshape(1)
-                gden = all_reduce_sum(w if lead else torch.zeros_like(w),
-                                      "scalar").clamp_min(1.0)[0]
-            loss, output, target = _loss_and_output(state.model, batch, gden)
-            loss.backward()
+            with span("cinemri.train.forward"):
+                if mesh is not None:
+                    # the global weight denominator first: it depends on no
+                    # parameter, so each rank's loss is a contribution whose
+                    # sum is the global weighted mean, and the gradients sum
+                    # the same way; the ranks at plane and coil index 0 count
+                    # each row
+                    dev = next(state.model.parameters()).device
+                    w = _sample_weight(batch, dev).sum().reshape(1)
+                    gden = all_reduce_sum(w if lead else torch.zeros_like(w),
+                                          "scalar").clamp_min(1.0)[0]
+                loss, output, target = _loss_and_output(state.model, batch, gden)
+            with span("cinemri.train.backward"):
+                loss.backward()
         aux = {}
-        if mesh is not None:
-            _all_reduce_grads(opt.params, scales["of"])
-            loss = loss.detach() if lead else torch.zeros_like(loss.detach())
-            scalars = torch.stack([loss, torch.full((), float(stop), device=loss.device)])
-            all_reduce_sum(scalars, "scalar")
-            loss, aux["stop"] = scalars[0], scalars[1] > 0
-        gnorm = global_norm(p.grad for p in opt.params if p.grad is not None)
-        opt.step(gnorm)
+        with span("cinemri.train.optimizer"):
+            if mesh is not None:
+                _all_reduce_grads(opt.params, scales["of"])
+                loss = loss.detach() if lead else torch.zeros_like(loss.detach())
+                scalars = torch.stack([loss, torch.full((), float(stop), device=loss.device)])
+                all_reduce_sum(scalars, "scalar")
+                loss, aux["stop"] = scalars[0], scalars[1] > 0
+            gnorm = global_norm(p.grad for p in opt.params if p.grad is not None)
+            opt.step(gnorm)
         state.step += 1
         aux.update(loss=loss.detach(), output=output.detach(), target=target, grad_norm=gnorm)
         return state, aux

@@ -1,7 +1,11 @@
 """The port's instrumentation (cinemri_tpu_torch.instrument) on the CPU:
 the step timer's summary against the JAX package's, the finiteness check,
-the NaN switch, the profiler trace and its fold, and the Trainer's
+the NaN switch, the program spans in a served request's and a train step's
+trace, the profiler trace and its fold, and the Trainer's
 ``profile_steps`` and ``debug_nans``."""
+
+import contextlib
+import json
 
 import numpy as np
 import pytest
@@ -11,10 +15,14 @@ from cinemri_tpu.instrument import StepTimer as JStepTimer
 
 from cinemri_tpu_torch.data import RandomMask, SliceDataset, VarNetDataTransform
 from cinemri_tpu_torch.data.synthetic import make_synthetic_dataset
-from cinemri_tpu_torch.instrument import StepTimer, assert_finite, enable_nan_checks, opstats, trace
+from cinemri_tpu_torch.data.masks import RandomMask as TRandomMask
+from cinemri_tpu_torch.instrument import (SPANS, StepTimer, assert_finite, enable_nan_checks,
+                                          opstats, span, trace)
 from cinemri_tpu_torch.models import build_model
 from cinemri_tpu_torch.ops.cplx import Complex
+from cinemri_tpu_torch.serve import bind_model
 from cinemri_tpu_torch.train import Loader, Trainer, TrainerConfig
+from cinemri_tpu_torch.train.step import create_train_state, make_train_step
 
 torch.set_num_threads(2)
 
@@ -73,6 +81,107 @@ class TestTrace:
         assert len(list((tmp_path / "raised").glob("*.pt.trace.json"))) == 1
 
 
+def _request(seed: int, maps: bool):
+    """A served request's float32 host arrays (k-space, mask[, maps])."""
+    rng = np.random.default_rng(seed)
+    t, c, h, w = 4, 3, 24, 20
+    mask = TRandomMask([4], [2])(t, h, seed=seed)[None].astype(np.float32)
+    k = (rng.standard_normal((1, t, c, h, w)) + 1j * rng.standard_normal((1, t, c, h, w))) * mask
+    parts = [k.real, k.imag, mask]
+    if maps:
+        s = rng.standard_normal((1, 1, c, h, w)) + 1j * rng.standard_normal((1, 1, c, h, w))
+        parts += [s.real, s.imag]
+    return [np.ascontiguousarray(a, dtype=np.float32) for a in parts]
+
+
+def _spans(log_dir):
+    """``[(name, start_us, end_us)]`` of the program spans in the one chrome
+    trace under ``log_dir``."""
+    (path,) = list(log_dir.glob("*.pt.trace.json"))
+    events = json.loads(path.read_text())["traceEvents"]
+    return [(e["name"], e["ts"], e["ts"] + e["dur"]) for e in events
+            if e.get("ph") == "X" and e.get("name", "").startswith("cinemri.")]
+
+
+def _inside(child, parents) -> bool:
+    return any(p[1] <= child[1] and child[2] <= p[2] for p in parents)
+
+
+CASCADES = 2
+
+
+class TestSpans:
+    def test_without_a_profiler_a_span_is_the_one_shared_null_context(self):
+        assert isinstance(span("cinemri.dc"), contextlib.nullcontext)
+        assert span("cinemri.dc") is span("cinemri.serve")
+        assert len(set(SPANS)) == len(SPANS) and all(n.startswith("cinemri.") for n in SPANS)
+
+    def test_a_span_is_a_host_range_like_an_op_not_a_user_annotation(self):
+        """So the profiler draws no device range for it, which a fold of
+        device events would take for device work."""
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+            with span("cinemri.dc"):
+                torch.ones(8).sum()
+        events = {e.name(): e for e in prof.profiler.kineto_results.events()}
+        dc = events["cinemri.dc"]
+        assert dc.activity_type() == "cpu_op" and not dc.is_user_annotation()
+        inner = events["aten::sum"]
+        assert dc.start_ns() <= inner.start_ns() <= inner.end_ns() <= dc.end_ns()
+
+    @pytest.mark.parametrize("family", ["varnet", "cinenet"])
+    def test_a_served_request_records_its_spans(self, family, tmp_path):
+        kw = dict(num_cascades=CASCADES, chans=4, pools=2)
+        kw.update(dict(sens_chans=4, sens_pools=2) if family == "varnet" else dict(cg_iters=3))
+        serve = bind_model(build_model(family, "XF", device="cpu", **kw), device="cpu")
+        request = _request(3, maps=family == "cinenet")
+        with trace(tmp_path):
+            serve(*request)
+        got = _spans(tmp_path)
+        by = {n: [s for s in got if s[0] == n] for n in SPANS}
+        assert len(by["cinemri.serve"]) == 1 and len(by["cinemri.serve.h2d"]) == 1
+        assert len(by["cinemri.regularizer"]) == CASCADES and len(by["cinemri.dc"]) == CASCADES
+        assert len(by["cinemri.sens_net"]) == (family == "varnet")
+        assert len(by["cinemri.dc.cg_step"]) == (CASCADES * 3 if family == "cinenet" else 0)
+        assert not by["cinemri.train.forward"] + by["cinemri.train.backward"]
+        for s in got:
+            if s[0] != "cinemri.serve":
+                assert _inside(s, by["cinemri.serve"]), s
+        assert all(_inside(s, by["cinemri.dc"]) for s in by["cinemri.dc.cg_step"])
+        assert not any(_inside(s, by["cinemri.dc"]) for s in by["cinemri.regularizer"])
+
+    def test_a_remat_train_step_records_its_phases_and_the_replay_in_the_backward(self, tmp_path):
+        model = build_model("varnet", "XF", device="cpu", num_cascades=CASCADES, chans=4, pools=2,
+                            sens_chans=4, sens_pools=2)
+        assert model.remat
+        state, step = create_train_state(model, device="cpu"), make_train_step()
+        kre, kim, mask = _request(4, maps=False)
+        batch = {"masked_kspace": Complex(torch.from_numpy(kre), torch.from_numpy(kim)),
+                 "mask": torch.from_numpy(mask), "target": torch.rand(1, 4, 24, 20)}
+        with trace(tmp_path):
+            step(state, batch)
+        got = _spans(tmp_path)
+        by = {n: [s for s in got if s[0] == n] for n in SPANS}
+        phases = [by[f"cinemri.train.{p}"] for p in ("forward", "backward", "optimizer")]
+        assert [len(p) for p in phases] == [1, 1, 1]
+        (fwd,), (bwd,), (opt,) = phases
+        assert fwd[2] <= bwd[1] and bwd[2] <= opt[1]
+        # each cascade's regularizer once in the forward, once more in the replay
+        assert len(by["cinemri.regularizer"]) == 2 * CASCADES
+        assert sum(_inside(s, [fwd]) for s in by["cinemri.regularizer"]) == CASCADES
+        assert sum(_inside(s, [bwd]) for s in by["cinemri.regularizer"]) == CASCADES
+        assert len(by["cinemri.sens_net"]) == 1 and _inside(by["cinemri.sens_net"][0], [fwd])
+
+    def test_a_profiled_forward_gives_the_same_bits(self, tmp_path):
+        model = build_model("cinenet", "XF", device="cpu", num_cascades=CASCADES, chans=4, pools=2,
+                            cg_iters=2)
+        serve = bind_model(model, device="cpu")
+        request = _request(5, maps=True)
+        plain = serve(*request)
+        with trace(tmp_path):
+            profiled = serve(*request)
+        assert _spans(tmp_path) and torch.equal(plain, profiled)
+
+
 @pytest.mark.parametrize("name,kind", [
     ("void (anonymous namespace)::dft_wgmma_kernel<wgmma::Tile<2, 1, (wgmma::Source)1>>"
      "(wgmma::Problem)", "dft_matmul (port kernel)"),
@@ -85,10 +194,15 @@ class TestTrace:
      "normal_apply (port kernels)"),
     ("void (anonymous namespace)::normal_apply_bwd_contract_kernel<tf32::Tile<128, 40, 3, 2>, 4, "
      "false, 1>(const float *)", "normal_apply_bwd (port kernels)"),
+    ("(anonymous namespace)::normal_apply_fp32_fused_kernel(fp32::Problem)",
+     "normal_apply (port kernels)"),
+    ("(anonymous namespace)::normal_apply_bwd_fp32_fused_kernel(fp32::Problem)",
+     "normal_apply_bwd (port kernels)"),
 ])
 def test_fold_maps_the_port_kernels_to_their_kinds(name, kind):
     """The TF32 modes' Hopper tile (dft_wgmma_kernel, the normal apply's fused
-    normal_apply_wgmma_kernel) and the kernels beside it fold into their
+    normal_apply_wgmma_kernel), the fused FP32 tile's kernels
+    (``set_fp32_tile('fused')``) and the kernels beside them fold into their
     port kinds, so a profile's tables stay whole at every precision."""
     events = [(name, 0.0, 2000.0), (name, 3000.0, 1000.0)]
     assert opstats.fold_by_kind(events) == {kind: {"ms": 3.0, "count": 2}}
