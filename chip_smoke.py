@@ -495,7 +495,9 @@ class Timed:
     """Stands in for ``module.<attr>`` while entered: each call runs ``fn``
     between two CUDA events on the current stream and keeps the events and
     the call's (FLOP, bytes). ``prep`` (untimed, before) turns the pair
-    arguments into ``fn``'s; a complex result is split back into a pair."""
+    arguments into ``fn``'s; a complex result is split back into a pair.
+    While entered, every CG solve runs its eager loop (``physics/cg.py``):
+    a CUDA graph's replay would launch the kernels without calling ``fn``."""
 
     def __init__(self, torch, module, attr, cost, fn=None, prep=None):
         self.torch, self.module, self.attr, self.cost = torch, module, attr, cost
@@ -503,12 +505,19 @@ class Timed:
         self.calls = []
 
     def __enter__(self):
+        from cinemri_tpu_torch.physics import cg
+
         self.saved = getattr(self.module, self.attr)
+        self.blocker = cg.graph_blocker
         setattr(self.module, self.attr, self)
+        cg.graph_blocker = lambda tensors, coil_axis="": "timed"
         return self
 
     def __exit__(self, *exc):
+        from cinemri_tpu_torch.physics import cg
+
         setattr(self.module, self.attr, self.saved)
+        cg.graph_blocker = self.blocker
 
     def __call__(self, *args):
         work = self.cost(*args)
@@ -2854,6 +2863,7 @@ def main() -> int:
     from cinemri_tpu_torch.ops import fft as FFT
     from cinemri_tpu_torch.ops.cplx import Complex, to_channels
     from cinemri_tpu_torch.ops.kernels import _build, dft_cuda, fft2_cuda, normal_cuda
+    from cinemri_tpu_torch.physics import cg
     from cinemri_tpu_torch.physics import operators as OPS
     from cinemri_tpu_torch.serve import bind_model
     from cinemri_tpu_torch.train import create_train_state, make_train_step
@@ -3293,11 +3303,13 @@ def main() -> int:
                     peak_memory_bytes=peak)
 
     def serve_phase(tag, serve, inputs, expected, direct_out=None, scale=None, references=None):
-        """The requests through ``serve`` three times: (a) through the kernels,
+        """The requests through ``serve`` four times: (a) through the kernels,
         whose launches are counted per request, (b) through the plain
         versions and (c) through one library call each, both in the plain
         versions' slots, uncounted. CUDA events around every call of each
-        (Timed). ``serve`` and ``expected`` (launches per request) are one
+        (Timed), every CG solve eager. Then (d) untimed through the kernels
+        again, CineNet's CG solves on their CUDA graphs: the same launches
+        per request and, where a graph replayed, the same images as (a). ``serve`` and ``expected`` (launches per request) are one
         for all requests or a list with one per request. Without
         ``direct_out`` (request 0's direct forward) and its ``scale``, each
         request is held to MODEL_TOL x the max |out| of its plain version,
@@ -3333,6 +3345,16 @@ def main() -> int:
               f"{[round(x, 3) for x in latencies]}, launches {served}, per request {per_request}")
         if per_request != expect:
             fail(f"{tag}: the serving run did not launch every kernel as expected: {per_request}")
+        replays = cg.GRAPH_REPLAYS
+        graph_lat, graph_outs, graph_counts = serve_all()
+        replays = cg.GRAPH_REPLAYS - replays
+        graph_equal = [bool(torch.equal(a, b_)) for a, b_ in zip(outs, graph_outs)]
+        print(f"[{tag}] untimed, CG solves on their CUDA graphs: latency ms "
+              f"{[round(x, 3) for x in graph_lat]}, {replays} replays, launches per request "
+              f"{graph_counts}, images equal to the timed run's {graph_equal}")
+        if graph_counts != per_request or (replays and not all(graph_equal)):
+            fail(f"{tag}: the graphed run differs from the timed one: launches {graph_counts}, "
+                 f"images equal {graph_equal}")
         for o in outs:
             if o.shape != (1, T, H, W) or not torch.isfinite(o).all():
                 fail(f"{tag}: served image has shape {tuple(o.shape)} or non-finite values")
@@ -3385,7 +3407,8 @@ def main() -> int:
                      f"from float64 as the farther of the plain versions and the library calls "
                      f"(limit {F64_RATIO})")
         return dict(launches=served, launches_per_request=per_request, kern=kern, plain=plain,
-                    lib=lib, latency_ms=latencies, plain_latency_ms=plain_lat,
+                    lib=lib, latency_ms=latencies, graph_latency_ms=graph_lat,
+                    graph_replays=replays, plain_latency_ms=plain_lat,
                     library_latency_ms=lib_lat, max_rel_err=errors, max_abs_out=scales,
                     float64_distance=f64_dist)
 

@@ -26,7 +26,9 @@ span's parent is the span open around it on the same thread:
                              plane nets, or the 2D / 3D net)
   ``cinemri.dc``             a cascade's data consistency: VarNet's soft DC,
                              CineNet's right-hand side and CG solve
-  ``cinemri.dc.cg_step``     one step of that CG solve (``physics/cg.py``)
+  ``cinemri.dc.cg_step``     one step of that CG solve (``physics/cg.py``),
+                             where it runs eagerly: a CUDA graph's replay
+                             runs no step on the host and opens none
   ``cinemri.train.forward``  ``make_train_step``'s loss and output (and the
                              mesh's weight all-reduce)
   ``cinemri.train.backward`` ``loss.backward()``
@@ -63,7 +65,7 @@ from torch.autograd import profiler as _autograd_profiler
 
 from cinemri_tpu_torch.ops.cplx import Complex
 
-__all__ = ["SPANS", "span", "trace", "StepTimer", "enable_nan_checks", "assert_finite"]
+__all__ = ["SPANS", "span", "op_call", "trace", "StepTimer", "enable_nan_checks", "assert_finite"]
 
 SPANS = ("cinemri.serve", "cinemri.serve.h2d", "cinemri.sens_net", "cinemri.regularizer",
          "cinemri.dc", "cinemri.dc.cg_step", "cinemri.train.forward", "cinemri.train.backward",
@@ -80,6 +82,19 @@ def span(name: str):
     if not _autograd_profiler._is_profiler_enabled:
         return _NO_SPAN
     return torch._C._profiler._RecordFunctionFast(name)
+
+
+def op_call(name: str, inputs: list):
+    """A context manager that records a call of the op ``name`` (its
+    schema's name, e.g. ``cinemri::normal_apply``) on ``inputs`` (their
+    shapes, where the profiler records shapes) while a profiler records,
+    and the shared ``nullcontext`` otherwise. A CUDA graph's replay of an
+    op's kernels opens it around the launch (``physics.cg.GraphedSolve``),
+    so a trace links those kernels to a call of the op, as it links an
+    eager call's."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _NO_SPAN
+    return torch._C._profiler._RecordFunctionFast(name, inputs)
 
 
 @contextlib.contextmanager

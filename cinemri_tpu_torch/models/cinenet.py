@@ -8,7 +8,12 @@ wrapper: XT / XF over the rotated planes, 2D per frame, 3D a 3-D U-Net
 over ``(t, h, w)`` without padding), and each cascade ends with a CG solve of
 ``(AᴴMA + v·I) x = x_ref + v·x_den`` with ``v = softplus(λᵢ)`` a learned
 weight per cascade (:func:`~cinemri_tpu_torch.physics.cg.conj_grad`), whose
-step sizes and ``v`` stay on the device.
+step sizes and ``v`` stay on the device. A forward binds its request's
+``x_ref``, operator and maps once (:func:`bind_dc`,
+``physics.CGDataConsistency``); served on the card with grad mode off and
+no coil axis, each cascade's solve then replays CUDA graphs of the kernels
+between its normal applies, captured at the first call of its shapes, with
+the eager loop's bits.
 
 One :class:`CineNetCascade` module serves every cascade (the flax
 ``nn.scan`` broadcasts its params); the cascade loop is a Python loop. With
@@ -39,7 +44,6 @@ from __future__ import annotations
 from typing import Dict, Tuple
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from cinemri_tpu_torch.instrument import span
@@ -51,16 +55,14 @@ from cinemri_tpu_torch.ops.cplx import Complex, cmean, from_channels, to_channel
 from cinemri_tpu_torch.ops.fft import fft1c, ifft1c
 from cinemri_tpu_torch.parallel.autograd import split_rows
 from cinemri_tpu_torch.parallel.mesh import mesh_axis, partial_by_prefix
-from cinemri_tpu_torch.physics.cg import conj_grad
 from cinemri_tpu_torch.physics.operators import (
+    CGDataConsistency,
     is_line_mask,
     masked_normal_kernel,
-    normal_plus_lambda,
-    normal_plus_lambda_kernel,
     sens_reduce,
 )
 
-__all__ = ["CineNet", "CineNetCascade", "batched_kernel_and_maps"]
+__all__ = ["CineNet", "CineNetCascade", "batched_kernel_and_maps", "bind_dc"]
 
 
 def batched_kernel_and_maps(mask: torch.Tensor, sens_maps: Complex, b: int):
@@ -72,18 +74,31 @@ def batched_kernel_and_maps(mask: torch.Tensor, sens_maps: Complex, b: int):
             Complex(batched(sens_maps.re), batched(sens_maps.im)))
 
 
-class CineNetCascade(nn.Module):
-    """Denoise, then a CG solve; a single instance serves every cascade."""
+def bind_dc(masked_kspace: Complex, mask: torch.Tensor, sens_maps: Complex, kernel_dc: bool,
+            cg_iters: int, coil_axis: str = "") -> CGDataConsistency:
+    """The request's CG data consistency: ``x_ref = sens_reduce(k, S)``,
+    through the h-axis normal kernel when ``kernel_dc`` and the mask is a
+    line mask (:func:`batched_kernel_and_maps`), else the direct form. Where
+    the solve is graphed, the bound copy of ``x_ref`` replaces the one made
+    here."""
+    image_ref = sens_reduce(masked_kspace, sens_maps, coil_axis=coil_axis)
+    kernel = None
+    if kernel_dc and is_line_mask(mask):
+        kernel, sens_maps = batched_kernel_and_maps(mask, sens_maps, masked_kspace.shape[0])
+    return CGDataConsistency(image_ref, mask, sens_maps, kernel, cg_iters, coil_axis)
 
-    def __init__(self, chans: int, pools: int, cg_iters: int = 4, dynamic_type: str = "XF",
-                 weight_sharing: bool = False, plane_axis: str = "", coil_axis: str = "",
+
+class CineNetCascade(nn.Module):
+    """Denoise, then the request's CG solve (:func:`bind_dc`); a single
+    instance serves every cascade."""
+
+    def __init__(self, chans: int, pools: int, dynamic_type: str = "XF",
+                 weight_sharing: bool = False, plane_axis: str = "",
                  dtype: torch.dtype = torch.float32, packed: bool = False):
         super().__init__()
         if dynamic_type not in DYNAMIC_TYPES:
             raise ValueError(f"unknown dynamic_type {dynamic_type!r}")
-        self.cg_iters = cg_iters
         self.plane_axis = plane_axis
-        self.coil_axis = coil_axis
         self.dynamic_type = dynamic_type
         self.weight_sharing = weight_sharing
         if dynamic_type in ("2D", "3D"):
@@ -119,8 +134,7 @@ class CineNetCascade(nn.Module):
             out = ifft1c(out, axis=1)
         return out + mean
 
-    def forward(self, image_pred: Complex, lam: torch.Tensor, image_ref: Complex,
-                mask: torch.Tensor, sens_maps: Complex, dc_kernel) -> Complex:
+    def forward(self, image_pred: Complex, lam: torch.Tensor, dc: CGDataConsistency) -> Complex:
         x = image_pred[:, :, 0]  # (b, t, h, w)
         b, t, h, w = x.shape
         with span("cinemri.regularizer"):
@@ -134,15 +148,7 @@ class CineNetCascade(nn.Module):
                 model_out = self._xfyf(x)
         model_out = model_out[:, :, None]  # (b, t, 1, h, w)
         with span("cinemri.dc"):
-            v = F.softplus(lam)  # a 0-d tensor on the device
-            rhs = image_ref + v * model_out
-            if dc_kernel is None:
-                def op(z):
-                    return normal_plus_lambda(z, mask, sens_maps, v, self.coil_axis)
-            else:
-                def op(z):
-                    return normal_plus_lambda_kernel(z, dc_kernel, sens_maps, v, self.coil_axis)
-            return conj_grad(op, rhs, model_out, self.cg_iters)
+            return dc(model_out, lam)
 
 
 class CineNet(nn.Module):
@@ -173,6 +179,7 @@ class CineNet(nn.Module):
             )
         check_remat_policy(remat_policy)
         self.num_cascades = num_cascades
+        self.cg_iters = cg_iters
         self.kernel_dc = kernel_dc
         self.remat = remat
         self.remat_policy = remat_policy
@@ -180,8 +187,8 @@ class CineNet(nn.Module):
         self.packed = packed
         self.plane_axis = plane_axis
         self.coil_axis = coil_axis
-        self.cascades = CineNetCascade(chans, pools, cg_iters, dynamic_type, weight_sharing,
-                                       plane_axis, coil_axis, resolve_dtype(bf16), packed)
+        self.cascades = CineNetCascade(chans, pools, dynamic_type, weight_sharing, plane_axis,
+                                       resolve_dtype(bf16), packed)
         self.lambda_reg = nn.Parameter(torch.full((num_cascades,), LAMBDA_INIT))
 
     def partial_parameters(self) -> Dict[str, Tuple[str, ...]]:
@@ -191,13 +198,8 @@ class CineNet(nn.Module):
 
     def forward(self, masked_kspace: Complex, mask: torch.Tensor,
                 sens_maps: Complex) -> torch.Tensor:
-        # (b, t, 1, h, w)
-        image_ref = sens_reduce(masked_kspace, sens_maps, coil_axis=self.coil_axis)
-        dc_kernel = None
-        if self.kernel_dc and is_line_mask(mask):
-            dc_kernel, sens_maps = batched_kernel_and_maps(mask, sens_maps, masked_kspace.shape[0])
-        x = image_ref
+        dc = bind_dc(masked_kspace, mask, sens_maps, self.kernel_dc, self.cg_iters, self.coil_axis)
+        x = dc.image_ref  # (b, t, 1, h, w)
         for i in range(self.num_cascades):
-            x = call_remat(self.cascades, self.remat, self.remat_policy, x, self.lambda_reg[i],
-                           image_ref, mask, sens_maps, dc_kernel)
+            x = call_remat(self.cascades, self.remat, self.remat_policy, x, self.lambda_reg[i], dc)
         return x[:, :, 0].abs()

@@ -16,7 +16,9 @@ the JAX package wraps each scan step. XPDNet's ``primal_only=False`` loop
 Data consistency takes the routes of the non-recurrent models: with
 ``kernel_dc`` and a line mask, VarNet's soft DC runs in image space
 (``soft_dc_image_kernel``: one normal apply per iteration), CineNet's CG
-applies ``normal_plus_lambda_kernel``, and XPDNet's measurement-residual
+applies ``normal_plus_lambda_kernel`` (bound as CineNet's,
+``models.cinenet.bind_dc``, so a served solve on the card replays CUDA
+graphs between its normal applies), and XPDNet's measurement-residual
 k-step and backward operator collapse to ``N(head) − x_ref`` (one normal
 apply with λ = 0); otherwise the direct k-space forms.
 
@@ -65,7 +67,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from cinemri_tpu_torch.models.cinenet import batched_kernel_and_maps
+from cinemri_tpu_torch.models.cinenet import bind_dc
 from cinemri_tpu_torch.models.denoisers.activations import act_dtype, output, resolve_dtype
 from cinemri_tpu_torch.models.denoisers.crnn import BCRNN, FusedSumConv2d, pack2, unpack2
 from cinemri_tpu_torch.models.denoisers.kspace_cnn import KSpaceCNN
@@ -81,13 +83,11 @@ from cinemri_tpu_torch.ops.cplx import (
     to_multi_channels,
 )
 from cinemri_tpu_torch.parallel.mesh import partial_by_prefix
-from cinemri_tpu_torch.physics.cg import conj_grad
 from cinemri_tpu_torch.physics.operators import (
     apply_mask,
     coil_weight,
     is_line_mask,
     masked_normal_kernel,
-    normal_plus_lambda,
     normal_plus_lambda_kernel,
     sens_expand,
     sens_reduce,
@@ -285,33 +285,20 @@ class CineNetRNN(nn.Module):
         """Every rank computes every gradient whole."""
         return partial_by_prefix(self, {})
 
-    def _iteration(self, x: Complex, hiddens: Hiddens, x_ref: Complex, mask: torch.Tensor,
-                   sens_maps: Complex, dc_kernel, block):
+    def _iteration(self, x: Complex, hiddens: Hiddens, dc, block):
         out, hiddens = _trunk_image(self.trunk, x, hiddens, block)
-        out = out[:, :, None]  # (b, t, 1, h, w)
-        v = F.softplus(self.lambda_reg)  # a 0-d tensor on the device
-        rhs = x_ref + v * out
-        if dc_kernel is None:
-            def op(z):
-                return normal_plus_lambda(z, mask, sens_maps, v, self.coil_axis)
-        else:
-            def op(z):
-                return normal_plus_lambda_kernel(z, dc_kernel, sens_maps, v, self.coil_axis)
-        return conj_grad(op, rhs, out, self.cg_iters)[:, :, 0], hiddens
+        return dc(out[:, :, None], self.lambda_reg)[:, :, 0], hiddens
 
     def forward(self, masked_kspace: Complex, mask: torch.Tensor,
                 sens_maps: Complex) -> torch.Tensor:
-        x_ref = sens_reduce(masked_kspace, sens_maps, coil_axis=self.coil_axis)  # (b, t, 1, h, w)
-        x = x_ref[:, :, 0]
+        dc = bind_dc(masked_kspace, mask, sens_maps, self.kernel_dc, self.cg_iters, self.coil_axis)
+        x = dc.image_ref[:, :, 0]
         b, t, h, w = x.shape
         block = self.trunk_block or _trunk_block(h, w, self.packed, self.chans)
         hiddens = _zero_hiddens(x.re, t, b, h, w, self.chans, self.dtype, block)
-        dc_kernel = None
-        if self.kernel_dc and is_line_mask(mask):
-            dc_kernel, sens_maps = batched_kernel_and_maps(mask, sens_maps, b)
         for _ in range(self.num_cascades):
-            x, hiddens = call_remat(self._iteration, self.remat, self.remat_policy, x, hiddens,
-                                    x_ref, mask, sens_maps, dc_kernel, block)
+            x, hiddens = call_remat(self._iteration, self.remat, self.remat_policy, x, hiddens, dc,
+                                    block)
         return x.abs()
 
 

@@ -58,7 +58,7 @@ from typing import Tuple
 import torch
 from torch import Tensor
 
-from cinemri_tpu_torch.ops.kernels import _build
+from cinemri_tpu_torch.ops.kernels import _build, counter
 from cinemri_tpu_torch.ops.kernels.precision import MODES, check_precision, matmul
 
 __all__ = ["complex_dft_matmul", "complex_dft_matmul_torch", "dft_matmul_op", "ComplexDFTMatmul",
@@ -135,10 +135,15 @@ def complex_dft_matmul(
             yr.data_ptr(), yi.data_ptr(), o, n, i, MODES[p], stream,
         )
     _build.check(lib, code, "cinemri_dft_matmul launch")
+    _count(p)
+    return yr, yi
+
+
+@counter
+def _count(p: str) -> None:
     global LAUNCHES
     LAUNCHES += 1
     LAUNCHES_BY_PRECISION[p] += 1
-    return yr, yi
 
 
 @torch.library.custom_op("cinemri::dft_matmul", mutates_args=())

@@ -35,7 +35,7 @@ from typing import Tuple
 import torch
 from torch import Tensor
 
-from cinemri_tpu_torch.ops.kernels import _build
+from cinemri_tpu_torch.ops.kernels import _build, counter
 
 __all__ = ["fft2_plane", "fft2_plane_torch", "fft2_plane_op", "LAUNCHES", "MAX_W"]
 
@@ -102,9 +102,14 @@ def fft2_plane(xr, xi, whr, whi, wwr, wwi) -> Tuple[torch.Tensor, torch.Tensor]:
             wwr.data_ptr(), wwi.data_ptr(), yr.data_ptr(), yi.data_ptr(), b, h, w, stream,
         )
     _build.check(lib, code, "cinemri_fft2_plane launch")
+    _count()
+    return yr, yi
+
+
+@counter
+def _count() -> None:
     global LAUNCHES
     LAUNCHES += 1
-    return yr, yi
 
 
 @torch.library.custom_op("cinemri::fft2_plane", mutates_args=())

@@ -99,7 +99,7 @@ from typing import Tuple
 import torch
 from torch import Tensor
 
-from cinemri_tpu_torch.ops.kernels import _build, trace_safe
+from cinemri_tpu_torch.ops.kernels import _build, counter, trace_safe
 from cinemri_tpu_torch.ops.kernels.precision import MODES, check_precision, matmul
 
 __all__ = [
@@ -407,11 +407,16 @@ def normal_apply(xr, xi, kr, ki, sr, si, lam,
             stream,
         )
     _build.check(lib, code, "cinemri_normal_apply launch")
+    _count(p, route)
+    return outr, outi
+
+
+@counter
+def _count(p: str, route: int) -> None:
     global LAUNCHES
     LAUNCHES += 1
     LAUNCHES_BY_PRECISION[p] += 1
     LAUNCHES_BY_ROUTE[ROUTES[route]] += 1
-    return outr, outi
 
 
 def normal_apply_bwd(xr, xi, gr, gi, kr, ki, sr, si, lam, precision: str = "highest"):
@@ -456,11 +461,16 @@ def normal_apply_bwd(xr, xi, gr, gi, kr, ki, sr, si, lam, precision: str = "high
             *(planes[k + 4:] or [None, None]), b, t, c, h, w, kt, MODES[p], fused, stream,
         )
     _build.check(lib, code, "cinemri_normal_apply_bwd launch")
+    _count_bwd(p, route)
+    return xbr, xbi, sbr, sbi, lb
+
+
+@counter
+def _count_bwd(p: str, route: int) -> None:
     global BWD_LAUNCHES
     BWD_LAUNCHES += 1
     BWD_LAUNCHES_BY_PRECISION[p] += 1
     BWD_LAUNCHES_BY_ROUTE[ROUTES[route]] += 1
-    return xbr, xbi, sbr, sbi, lb
 
 
 @torch.library.custom_op("cinemri::normal_apply", mutates_args=())

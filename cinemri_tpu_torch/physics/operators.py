@@ -28,13 +28,17 @@ a rank's coils of a whole tensor.
 
 from __future__ import annotations
 
+import functools
+
 import torch
+import torch.nn.functional as F
 
 from cinemri_tpu_torch.ops.cplx import Complex, csum
 from cinemri_tpu_torch.ops.fft import _dft_tensors, fft2c, get_dft_precision, ifft2c
 from cinemri_tpu_torch.ops.kernels import normal_cuda, trace_safe
 from cinemri_tpu_torch.parallel.autograd import copy_to_group, reduce_from_group
 from cinemri_tpu_torch.parallel.mesh import mesh_axis
+from cinemri_tpu_torch.physics import cg
 from cinemri_tpu_torch.physics.cg import conj_grad
 
 __all__ = [
@@ -50,6 +54,8 @@ __all__ = [
     "coil_copy",
     "coil_sum",
     "soft_dc_image_kernel",
+    "cg_dc",
+    "CGDataConsistency",
     "set_normal_backend",
     "get_normal_backend",
     "soft_sense_expand",
@@ -241,6 +247,112 @@ def soft_dc_image_kernel(
     alpha = v / (1 + v)
     n = normal_plus_lambda_kernel(model_out, kernel, sens_maps, 0.0, coil_axis)
     return model_out * rss_sq - alpha * n + alpha * x_ref
+
+
+def cg_dc(model_out: Complex, lam: torch.Tensor, image_ref: Complex, operator,
+          iters: int) -> Complex:
+    """CineNet's data consistency: ``iters`` CG steps on ``(AᴴMA + v·I) x =
+    x_ref + v·x_den`` from ``x_den`` (``model_out``), ``x_ref`` =
+    ``image_ref``, ``v = softplus(λ)`` (a 0-d tensor on the device), with
+    ``operator(z, v)`` applying ``AᴴMA + v·I`` (:func:`normal_plus_lambda_kernel`
+    or :func:`normal_plus_lambda`)."""
+    v = F.softplus(lam)
+    rhs = image_ref + v * model_out
+    return conj_grad(lambda z: operator(z, v), rhs, model_out, iters)
+
+
+def _graphed_dc(iters: int, apply, xr, xi, lam, rr, ri) -> Complex:
+    """:func:`cg_dc` as a graphed solve's body, on its buffers ``(x_den, λ,
+    x_ref)``; the result is left in ``x_den``'s, where the next cascade
+    reads it as its input and then refills them."""
+    out = cg_dc(Complex(xr, xi), lam, Complex(rr, ri), apply, iters)
+    xr.copy_(out.re)
+    xi.copy_(out.im)
+    return Complex(xr, xi)
+
+
+def _switches() -> tuple:
+    """The settings that pick a normal apply's kernels (the backend, the
+    precision, the FP32 tile, the float32 matmul precision of the plain
+    version): a graph replays the kernels it captured, so a change of any
+    of them takes a new capture."""
+    return (_NORMAL_BACKEND, get_dft_precision(), normal_cuda.get_fp32_tile(),
+            torch.get_float32_matmul_precision())
+
+
+class _Bound:
+    """A thread's graphed CG data consistency for one layout of ``x_ref``,
+    ``K`` and the maps: their buffers, which a request's binding fills, the
+    operator over them, and the solve (:func:`_graphed_dc`) of the layouts
+    of the last ``x_den`` and λ and of the :func:`_switches` it was made
+    under."""
+
+    def __init__(self, like):
+        with torch.inference_mode(False):
+            self.buffers = [torch.empty_like(t) for t in like]
+        self.ref = self.buffers[:2]
+        kernel, sens_maps = Complex(*self.buffers[2:4]), Complex(*self.buffers[4:])
+        self.operator = lambda z, v: normal_plus_lambda_kernel(z, kernel, sens_maps, v)
+        self.solve, self.switches = None, None
+
+
+class CGDataConsistency:
+    """A request's CG data consistency: its coil-combined image
+    ``image_ref`` and operator (through ``kernel`` of
+    :func:`masked_normal_kernel`, or the direct form on ``mask`` when
+    ``kernel`` is None) bound once; ``dc(model_out, lam)`` is :func:`cg_dc`
+    for one cascade.
+
+    In the kernel form, where
+    :func:`~cinemri_tpu_torch.physics.cg.graph_blocker` finds nothing in the
+    way (dense CUDA tensors, grad mode off, no ``coil_axis``), ``image_ref``,
+    ``kernel`` and ``sens_maps`` are copied into this thread's buffers for
+    their layouts (:func:`~cinemri_tpu_torch.physics.cg.kept`), which
+    :attr:`image_ref` and :attr:`operator` then read, so the caller's copies
+    can go. A call whose ``model_out`` has ``image_ref``'s shape and passes
+    the same check runs as the
+    :class:`~cinemri_tpu_torch.physics.cg.GraphedSolve` over those buffers
+    of its layouts and kernel settings (:func:`_switches`), captured at its
+    first call: the eager loop's bits, left in the solve's ``x_den`` buffers
+    until the next call on this thread. Every other call, and the direct
+    form, whose k-space round trip the solve does not hold, run
+    :func:`cg_dc` eagerly.
+    """
+
+    def __init__(self, image_ref: Complex, mask: torch.Tensor, sens_maps: Complex, kernel,
+                 iters: int, coil_axis: str = ""):
+        self.image_ref, self.iters = image_ref, iters
+        if kernel is None:
+            self.operator = lambda z, v: normal_plus_lambda(z, mask, sens_maps, v, coil_axis)
+        else:
+            self.operator = lambda z, v: normal_plus_lambda_kernel(z, kernel, sens_maps, v,
+                                                                   coil_axis)
+        self._bound = None
+        if kernel is None or iters < 1:
+            return
+        bound = [image_ref.re, image_ref.im, kernel.re, kernel.im, sens_maps.re, sens_maps.im]
+        if cg.graph_blocker(bound, coil_axis) is not None:
+            return
+        self._bound = cg.kept(("cg_dc", iters, cg.layout(bound)), lambda: _Bound(bound))
+        for buf, t in zip(self._bound.buffers, bound):
+            buf.copy_(t)
+        self.image_ref, self.operator = Complex(*self._bound.ref), self._bound.operator
+
+    def __call__(self, model_out: Complex, lam: torch.Tensor) -> Complex:
+        bound = self._bound
+        if bound is not None and torch.is_tensor(lam) and model_out.shape == self.image_ref.shape:
+            args = [model_out.re, model_out.im, lam]
+            if cg.graph_blocker(args) is None:
+                switches = _switches()
+                if (bound.solve is None or not bound.solve.fits(args + bound.ref)
+                        or bound.switches != switches):
+                    with torch.inference_mode(False):
+                        made = [torch.empty_like(t) for t in args]
+                    bound.solve = cg.GraphedSolve(functools.partial(_graphed_dc, self.iters),
+                                                  made + bound.ref)
+                    bound.switches = switches
+                return bound.solve(self.operator, *args, *bound.ref)
+        return cg_dc(model_out, lam, self.image_ref, self.operator, self.iters)
 
 
 def soft_sense_expand(components: Complex, sens_maps_multi: Complex) -> Complex:

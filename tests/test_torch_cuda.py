@@ -1277,3 +1277,161 @@ def test_packed_varnet_2d_matches_dense_on_the_card(dev):
     assert all(n > 0 for n in launched), launched
     assert (outs[1] - outs[0]).abs().max().item() <= 1e-4 * outs[0].abs().max().item()
     assert ((grads[1] - grads[0]).norm() / grads[0].norm()).item() <= 1e-2
+
+
+@pytest.fixture
+def eager_dc(monkeypatch):
+    """``with eager_dc():`` every CG solve runs the eager loop, the one a
+    solve's CUDA graphs are held to; the graphs are dropped before and
+    after."""
+    import contextlib
+
+    from cinemri_tpu_torch.physics import cg
+
+    @contextlib.contextmanager
+    def eager():
+        with monkeypatch.context() as m:
+            m.setattr(cg, "graph_blocker", lambda tensors, coil_axis="": "eager")
+            yield
+
+    cg.clear_graphs()
+    yield eager
+    cg.clear_graphs()
+
+
+def _cinenet_request(dev, seed, t, c, h, w):
+    """k-space, a line mask (centre lines kept) and RSS-normalized maps."""
+    from cinemri_tpu_torch.ops.cplx import Complex
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    r = lambda *s: torch.randn(s, generator=g, device=dev)
+    mask = (torch.rand(1, t, 1, h, 1, generator=g, device=dev) < 0.25).float()
+    mask[:, :, :, h // 2 - 5:h // 2 + 5] = 1
+    k = Complex(r(1, t, c, h, w) * mask, r(1, t, c, h, w) * mask)
+    sr, si = r(1, 1, c, h, w), r(1, 1, c, h, w)
+    rss = (sr ** 2 + si ** 2).sum(2, keepdim=True).sqrt()
+    return k, mask, Complex(sr / rss, si / rss)
+
+
+# CineNet forwards whose CG solves replay CUDA graphs between their normal
+# applies: the benchmark's CineNet-XF at full width, and small XT and CRNN;
+# and a direct-form XF, whose solves stay eager
+GRAPHED = {"xf_full": ("XF", dict(num_cascades=10, cg_iters=6, chans=16, pools=3), (15, 10, 200, 200)),
+           "xt": ("XT", dict(num_cascades=2, cg_iters=3, chans=4, pools=2), (6, 3, 40, 24)),
+           "crnn": ("CRNN", dict(num_cascades=2, cg_iters=3, chans=6), (4, 3, 32, 32)),
+           "xf_direct": ("XF", dict(num_cascades=2, cg_iters=3, chans=4, pools=2, kernel_dc=False),
+                         (6, 3, 40, 24))}
+
+
+@pytest.mark.parametrize("case", sorted(GRAPHED))
+def test_graphed_cinenet_is_the_eager_loop(dev, eager_dc, case):
+    """Served forwards whose CG solves replay CUDA graphs against the eager
+    loop, exactly: two requests with their own data, K and maps; the first's
+    image untouched by the second; a ``no_grad`` call after them. One
+    capture; the second request replays once a cascade and launches the
+    eager loop's kernels on the host (kernel form: 1 + cg_iters normal
+    applies a cascade). The direct form captures nothing and replays
+    nothing."""
+    from cinemri_tpu_torch.models import build_model
+    from cinemri_tpu_torch.ops.kernels import dft_cuda, normal_cuda
+    from cinemri_tpu_torch.physics import cg
+
+    dyn, kw, (t, c, h, w) = GRAPHED[case]
+    model = build_model("cinenet", dyn, device=dev, generator=torch.Generator().manual_seed(0), **kw)
+    first, second = (_cinenet_request(dev, seed, t, c, h, w) for seed in (1, 2))
+    counters = lambda: (cg.GRAPH_REPLAYS, normal_cuda.LAUNCHES, dft_cuda.LAUNCHES)
+
+    def serve_two():
+        with torch.inference_mode():
+            out = [model(*first)]
+            kept = out[0].clone()
+            before = counters()
+            out.append(model(*second))
+            return out, kept, [a - b for a, b in zip(counters(), before)]
+
+    with eager_dc():
+        want, _, eager_counts = serve_two()
+    captures = cg.GRAPH_CAPTURES
+    got, kept, counts = serve_two()
+    with torch.no_grad():
+        again = model(*first)
+    n, iters = kw["num_cascades"], kw["cg_iters"]
+    graphed = kw.get("kernel_dc", True)
+    assert cg.GRAPH_CAPTURES == captures + graphed
+    assert eager_counts[0] == 0 and counts == [n * graphed] + eager_counts[1:]
+    if graphed:
+        assert counts[1] == n * (iters + 1)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert torch.equal(again, want[0]) and torch.equal(got[0], kept)
+    assert not torch.equal(got[0], got[1]) and torch.isfinite(got[1]).all()
+
+
+def test_cinenet_train_step_stays_eager(dev, eager_dc):
+    """A small CineNet-XF train step (remat, gradients recorded) after a
+    served forward has captured its graph: no replay, and the loss, the
+    gradients and the updated weights of the step with every solve eager
+    (cuDNN deterministic, so both steps are the same bits)."""
+    import contextlib
+
+    from cinemri_tpu_torch.models import build_model
+    from cinemri_tpu_torch.physics import cg
+    from cinemri_tpu_torch.train.step import create_train_state, make_train_step
+
+    k, mask, s = _cinenet_request(dev, 3, 6, 3, 40, 24)
+    target = torch.rand(1, 6, 40, 24, generator=torch.Generator(device=dev).manual_seed(4), device=dev)
+    batch = {"masked_kspace": k, "mask": mask, "sens_maps": s, "target": target}
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    runs = []
+    try:
+        for eager in (True, False):
+            model = build_model("cinenet", "XF", device=dev, generator=torch.Generator().manual_seed(0),
+                                num_cascades=2, cg_iters=3, chans=4, pools=2)
+            with eager_dc() if eager else contextlib.nullcontext():
+                with torch.inference_mode():
+                    model(k, mask, s)
+                state = create_train_state(model, device=dev, lr=1e-3)
+                captures, replays = cg.GRAPH_CAPTURES, cg.GRAPH_REPLAYS
+                state, aux = make_train_step()(state, batch)
+                assert (cg.GRAPH_CAPTURES, cg.GRAPH_REPLAYS) == (captures, replays)
+            runs.append((aux["loss"], [p.grad.clone() for p in model.parameters()],
+                         [p.detach().clone() for p in model.parameters()]))
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    assert cg.GRAPH_CAPTURES >= 1
+    (loss_e, grads_e, params_e), (loss_g, grads_g, params_g) = runs
+    assert torch.equal(loss_e, loss_g)
+    assert all(torch.equal(a, b) for a, b in zip(grads_e, grads_g))
+    assert all(torch.equal(a, b) for a, b in zip(params_e, params_g))
+
+
+def test_replayed_normal_applies_keep_their_profiler_link(dev, eager_dc):
+    """Under the profiler with the card's activity, a served CineNet-XF
+    forward on the CUDA graphs records as many ``cinemri::normal_apply``
+    calls as the eager loop, each with the same operand shapes and with
+    the device time of the kernels its replay launched linked to it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from cinemri_tpu_torch.models import build_model
+
+    kw = dict(num_cascades=2, cg_iters=3, chans=4, pools=2)
+    model = build_model("cinenet", "XF", device=dev, generator=torch.Generator().manual_seed(0), **kw)
+    request = _cinenet_request(dev, 5, 6, 3, 40, 24)
+
+    def calls():
+        with torch.inference_mode():
+            model(*request)  # the capture, where the graphs engage
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                         record_shapes=True) as prof:
+                model(*request)
+                torch.cuda.synchronize()
+        return [(e.input_shapes, e.device_time_total) for e in prof.events()
+                if e.name == "cinemri::normal_apply"]
+
+    with eager_dc():
+        eager = calls()
+    graphed = calls()
+    assert len(eager) == kw["num_cascades"] * (kw["cg_iters"] + 1)
+    assert [s for s, _ in graphed] == [s for s, _ in eager]
+    assert all(t > 0 for _, t in eager + graphed)

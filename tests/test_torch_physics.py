@@ -440,7 +440,7 @@ class TestSharedKernelAndMaps:
             data_ptrs.add((kernel.re.data_ptr(), sens_maps.re.data_ptr()))
             return real_kernel(x, kernel, sens_maps, lam, coil_axis)
 
-        monkeypatch.setattr("cinemri_tpu_torch.models.cinenet.normal_plus_lambda_kernel", spy)
+        monkeypatch.setattr(TO, "normal_plus_lambda_kernel", spy)  # cg_dc's operator
         with torch.inference_mode():
             got = model(from_complex(k), torch.from_numpy(mask), from_complex(s)).numpy()
         assert got.shape == (b, t, h, w)
